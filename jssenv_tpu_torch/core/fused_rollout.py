@@ -1,0 +1,473 @@
+"""The whole auto-resetting rollout in one CUDA launch, with plain twins.
+
+The PyTorch counterpart of ``jssenv_tpu/core/pallas_rollout.py``. Two entry
+points with the JAX signatures (minus the TPU's ``tile``/``interpret``):
+
+* ``rollout_driven(state, actions, num_steps)`` — T steps on a caller-supplied
+  (T, B) action stream, finished lanes auto-reset exactly like
+  ``vector.step_autoreset``; returns (final state, (T, B) int32 raw rewards).
+* ``rollout_free(state, num_steps, seed=0, with_solution=True, bits=None)`` —
+  T steps of a uniform-over-legal policy sampled inside the kernel, auto-reset
+  and episode stats with the exact reward-identity check
+  ``raw return == 2*sum_op - M*makespan``; returns summary stats.
+
+On a CUDA state each launches its hand-written kernel
+(``csrc/rollout.cu``) or raises; on a CPU state each runs its plain twin
+(``rollout_driven_reference`` / ``rollout_free_reference``), built on
+``core.engine`` and ``vector``. Nothing falls back from one to the other.
+
+Random bits: with ``bits=None`` the free rollout draws one 32-bit Philox4x32-10
+word per (step, lane), keyed by ``seed`` with counter (t, lane); the twin
+computes the same words (``philox_bits``), so both modes compare exactly.
+
+Host plumbing: the dynamic state moves to one batch-last (R, B) int32 buffer
+(``_to_lanes`` / ``_from_lanes``, rows in ``_ROWS`` order), the static tables
+to one (n_inst, 4, J, M) int32 stack of the batch's distinct instances with a
+per-lane instance index, so ragged batches need no lane grouping. The stack
+is built once per batch and cached (``_lane_inputs``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from jssenv_tpu_torch import vector
+from jssenv_tpu_torch.core import _build, engine
+from jssenv_tpu_torch.core.state import I32_MAX, EnvState
+
+_I32 = torch.int32
+
+# Kernel launches per entry point: each wrapper adds one where it launches.
+LAUNCHES: Dict[str, int] = {"rollout_driven": 0, "rollout_free": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# Dynamic fields in the (R, B) lane buffer, in the kernel's row order
+# (csrc/rollout.cu ``Layout``); kinds: l = one row, J/M = one row per job or
+# machine, JM = J*M rows (solution, absent for a light state or when the free
+# rollout skips the solution).
+_ROWS = (
+    ("time", "l"),
+    ("noop_legal", "l"),
+    ("nb_legal", "l"),
+    ("nb_machine_legal", "l"),
+    ("legal", "J"),
+    ("machine_legal", "M"),
+    ("machine_busy_for", "M"),
+    ("job_busy_for", "J"),
+    ("next_op", "J"),
+    ("work_done", "J"),
+    ("needed_machine", "J"),
+    ("op_end_at", "J"),
+    ("idle_frozen", "J"),
+    ("idle_total_alloc", "J"),
+    ("noop_pin", "J"),
+    ("wait4", "J"),
+    ("solution", "JM"),
+)
+
+
+def _row_sizes(J: int, M: int, with_solution: bool):
+    n = {"l": 1, "J": J, "M": M, "JM": J * M if with_solution else 0}
+    return [n[kind] for _, kind in _ROWS]
+
+
+def _to_lanes(state: EnvState, with_solution: bool) -> torch.Tensor:
+    """Batch-first dynamic fields -> one contiguous (R, B) int32 buffer."""
+    B = state.batch_size
+    cols = [
+        getattr(state, name).reshape(B, -1).to(_I32)
+        for name, kind in _ROWS
+        if with_solution or kind != "JM"
+    ]
+    return torch.cat(cols, dim=1).t().contiguous()
+
+
+def _from_lanes(buf: torch.Tensor, state: EnvState, with_solution: bool) -> EnvState:
+    """Inverse of ``_to_lanes``: the fields of ``state`` replaced from ``buf``,
+    in their own shapes and dtypes (masks back to bool)."""
+    parts = torch.split(buf, _row_sizes(state.jobs_pad, state.machines_pad, with_solution))
+    upd = {}
+    for (name, kind), rows in zip(_ROWS, parts):
+        if kind == "JM" and not with_solution:
+            continue
+        ref = getattr(state, name)
+        upd[name] = rows.t().reshape(ref.shape).to(ref.dtype)
+    return state.replace(**upd)
+
+
+# ---------------------------------------------------------------------------
+# per-lane instance tables
+# ---------------------------------------------------------------------------
+
+
+_TABLES = ("op_machine", "op_dur", "op_pos", "cum_before")
+_LANE_FIELDS = _TABLES + ("num_jobs", "num_machines", "max_time_op", "sum_op")
+
+# (tab, lanec) of a batch, keyed by the identity and in-place version counter
+# of its static tensors: a rollout passes the same never-written tables on
+# every call (the JAX package caches its lane grouping the same way). The
+# entries hold the tensors, so an id is not reused while it is cached.
+# Inference-mode tensors keep no version counter and are keyed by id alone.
+_LANE_CACHE: Dict[tuple, tuple] = {}
+_LANE_CACHE_SIZE = 8
+
+
+def _lane_inputs(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(tab, lanec): the (n_inst, 4, J, M) int32 stack of distinct instance
+    tables [op_machine, op_dur, op_pos, cum_before], and the (5, B) int32 lane
+    constants [instance index, num_jobs, num_machines, max_time_op, sum_op]."""
+    fields = tuple(getattr(state, f) for f in _LANE_FIELDS)
+    key = tuple((id(t), -1 if t.is_inference() else t._version) for t in fields)
+    hit = _LANE_CACHE.get(key)
+    if hit is not None:
+        return hit[1]
+    out = _lane_inputs_uncached(state)
+    if len(_LANE_CACHE) >= _LANE_CACHE_SIZE:
+        _LANE_CACHE.clear()
+    _LANE_CACHE[key] = (fields, out)
+    return out
+
+
+def _fingerprint(flat: torch.Tensor) -> torch.Tensor:
+    """(B,) int64 key of each row: equal rows, equal keys."""
+    g = torch.Generator().manual_seed(0x5EED)
+    w = torch.randint(-(2**62), 2**62, (flat.shape[1],), dtype=torch.int64, generator=g)
+    return (flat.to(torch.int64) * w.to(flat.device)).sum(dim=1)
+
+
+def _lane_inputs_uncached(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact deduplication of the lanes' rows of tables and bounds: sorted by
+    fingerprint, a new instance starts wherever a row differs from the one
+    before it. Equal rows have equal keys and end up side by side; a key
+    collision can only split an instance into several equal entries, never
+    merge two. (``torch.unique(dim=0)`` does the same exactly but sorts rows
+    lexicographically, tens of ms at full width.)"""
+    B, J, M = state.batch_size, state.jobs_pad, state.machines_pad
+    flat = torch.cat(
+        [getattr(state, f).reshape(B, -1).to(_I32) for f in _TABLES]
+        + [state.num_jobs[:, None].to(_I32), state.num_machines[:, None].to(_I32)],
+        dim=1,
+    )
+    order = torch.argsort(_fingerprint(flat), stable=True)
+    rows = flat[order]
+    first = torch.ones((B,), dtype=torch.bool, device=flat.device)
+    first[1:] = (rows[1:] != rows[:-1]).any(dim=1)
+    inv = torch.empty_like(order)
+    inv[order] = torch.cumsum(first, dim=0) - 1
+    tab = rows[first][:, : 4 * J * M].reshape(-1, 4, J, M).contiguous()
+    lanec = torch.stack(
+        [inv.to(_I32), state.num_jobs, state.num_machines, state.max_time_op, state.sum_op]
+    ).to(_I32).contiguous()
+    return tab, lanec
+
+
+# ---------------------------------------------------------------------------
+# kernel binding
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built ``csrc/rollout.cu`` with its C signatures declared."""
+    lib = _build.load("rollout")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.jss_max_machines.restype = I
+    lib.jss_rollout_driven.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+    lib.jss_rollout_driven.restype = I
+    lib.jss_rollout_free.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, P]
+    lib.jss_rollout_free.restype = I
+    return lib
+
+
+def _check_launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def _check_kernel_inputs(state: EnvState, *tensors: torch.Tensor) -> None:
+    dev = state.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    M, lim = state.machines_pad, _lib().jss_max_machines()
+    if M > lim:
+        raise ValueError(f"the CUDA kernel handles at most {lim} machines, got {M}")
+    for t in tensors:
+        if t.device != dev or t.dtype != _I32 or not t.is_contiguous():
+            raise ValueError(
+                f"kernel input must be contiguous int32 on {dev}, got {t.dtype} on {t.device}"
+            )
+
+
+def launch_driven(state: EnvState, buf, tab, lanec, actions, rewards, with_solution: bool) -> None:
+    """One ``rollout_driven_kernel`` launch on prepared buffers (``buf`` is
+    updated in place, ``rewards`` (T, B) written) on the current stream."""
+    _check_kernel_inputs(state, buf, tab, lanec, actions, rewards)
+    T, B = actions.shape
+    with torch.cuda.device(state.device):
+        err = _lib().jss_rollout_driven(
+            buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), actions.data_ptr(),
+            rewards.data_ptr(), B, state.jobs_pad, state.machines_pad, T,
+            int(with_solution), torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(err, "rollout_driven_kernel")
+    LAUNCHES["rollout_driven"] += 1
+
+
+def launch_free(state: EnvState, buf, tab, lanec, bits, seed: int, stats, ret, T: int) -> None:
+    """One ``rollout_free_kernel`` launch on a light ``buf`` (no solution
+    rows), updated in place: per-lane stats (4, B) int64 and returns (B,)
+    float32 written."""
+    _check_kernel_inputs(state, buf, tab, lanec, *(() if bits is None else (bits,)))
+    if stats.dtype != torch.int64 or ret.dtype != torch.float32:
+        raise ValueError("stats must be int64 and ret float32")
+    with torch.cuda.device(state.device):
+        err = _lib().jss_rollout_free(
+            buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(),
+            None if bits is None else bits.data_ptr(), seed & (2**64 - 1),
+            stats.data_ptr(), ret.data_ptr(), state.batch_size, state.jobs_pad,
+            state.machines_pad, T, torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(err, "rollout_free_kernel")
+    LAUNCHES["rollout_free"] += 1
+
+
+# ---------------------------------------------------------------------------
+# argument checks shared by the kernel and the twins
+# ---------------------------------------------------------------------------
+
+
+def _solution_mode(state: EnvState) -> bool:
+    rows = state.solution.shape[1]
+    if rows not in (0, state.jobs_pad):
+        raise ValueError(f"solution has {rows} rows; expected 0 or {state.jobs_pad}")
+    return rows > 0
+
+
+def _int_stream(x: torch.Tensor, name: str, T: int, state: EnvState) -> torch.Tensor:
+    """A (T, B) integer stream as contiguous int32 on the state's device
+    (uint32 words are reinterpreted bit for bit)."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if x.device != state.device:
+        raise ValueError(f"{name} is on {x.device}, the state on {state.device}")
+    if tuple(x.shape) != (T, state.batch_size):
+        raise ValueError(f"{name} must be (T, B)=({T}, {state.batch_size}), got {tuple(x.shape)}")
+    if x.dtype == torch.uint32:
+        x = x.view(_I32)
+    elif x.dtype.is_floating_point or x.dtype == torch.bool:
+        raise TypeError(f"{name} must be an integer tensor, got {x.dtype}")
+    return x.to(_I32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# driven rollout
+# ---------------------------------------------------------------------------
+
+
+def rollout_driven(
+    state: EnvState, actions: torch.Tensor, num_steps: int
+) -> Tuple[EnvState, torch.Tensor]:
+    """Run ``num_steps`` steps on a (T, B) action stream with auto-reset.
+
+    Returns (final state, (T, B) int32 raw rewards); stepwise identical to
+    ``vector.step_autoreset`` on the same actions. A light state
+    (``vector.strip_solution``) stays light. CUDA state: one kernel launch;
+    CPU state: the plain twin."""
+    T = int(num_steps)
+    actions = _int_stream(actions, "actions", T, state)
+    with_solution = _solution_mode(state)
+    if state.device.type == "cpu":
+        return rollout_driven_reference(state, actions, T)
+    return _driven_kernel(state, actions, T, with_solution)
+
+
+def _driven_kernel(state: EnvState, actions: torch.Tensor, T: int, with_solution: bool):
+    buf = _to_lanes(state, with_solution)
+    tab, lanec = _lane_inputs(state)
+    rewards = torch.empty((T, state.batch_size), dtype=_I32, device=state.device)
+    launch_driven(state, buf, tab, lanec, actions, rewards, with_solution)
+    return _from_lanes(buf, state, with_solution), rewards
+
+
+def rollout_driven_reference(
+    state: EnvState, actions: torch.Tensor, num_steps: int
+) -> Tuple[EnvState, torch.Tensor]:
+    """Plain twin of the driven kernel: ``vector.step_autoreset`` per step."""
+    stats = vector.RolloutStats.zero(state.device)
+    raws = []
+    for t in range(int(num_steps)):
+        state, tr, stats = vector.step_autoreset(state, actions[t], stats)
+        raws.append(tr.raw_reward)
+    if not raws:
+        return state, torch.empty((0, state.batch_size), dtype=_I32, device=state.device)
+    return state, torch.stack(raws)
+
+
+# ---------------------------------------------------------------------------
+# free-running rollout
+# ---------------------------------------------------------------------------
+
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
+
+
+def _philox4x32(c, k0: int, k1: int):
+    """Philox4x32-10 on four (N,) int64 counter words holding uint32 values;
+    returns the four output words. int64 products wrap like uint64, so the
+    high 32 bits come out exact."""
+    c0, c1, c2, c3 = c
+    for _ in range(10):
+        p0, p1 = c0 * _PHILOX_M0, c2 * _PHILOX_M1
+        hi0, lo0 = (p0 >> 32) & _U32, p0 & _U32
+        hi1, lo1 = (p1 >> 32) & _U32, p1 & _U32
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W0) & _U32, (k1 + _PHILOX_W1) & _U32
+    return c0, c1, c2, c3
+
+
+def philox_bits(seed: int, t: int, batch_size: int, device) -> torch.Tensor:
+    """(B,) int32 random words of step ``t``: word 0 of Philox4x32-10 with
+    key = ``seed`` (64 bits) and counter (t, lane, 0, 0) — the words the free
+    kernel draws with ``bits=None``."""
+    seed &= 2**64 - 1
+    lane = torch.arange(batch_size, dtype=torch.int64, device=device)
+    z = torch.zeros_like(lane)
+    w = _philox4x32((z + (t & _U32), lane, z, z), seed & _U32, seed >> 32)[0]
+    return (w - ((w >> 31) << 32)).to(_I32)  # uint32 -> int32, same bits
+
+
+def sample_from_bits(bits: torch.Tensor, state: EnvState) -> torch.Tensor:
+    """The kernel's sampling rule: ``k = (bits >>> 1) mod (nb_legal +
+    noop_legal)``; the k-th legal job (index order), or the no-op (action id
+    ``num_jobs``) when ``k >= nb_legal``. Logical shift: torch's ``>>`` on
+    int32 is arithmetic, hence the mask."""
+    k31 = (bits >> 1) & 0x7FFFFFFF
+    n = state.nb_legal + state.noop_legal.to(_I32)
+    k = k31 % torch.clamp(n, min=1)
+    csum = torch.cumsum(state.legal.to(_I32), dim=1)
+    chosen = state.legal & (csum == (k + 1)[:, None])
+    j = torch.arange(state.jobs_pad, dtype=_I32, device=state.device)
+    job = torch.where(chosen, j, 0).sum(dim=1, dtype=_I32)
+    return torch.where(k >= state.nb_legal, state.num_jobs, job)
+
+
+def _reduce_stats(lanes: Dict[str, torch.Tensor], T: int, B: int) -> Dict[str, torch.Tensor]:
+    dev = lanes["episodes"].device
+    return {
+        "episodes": lanes["episodes"].sum(),
+        "total_makespan": lanes["mk_sum"].sum(),
+        "min_makespan": lanes["mk_min"].min().to(_I32),
+        "steps": torch.tensor(T * B, dtype=torch.int64, device=dev),
+        "identity_violations": lanes["viol"].sum(),
+        "total_return": lanes["ret"].sum(),
+    }
+
+
+def free_lane_stats(
+    state: EnvState,
+    num_steps: int,
+    seed: int = 0,
+    bits: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Per-lane stats of a free rollout, (B,) each: ``episodes``, ``mk_sum``
+    (int64), ``mk_min`` (int64, INT32_MAX where no episode ended), ``viol``
+    (int64), ``ret`` (float32 sum of scaled rewards). Kernel on CUDA, twin on
+    CPU; ``rollout_free`` reduces these. The stats never read the schedule,
+    so both run on the light state (``vector.strip_solution``)."""
+    T = int(num_steps)
+    if bits is not None:
+        bits = _int_stream(bits, "bits", T, state)
+    if state.device.type == "cpu":
+        return free_lane_stats_reference(state, T, seed, bits)
+    return _free_kernel(state, T, seed, bits)
+
+
+def _free_kernel(state: EnvState, T: int, seed: int, bits):
+    B = state.batch_size
+    buf = _to_lanes(state, with_solution=False)
+    tab, lanec = _lane_inputs(state)
+    stats = torch.empty((4, B), dtype=torch.int64, device=state.device)
+    ret = torch.empty((B,), dtype=torch.float32, device=state.device)
+    launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T)
+    return {"episodes": stats[0], "mk_sum": stats[1], "mk_min": stats[2], "viol": stats[3], "ret": ret}
+
+
+def free_lane_stats_reference(
+    state: EnvState,
+    num_steps: int,
+    seed: int = 0,
+    bits: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Plain twin of the free kernel, per lane: sample with
+    ``sample_from_bits``, ``engine.step``, identity check, auto-reset."""
+    state = vector.strip_solution(state)
+    B, dev = state.batch_size, state.device
+    z64 = lambda: torch.zeros((B,), dtype=torch.int64, device=dev)  # noqa: E731
+    episodes, mk_sum, viol = z64(), z64(), z64()
+    mk_min = torch.full((B,), I32_MAX, dtype=torch.int64, device=dev)
+    ret = torch.zeros((B,), dtype=torch.float32, device=dev)
+    ep_raw = torch.zeros((B,), dtype=_I32, device=dev)
+    identity0 = 2 * state.sum_op
+    for t in range(int(num_steps)):
+        w = bits[t] if bits is not None else philox_bits(seed, t, B, dev)
+        state, tr = engine.step(state, sample_from_bits(w, state))
+        done = tr.done
+        ep_raw = ep_raw + tr.raw_reward
+        mk = state.time
+        episodes += done
+        mk_sum += torch.where(done, mk, 0)
+        mk_min = torch.where(done, torch.minimum(mk_min, mk.to(torch.int64)), mk_min)
+        viol += done & (ep_raw != identity0 - state.num_machines * mk)
+        ret = ret + tr.reward
+        ep_raw = torch.where(done, 0, ep_raw)
+        state = vector.reset_lanes(state, done)
+    return {"episodes": episodes, "mk_sum": mk_sum, "mk_min": mk_min, "viol": viol, "ret": ret}
+
+
+def rollout_free(
+    state: EnvState,
+    num_steps: int,
+    seed: int = 0,
+    with_solution: bool = True,
+    bits: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Free-running uniform-over-legal rollout with auto-reset.
+
+    Returns scalars: ``episodes``, ``total_makespan``, ``steps``,
+    ``identity_violations`` (int64 — the JAX package's int32 sums wrap at
+    full width; the values are equal wherever they do not), ``min_makespan``
+    (int32, INT32_MAX if no episode ended) and ``total_return`` (float32).
+    ``identity_violations`` must be 0. Assumes a freshly reset ``state``
+    (the per-episode return accumulator starts at zero). ``bits``: optional
+    (T, B) int32/uint32 words used instead of Philox. ``with_solution`` is
+    accepted for the JAX signature and ignored: the stats never read the
+    schedule, so the rollout always runs on the light state."""
+    T = int(num_steps)
+    lanes = free_lane_stats(state, T, seed, bits)
+    return _reduce_stats(lanes, T, state.batch_size)
+
+
+def rollout_free_reference(
+    state: EnvState,
+    num_steps: int,
+    seed: int = 0,
+    with_solution: bool = True,
+    bits: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Plain twin of ``rollout_free`` on any device (``with_solution`` ignored
+    as there)."""
+    T = int(num_steps)
+    if bits is not None:
+        bits = _int_stream(bits, "bits", T, state)
+    lanes = free_lane_stats_reference(state, T, seed, bits)
+    return _reduce_stats(lanes, T, state.batch_size)

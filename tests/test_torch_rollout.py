@@ -1,0 +1,351 @@
+"""The fused rollout: its plain twins against the JAX package's Pallas kernels
+(interpret mode) and XLA engine, its host plumbing, its Philox words, and —
+on a card only (``-m cuda``) — the CUDA kernels against the twins.
+
+JAX is imported inside the tests that compare against it, so the card tests
+of this file also run where JAX is not installed."""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from jssenv_tpu_torch import instances as ti
+from jssenv_tpu_torch import vector as tv
+from jssenv_tpu_torch.core import fused_rollout as fr
+from jssenv_tpu_torch.core import state as ts
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    jax = pytest.importorskip("jax")
+    pytest.importorskip("flax")
+    from jssenv_tpu import instances, vector
+    from jssenv_tpu.core import pallas_rollout
+
+    return types.SimpleNamespace(jax=jax, jnp=jax.numpy, inst=instances, vector=vector, pallas=pallas_rollout)
+
+
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; run `pytest -m cuda tests/test_torch_*.py` on the card")
+    return torch.device("cuda")
+
+
+def _np(state, jax):
+    return {k: np.asarray(v) for k, v in vars(jax.device_get(state)).items()}
+
+
+def _same_state(port, want):
+    got = ts.to_numpy(port)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def _port_actions(state, T, seed):
+    """A legal (T, B) action stream from the port's own sampler."""
+    g = torch.Generator(device=state.device).manual_seed(seed)
+    stats = tv.RolloutStats.zero(state.device)
+    acts = []
+    for _ in range(T):
+        a = tv.random_legal_actions(g, state)
+        acts.append(a)
+        state, _, stats = tv.step_autoreset(state, a, stats)
+    return torch.stack(acts)
+
+
+def _bits(T, B, seed):
+    return np.random.default_rng(seed).integers(-(2**31), 2**31, size=(T, B), dtype=np.int64).astype(np.int32)
+
+
+# the small cases of tests/test_pallas.py: (instance-set factory, B, T, tile)
+DRIVEN = {
+    "single_ta01": (lambda m: m.stack_instances([m.get_instance("ta01")]), 4, 32, 4),
+    "episode_boundary": (lambda m: m.stack_instances([m.random_instance(6, 5, (1, 9), seed=3)]), 4, 160, 4),
+    "padded": (lambda m: m.stack_instances([m.random_instance(5, 4, (1, 9), seed=11)], jobs_pad=8,
+                                           machines_pad=6), 4, 120, 4),
+    "ragged": (lambda m: m.stack_instances([m.random_instance(6, 5, (1, 9), seed=3),
+                                            m.random_instance(5, 4, (1, 9), seed=4)]), 8, 100, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DRIVEN))
+def test_driven_twin_matches_pallas(jx, case):
+    build, B, T, tile = DRIVEN[case]
+    state = tv.make_batch(build(ti), B, device="cpu")
+    acts = _port_actions(state, T, seed=len(case))
+    js = jx.vector.make_batch(build(jx.inst), B)
+    jfinal, jraw = jx.pallas.rollout_driven(js, jx.jnp.asarray(acts.numpy()), T, tile=tile, interpret=True)
+    before = dict(fr.LAUNCHES)
+    final, raw = fr.rollout_driven(state, acts, T)
+    np.testing.assert_array_equal(raw.numpy(), np.asarray(jraw))
+    _same_state(final, _np(jfinal, jx.jax))
+    assert fr.LAUNCHES == before  # CPU: the twin, no kernel
+
+
+FREE = {
+    "single": (lambda m: m.stack_instances([m.random_instance(6, 5, (1, 9), seed=7)]), 4, 200, 4),
+    "ragged": (lambda m: m.stack_instances([m.random_instance(6, 5, (1, 9), seed=3),
+                                            m.random_instance(5, 4, (1, 9), seed=4)]), 8, 150, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FREE))
+def test_free_twin_matches_pallas(jx, case):
+    build, B, T, tile = FREE[case]
+    bits = _bits(T, B, seed=len(case))
+    js = jx.vector.make_batch(build(jx.inst), B)
+    want = jx.pallas.rollout_free(js, T, tile=tile, interpret=True, bits=jx.jnp.asarray(bits))
+    want = {k: np.asarray(v) for k, v in want.items()}
+    got = fr.rollout_free(tv.make_batch(build(ti), B, device="cpu"), T, bits=torch.from_numpy(bits))
+    assert int(got["identity_violations"]) == int(want["identity_violations"]) == 0
+    assert int(got["episodes"]) == int(want["episodes"]) > 0
+    for k in ("total_makespan", "min_makespan", "steps"):
+        assert int(got[k]) == int(want[k]), k
+    assert float(got["total_return"]) == pytest.approx(float(want["total_return"]), rel=1e-5)
+    assert got["episodes"].dtype == got["total_makespan"].dtype == torch.int64
+    assert got["min_makespan"].dtype == torch.int32
+
+
+def test_driven_twin_matches_xla_engine_at_B1024(jx):
+    """B >= 1024: the batch size at which a TPU miscompile once hid."""
+    jax, jv = jx.jax, jx.vector
+    B, T = 1024, 96
+    js = jv.make_batch(jx.inst.random_instance(10, 8, (1, 9), seed=5), B)
+
+    @jax.jit
+    def run(s, rng):
+        def body(carry, _):
+            rng, s, stats = carry
+            rng, sub = jax.random.split(rng)
+            a = jv.random_legal_actions(sub, s)
+            s, tr, stats = jv.step_autoreset(s, a, stats)
+            return (rng, s, stats), (a, tr.raw_reward)
+
+        return jax.lax.scan(body, (rng, s, jv.RolloutStats.zero()), None, length=T)
+
+    (_, jfinal, jstats), (acts, raws) = run(js, jax.random.key(0))
+    assert int(jstats.episodes) >= B  # every lane crossed an episode boundary
+    state = tv.make_batch(ti.random_instance(10, 8, (1, 9), seed=5), B, device="cpu")
+    final, raw = fr.rollout_driven(state, torch.from_numpy(np.asarray(acts)), T)
+    np.testing.assert_array_equal(raw.numpy(), np.asarray(raws))
+    _same_state(final, _np(jfinal, jax))
+
+
+# ---------------------------------------------------------------------------
+# random words and sampling
+# ---------------------------------------------------------------------------
+
+
+def test_philox_known_answers():
+    """Random123's Philox4x32-10 known-answer vectors."""
+    kats = [
+        ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+        ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+         (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+    ]
+    for ctr, key, want in kats:
+        out = fr._philox4x32([torch.tensor([c], dtype=torch.int64) for c in ctr], *key)
+        assert tuple(int(w) for w in out) == want
+
+
+def test_philox_bits_counter_and_key():
+    seed = 0x1234_5678_9ABC_DEF0
+    w = fr.philox_bits(seed, 7, 5, "cpu")
+    assert w.dtype == torch.int32 and w.shape == (5,)
+    for lane in range(5):
+        c = [torch.tensor([x], dtype=torch.int64) for x in (7, lane, 0, 0)]
+        want = int(fr._philox4x32(c, seed & 0xFFFFFFFF, seed >> 32)[0])
+        assert int(w[lane]) & 0xFFFFFFFF == want
+    assert not torch.equal(w, fr.philox_bits(seed, 8, 5, "cpu"))
+    assert not torch.equal(w, fr.philox_bits(seed + 1, 7, 5, "cpu"))
+
+
+def test_sample_from_bits_shifts_logically():
+    state = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")  # 15 legal jobs, no no-op
+    bits = torch.tensor([-1, -(2**31), 2**31 - 1, 2], dtype=torch.int32)
+    # k = (bits >>> 1) mod 15: 0x7FFFFFFF % 15 = 7, 0x40000000 % 15 = 4, 0x3FFFFFFF % 15 = 3, 1
+    assert fr.sample_from_bits(bits, state).tolist() == [7, 4, 3, 1]
+    noop = state.replace(noop_legal=torch.ones_like(state.noop_legal),
+                         nb_legal=torch.zeros_like(state.nb_legal),
+                         legal=torch.zeros_like(state.legal))
+    assert fr.sample_from_bits(bits, noop).tolist() == [15] * 4
+
+
+def test_uint32_bits_equal_int32_bits():
+    state = tv.make_batch(ti.random_instance(6, 5, (1, 9), seed=2), 4, device="cpu")
+    b = _bits(60, 4, seed=1)
+    a = fr.rollout_free(state, 60, bits=torch.from_numpy(b))
+    u = fr.rollout_free(state, 60, bits=torch.from_numpy(b.view(np.uint32)))
+    assert all(torch.equal(a[k], u[k]) for k in a)
+
+
+# ---------------------------------------------------------------------------
+# host plumbing and argument checks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("light", [False, True])
+def test_lane_layout_round_trip(light):
+    state = tv.make_batch(ti.get_instance_set(["ta01", "ta41"]), 5, device="cpu")
+    state, _ = fr.rollout_driven(state, _port_actions(state, 30, 0), 30)
+    if light:
+        state = tv.strip_solution(state)
+    J, M = state.jobs_pad, state.machines_pad
+    buf = fr._to_lanes(state, not light)
+    assert buf.shape == (4 + 10 * J + 2 * M + (0 if light else J * M), 5)
+    assert buf.dtype == torch.int32 and buf.is_contiguous()
+    assert torch.equal(buf[0], state.time) and torch.equal(buf[4 + J + 2 * M:4 + 2 * J + 2 * M],
+                                                           state.job_busy_for.t())
+    back = fr._from_lanes(buf, state, not light)
+    for k in ts.FIELD_NAMES:
+        v, w = getattr(back, k), getattr(state, k)
+        assert v.dtype == w.dtype and torch.equal(v, w), k
+
+
+def _tables_of(state):
+    return torch.stack([t.to(torch.int32) for t in (state.op_machine, state.op_dur, state.op_pos,
+                                                    state.cum_before)], dim=1)
+
+
+def test_lane_inputs_group_instances(monkeypatch):
+    src = ti.get_instance_set(["ta01", "ta41", "ta01"], jobs_pad=30, machines_pad=20)
+    state = tv.make_batch(src, 7, device="cpu")
+    tab, lanec = fr._lane_inputs(state)
+    assert tab.shape == (2, 4, 30, 20) and lanec.shape == (5, 7)
+    assert tab.dtype == lanec.dtype == torch.int32
+    assert torch.equal(tab[lanec[0].long()], _tables_of(state))
+    for row, field in enumerate(("num_jobs", "num_machines", "max_time_op", "sum_op"), start=1):
+        assert torch.equal(lanec[row], getattr(state, field)), field
+    # later steps of the batch reuse the tables; an in-place write to a
+    # table is seen
+    stepped, _ = fr.rollout_driven(state, _port_actions(state, 3, 0), 3)
+    again = fr._lane_inputs(stepped)
+    assert again[0] is tab and again[1] is lanec
+    state.op_dur[0, 0, 0] += 1
+    tab2, lanec2 = fr._lane_inputs(state)
+    assert tab2.shape[0] == 3 and torch.equal(tab2[lanec2[0].long()], _tables_of(state))
+    # lanes whose tables are equal share one instance, whatever tensors hold them
+    twin = state.replace(**{f: getattr(state, f).clone() for f in ("op_machine", "op_dur")})
+    tab3, lanec3 = fr._lane_inputs(twin)
+    assert tab3 is not tab2 and torch.equal(tab3, tab2) and torch.equal(lanec3, lanec2)
+    # colliding keys split an instance, never merge two: still exact
+    monkeypatch.setattr(fr, "_fingerprint", lambda flat: torch.zeros(flat.shape[0], dtype=torch.int64))
+    fresh = tv.make_batch(src, 7, device="cpu")  # lanes A B A A B A A
+    tab, lanec = fr._lane_inputs(fresh)
+    assert tab.shape[0] == 5 and torch.equal(tab[lanec[0].long()], _tables_of(fresh))
+
+
+def test_wrappers_check_their_arguments():
+    state = tv.make_batch(ti.random_instance(6, 5, (1, 9), seed=2), 4, device="cpu")
+    with pytest.raises(ValueError, match=r"\(T, B\)"):
+        fr.rollout_driven(state, torch.zeros((3, 5), dtype=torch.int32), 3)
+    with pytest.raises(TypeError):
+        fr.rollout_driven(state, torch.zeros((3, 4)), 3)
+    with pytest.raises(TypeError):
+        fr.rollout_driven(state, np.zeros((3, 4), np.int32), 3)
+    with pytest.raises(ValueError, match=r"\(T, B\)"):
+        fr.rollout_free(state, 3, bits=torch.zeros((4, 4), dtype=torch.int32))
+    bad = state.replace(solution=state.solution[:, :2])
+    with pytest.raises(ValueError, match="rows"):
+        fr.rollout_driven(bad, torch.zeros((3, 4), dtype=torch.int32), 3)
+    # the launchers refuse CPU tensors: a CPU state never reaches a kernel
+    before = dict(fr.LAUNCHES)
+    buf = fr._to_lanes(state, True)
+    tab, lanec = fr._lane_inputs(state)
+    with pytest.raises(ValueError, match="CUDA"):
+        fr.launch_driven(state, buf, tab, lanec, torch.zeros((1, 4), dtype=torch.int32),
+                         torch.zeros((1, 4), dtype=torch.int32), True)
+    with pytest.raises(ValueError, match="CUDA"):
+        fr.launch_free(state, fr._to_lanes(state, False), tab, lanec, None, 0,
+                       torch.zeros((4, 4), dtype=torch.int64), torch.zeros(4), 1)
+    assert fr.LAUNCHES == before
+
+
+def test_free_options_on_the_twin():
+    """Philox and bits words, with and without the solution: integer stats of
+    the twin agree with its per-lane form, and the solution never matters."""
+    state = tv.make_batch(ti.get_instance_set(["ta01"]), 3, device="cpu")
+    a = fr.rollout_free(state, 260, seed=5)
+    b = fr.rollout_free(state, 260, seed=5, with_solution=False)
+    c = fr.rollout_free(tv.strip_solution(state), 260, seed=5)
+    d = fr.rollout_free_reference(state, 260, seed=5)
+    for k in a:
+        assert torch.equal(a[k], b[k]) and torch.equal(a[k], c[k]) and torch.equal(a[k], d[k]), k
+    assert int(a["episodes"]) == 3 and int(a["identity_violations"]) == 0
+    assert int(a["steps"]) == 260 * 3
+    lanes = fr.free_lane_stats(state, 260, seed=5)
+    assert int(lanes["mk_sum"].sum()) == int(a["total_makespan"])
+    assert not torch.equal(fr.rollout_free(state, 260, seed=6)["total_return"], a["total_return"])
+
+
+def test_light_state_stays_light():
+    state = tv.strip_solution(tv.make_batch(ti.random_instance(6, 5, (1, 9), seed=2), 4, device="cpu"))
+    final, raw = fr.rollout_driven(state, _port_actions(state, 40, 3), 40)
+    assert final.solution.shape == (4, 0, 5) and raw.shape == (40, 4)
+
+
+# ---------------------------------------------------------------------------
+# on the card: the CUDA kernels against the twins
+# ---------------------------------------------------------------------------
+
+
+CARD_CASES = {
+    "ta01": (lambda: ti.get_instance("ta01"), 64, 300, {}),
+    "padded": (lambda: ti.get_instance("ta01"), 32, 260, {"jobs_pad": 16, "machines_pad": 16}),
+    "ragged": (lambda: ti.get_instance_set(["ta01", "ta41", "ta71"]), 48, 120, {}),
+    "episodes": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 100, 200, {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
+def test_driven_kernel_matches_twin_on_card(cuda_dev, case):
+    src, B, T, pad = CARD_CASES[case]
+    state = tv.make_batch(src(), B, device=cuda_dev, **pad)
+    acts = _port_actions(state, T, seed=1)
+    before = fr.LAUNCHES["rollout_driven"]
+    final, raw = fr.rollout_driven(state, acts, T)
+    assert fr.LAUNCHES["rollout_driven"] == before + 1
+    ref, ref_raw = fr.rollout_driven_reference(state, acts, T)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, ref_raw)
+    for k in ts.FIELD_NAMES:
+        assert torch.equal(getattr(final, k), getattr(ref, k)), k
+    light = tv.strip_solution(state)
+    lfinal, lraw = fr.rollout_driven(light, acts, T)
+    assert torch.equal(lraw, ref_raw) and lfinal.solution.shape[1] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
+@pytest.mark.parametrize("mode", ["bits", "philox"])
+def test_free_kernel_matches_twin_on_card(cuda_dev, case, mode):
+    src, B, T, pad = CARD_CASES[case]
+    state = tv.make_batch(src(), B, device=cuda_dev, **pad)
+    bits = torch.from_numpy(_bits(T, B, seed=2)).to(cuda_dev) if mode == "bits" else None
+    before = fr.LAUNCHES["rollout_free"]
+    k = fr.free_lane_stats(state, T, seed=11, bits=bits)
+    assert fr.LAUNCHES["rollout_free"] == before + 1
+    r = fr.free_lane_stats_reference(state, T, seed=11, bits=bits)
+    for key in k:
+        assert torch.equal(k[key], r[key]), key
+    assert int(k["viol"].sum()) == 0
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_bad_inputs_on_card(cuda_dev):
+    state = tv.make_batch(ti.random_instance(6, 5, (1, 9), seed=2), 4, device=cuda_dev)
+    with pytest.raises(ValueError, match="is on"):
+        fr.rollout_driven(state, torch.zeros((2, 4), dtype=torch.int32), 2)
+    with pytest.raises(TypeError):
+        fr.rollout_free(state, 2, bits=torch.zeros((2, 4), device=cuda_dev))
+    wide = tv.make_batch(ti.random_instance(6, 70, (1, 9), seed=2), 4, device=cuda_dev)
+    with pytest.raises(ValueError, match="machines"):
+        fr.rollout_free(wide, 2)
