@@ -15,20 +15,37 @@ Phases (any failure raises and the script exits non-zero):
    policy loop takes, across episode ends and open no-op gates;
 4. free parity, bits mode: the same (T, B) bits through the kernel and the
    plain twin; per-lane integer stats equal, return within rel 1e-5, no
-   reward-identity violations;
+   reward-identity violations. Where a case's values fit int16, both
+   instantiations of the free kernel (int32 and int16) are held against the
+   same twin;
 5. the main path at full width, launch counts zeroed just before: a
    policy-in-the-loop rollout (``random_legal_actions`` outside, the env step
    in the driven kernel) on ta01 with B=16384, and the free Philox rollout on
-   ta01 B=16384, ragged ta41-ta50 B=10240 and ta71 B=8192;
+   ta01 B=16384, ragged ta01-ta10 B=10240, ragged ta41-ta50 B=10240 and ta71
+   B=8192. ``value_dtype`` must pick int16 on the first two (which launch the
+   int16 instantiation) and int32 on the last two;
 6. the plain twin on the same full-width inputs and seed: equal integer
    stats; then the kernel in bits mode at full width, whose mean makespan must
-   be within 1% of the Philox run's;
+   be within 1% of the Philox run's; then, on the int16 batches, the int16
+   kernel against the int32 one lane by lane on the same Philox seed;
 7. kernel times (CUDA events, after warm-up), the plain twins' times, the
-   least time the card could take, env-steps/s;
+   least time the card could take, env-steps/s, int16 against int32;
 8. where a policy-loop step's time goes, stage by stage (host clock); with
-   ``--profile`` also the device's busy share under ``torch.profiler``.
+   ``--profile`` also the device's busy share under ``torch.profiler``;
+9. the dispatching-rule sweep: all 7 rules on ragged ta01-ta10, 10240 lanes
+   per rule, through ``compare_rules_batched`` on the card, timed per rule.
+   Each rule's episodes are also run with every chosen action checked
+   against the legal mask: at ``explore_prob=0`` the card's per-lane
+   makespans must equal the same sweep's on the CPU, at ``explore_prob=0.1``
+   every episode must finish with only legal actions;
+10. replay: every golden row of ``tests/data/golden_solutions.json`` through
+   the native engine, and the 12 published optima plus ta71 through the
+   torch engine on the card, each to its stored makespan, timed per row;
+11. one ta01 SPT episode through ``JssEnv`` on each engine (``"native"``,
+   and the default ``"torch"`` on the card); every public attribute equal
+   after every step.
 
-``--quick`` stops after phase 4 at small shapes (a first check of a new
+``--quick`` runs phases 1-4 and 9-11 at small shapes (a first check of a new
 build). ``--out`` writes every measured number as JSON. The last stdout lines
 are the ``nvidia-smi`` line, one ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``.
@@ -41,6 +58,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
 # int32 operations/s outside the tensor cores — 64 INT32 lanes per SM against
@@ -61,13 +79,21 @@ DRIVEN_CASES = (
 QUICK_DRIVEN_CASES = (("ta01", 256, 300, {}), ("rand6x5", 128, 128, {}), ("ta71", 64, 64, {}))
 FREE_CASES = (("ta01", 1024, 512), ("ta41-ta50", 1280, 768))
 QUICK_FREE_CASES = (("ta01", 256, 300), ("rand6x5", 128, 128))
-FULL = (("ta01", 16384, 1024), ("ta41-ta50", 10240, 1024), ("ta71", 8192, 3072))
+FULL = (("ta01", 16384, 1024), ("ta01-ta10", 10240, 1024), ("ta41-ta50", 10240, 1024), ("ta71", 8192, 3072))
+# the free kernel's storage dtype each FULL batch must select (value_dtype)
+FULL_DTYPE = {"ta01": "int16", "ta01-ta10": "int16", "ta41-ta50": "int32", "ta71": "int32"}
 MAIN_B = 16384  # ta01 lanes of the policy-in-the-loop main path
 LOOP_STEPS = 256  # its steps, one driven launch each
+RULE_SET, RULE_LANES, QUICK_RULE_LANES, RULE_MAX_STEPS = "ta01-ta10", 10240, 70, 4096
+EXPLORE = (0.0, 0.1)
+GOLDEN = Path(__file__).resolve().parent / "tests" / "data" / "golden_solutions.json"
+REPLAY_TORCH_EXTRA = ("ta71",)  # replayed on the card beside the published optima
 
-REPLACES = {
-    "rollout_driven": "jssenv_tpu/core/pallas_rollout.py:598",
-    "rollout_free": "jssenv_tpu/core/pallas_rollout.py:653",
+# LAUNCHES key -> (kernel, the TPU kernel it replaces)
+KERNELS = {
+    "rollout_driven": ("rollout_driven_kernel", "jssenv_tpu/core/pallas_rollout.py:598"),
+    "rollout_free": ("rollout_free_kernel", "jssenv_tpu/core/pallas_rollout.py:653"),
+    "rollout_free_i16": ("rollout_free_kernel<int16>", "jssenv_tpu/core/pallas_rollout.py:653"),
 }
 SOURCE = "jssenv_tpu_torch/core/csrc/rollout.cu"
 
@@ -81,11 +107,33 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
+def busy_share(fn):
+    """Device busy share of ``fn()`` under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side rows only (kernels, copies): the aten:: rows above them
+    # report the same device time again
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / wall_us if busy_us else "not measured",
+            "top": [(e.key, e.self_device_time_total / 1e3, e.count) for e in top]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--quick", action="store_true", help="stop after the small parity phases")
+    ap.add_argument("--quick", action="store_true", help="run the small parity phases only")
     ap.add_argument("--out", default=None, help="write all measurements to this JSON file")
-    ap.add_argument("--profile", action="store_true", help="add a torch.profiler window to phase 8")
+    ap.add_argument("--profile", action="store_true", help="add torch.profiler windows to phases 8 and 9")
     args = ap.parse_args()
 
     import torch
@@ -118,8 +166,9 @@ def main() -> int:
     log(f"[2] built {SOURCE} in {report['build_s']:.1f}s\n{_build.ptxas_report('rollout')}")
 
     def source(name):
-        if name == "ta41-ta50":
-            return instances.get_instance_set([f"ta{i}" for i in range(41, 51)])
+        if name in ("ta41-ta50", "ta01-ta10"):
+            lo, hi = (41, 50) if name == "ta41-ta50" else (1, 10)
+            return instances.get_instance_set([f"ta{i:02d}" for i in range(lo, hi + 1)])
         if name == "rand6x5":
             return instances.random_instance(6, 5, (1, 9), seed=3)
         return instances.get_instance(name)
@@ -231,29 +280,45 @@ def main() -> int:
         check(int(ka["identity_violations"]) == 0, f"{tag}: reward-identity violations")
         return ret_err, rel
 
+    KEY = {torch.int32: "rollout_free", torch.int16: "rollout_free_i16"}
+
+    def free_kernel(state, T, vdt, seed=0, bits=None):
+        """Per-lane stats of one launch of the free kernel's ``vdt``
+        instantiation; checks that it launched."""
+        before = fr.LAUNCHES[KEY[vdt]]
+        out = fr._free_kernel(state, T, seed, bits, vdt)
+        check(fr.LAUNCHES[KEY[vdt]] == before + 1, f"{KEY[vdt]} did not launch")
+        return out
+
     free_cases = QUICK_FREE_CASES if args.quick else FREE_CASES
     report["free_parity"] = []
-    free_err = 0.0
+    free_err = {key: 0.0 for key in KEY.values()}  # max |kernel - twin| of a lane's return
     for i, (name, B, T) in enumerate(free_cases):
         state = make(name, B)
         bits = rand_bits(T, B, SEED + 100 + i)
-        k = fr.free_lane_stats(state, T, bits=bits)
         r = fr.free_lane_stats_reference(state, T, bits=bits)
-        ret_err, rel = compare_free(k, r, f"free bits {name}")
-        free_err = max(free_err, ret_err)
-        row = {"config": name, "B": B, "T": T, "episodes": int(k["episodes"].sum()),
-               "ret_max_abs_err": ret_err, "total_return_rel_err": rel}
+        row = {"config": name, "B": B, "T": T, "episodes": int(r["episodes"].sum()),
+               "value_dtype": str(fr.value_dtype(state))}
+        for vdt in (torch.int32, torch.int16) if fr.value_dtype(state) == torch.int16 else (torch.int32,):
+            ret_err, rel = compare_free(free_kernel(state, T, vdt, bits=bits), r, f"free bits {KEY[vdt]} {name}")
+            free_err[KEY[vdt]] = max(free_err[KEY[vdt]], ret_err)
+            row[KEY[vdt]] = {"ret_max_abs_err": ret_err, "total_return_rel_err": rel}
         check(row["episodes"] > 0, f"free bits {name}: no episode ended")
         report["free_parity"].append(row)
         log(f"[4] free parity (bits) {row}")
+    check(any("rollout_free_i16" in r for r in report["free_parity"]), "no bits-mode case ran the int16 kernel")
 
     if args.quick:
-        # the Philox words of the kernel and of the twin
+        # the Philox words of the kernel and of the twin, in both instantiations
         state = make("rand6x5", 128)
-        compare_free(fr.free_lane_stats(state, 128, seed=SEED),
-                     fr.free_lane_stats_reference(state, 128, seed=SEED), "free philox")
-        log("[4] free parity (philox) ok")
-        kernels = [{"name": n, "launches": fr.LAUNCHES[n]} for n in REPLACES]
+        ref = fr.free_lane_stats_reference(state, 128, seed=SEED)
+        for vdt in KEY:
+            compare_free(free_kernel(state, 128, vdt, seed=SEED), ref, f"free philox {KEY[vdt]}")
+        log("[4] free parity (philox, int32 and int16) ok")
+        rule_phase(report, dev, QUICK_RULE_LANES, profile=False)
+        replay_phase(report, dev, quick=True)
+        wrapper_phase(report, dev)
+        kernels = [{"name": KERNELS[n][0], "launches": fr.LAUNCHES[n]} for n in KERNELS]
         log(json.dumps({"kernels": kernels}))
         return finish(report, args, smi, kind, count)
 
@@ -285,25 +350,32 @@ def main() -> int:
     check(loop_eps > 0 and loop_bad == 0, f"policy loop: {loop_eps} episodes, {loop_bad} bad makespans")
     report["policy_loop"] = {"config": "ta01", "B": loop_B, "T": LOOP_STEPS, "episodes": loop_eps}
 
-    free_main = {}
-    for name, B, T in FULL:
+    def free_run(name, B, T):
         state = make(name, B)
+        vdt = str(fr.value_dtype(state)).removeprefix("torch.")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fr.rollout_free(state, T, seed=SEED)
         out = {k: v.item() for k, v in out.items()}
         host_s = time.perf_counter() - t0
+        check(vdt == FULL_DTYPE[name], f"{name}: value_dtype {vdt}, expected {FULL_DTYPE[name]}")
         check(out["identity_violations"] == 0, f"{name}: reward-identity violations {out}")
         check(out["episodes"] > 0, f"{name}: no episode ended in {T} steps")
-        free_main[name] = dict(out, B=B, T=T, host_s=host_s,
-                               mean_makespan=out["total_makespan"] / out["episodes"])
-        log(f"[5] free philox {name}: {free_main[name]}")
+        row = dict(out, B=B, T=T, value_dtype=vdt, host_s=host_s,
+                   mean_makespan=out["total_makespan"] / out["episodes"])
+        log(f"[5] free philox {name}: {row}")
+        return row
+
+    free_main = {name: free_run(name, B, T) for name, B, T in FULL}
     torch.cuda.synchronize()
     launches = dict(fr.LAUNCHES)
     report["main_path"] = {"launches": launches, "seconds": time.perf_counter() - t_main,
                            "free": free_main}
-    log(f"[5] main path launches {launches}")
-    check(all(launches[n] > 0 for n in REPLACES), f"a kernel of the main path never ran: {launches}")
+    log(f"[5] main path launches {launches}; value_dtype {FULL_DTYPE}")
+    n16 = sum(v == "int16" for v in FULL_DTYPE.values())
+    check(launches == {"rollout_driven": LOOP_STEPS, "rollout_free": len(FULL) - n16, "rollout_free_i16": n16},
+          f"the main path's launches: {launches}")
+    I16_FULL = [(name, B, T) for name, B, T in FULL if FULL_DTYPE[name] == "int16"]
 
     # ---- 6. plain twin at full width; bits mode at full width --------------
     plain_free_ms = {}
@@ -333,14 +405,31 @@ def main() -> int:
         log(f"[6] {name}: twin equal (return rel err {rel:.2e}), bits-mode mean makespan "
             f"{mean_bits:.2f} vs philox {k['mean_makespan']:.2f} ({drift:.2e}), plain {plain_free_ms[name]:.0f} ms")
 
+    # the int16 kernel against the int32 kernel, lane by lane, at full width
+    for name, B, T in I16_FULL:
+        state = make(name, B)
+        k16 = free_kernel(state, T, torch.int16, seed=SEED)
+        k32 = free_kernel(state, T, torch.int32, seed=SEED)
+        errs = {key: max_err(k16[key], k32[key]) for key in ("episodes", "mk_sum", "mk_min", "viol")}
+        check(not any(errs.values()), f"int16 vs int32 {name}: per-lane stats differ {errs}")
+        check(torch.equal(k16["ret"], k32["ret"]), f"int16 vs int32 {name}: returns differ")
+        red = {key: v.item() for key, v in fr._reduce_stats(k16, T, B).items()}
+        for key in ("episodes", "total_makespan", "min_makespan", "identity_violations"):
+            check(red[key] == free_main[name][key], f"int16 {name}: {key} differs from the main path's run")
+        check(red["identity_violations"] == 0, f"int16 {name}: reward-identity violations")
+        free_main[name]["int16_vs_int32_max_abs_err"] = max(errs.values())
+        log(f"[6] int16 vs int32 {name} B={B} T={T}: per-lane stats equal "
+            f"({int(k16['episodes'].sum())} episodes, 0 identity violations)")
+
     # ---- 7. kernel times and bounds ----------------------------------------
-    def launch_timer(kernel, state, T, actions=None, bits=None, repeats=5, resets=0, job_steps=0):
+    def launch_timer(kernel, state, T, actions=None, bits=None, repeats=5, resets=0, job_steps=0,
+                     vdt=torch.int32):
         """Mean ms of one launch, each on a freshly restored state buffer,
         and the launch's bound. ``resets`` and ``job_steps``: the episodes
         that end and the jobs allocated in the launch (they set the driven
-        kernel's solution writes)."""
+        kernel's solution writes). ``vdt``: the free kernel's storage dtype."""
         ws = kernel == "rollout_driven" and fr._solution_mode(state)
-        buf0 = fr._to_lanes(state, ws)
+        buf0 = fr._to_lanes(state, ws, vdt)
         buf = buf0.clone()
         tab, lanec = fr._lane_inputs(state)
         B = state.batch_size
@@ -350,7 +439,7 @@ def main() -> int:
         else:
             st = torch.empty((4, B), dtype=torch.int64, device=dev)
             ret = torch.empty((B,), dtype=torch.float32, device=dev)
-            go = lambda: fr.launch_free(state, buf, tab, lanec, bits, SEED, st, ret, T)  # noqa: E731
+            go = lambda: fr.launch_free(state, buf, tab, lanec, bits, SEED, st, ret, T, vdt)  # noqa: E731
         buf.copy_(buf0)
         go()  # warm-up
         ev = Events()
@@ -358,18 +447,20 @@ def main() -> int:
             buf.copy_(buf0)
             with ev:
                 go()
-        # bytes: the state rows a step reads and writes (the solution is only
-        # written: one word per allocated job, J*M per reset), the tables, the
-        # lane constants the kernel reads, the actions or bits, the outputs
+        # bytes: the state rows a step reads and writes, in the storage dtype
+        # (the solution is only written: one word per allocated job, J*M per
+        # reset), the tables, the lane constants the kernel reads, the
+        # actions or bits, the outputs
         J, M = state.jobs_pad, state.machines_pad
-        words = 2 * (4 + 10 * J + 2 * M) * B + tab.numel()
+        state_bytes = 2 * (4 + 10 * J + 2 * M) * B * buf.element_size()
+        words = tab.numel()
         if kernel == "rollout_driven":
             words += 4 * B + 2 * T * B + (job_steps + resets * J * M if ws else 0)
             ops_per = 4 * J + 2 * M
         else:
             words += 5 * B + (T * B if bits is not None else 0) + 2 * 4 * B + B
             ops_per = 5 * J + 2 * M + (0 if bits is not None else 100)
-        nbytes, nops = 4 * words, T * B * ops_per
+        nbytes, nops = state_bytes + 4 * words, T * B * ops_per
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
         return {"ms": ev.ms(), "bytes": nbytes, "int_ops": nops,
                 "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -389,12 +480,33 @@ def main() -> int:
         shape=f"{name} B={B} T={T}", resets=resets,
         plain_ms=report["driven_parity"][0]["plain_step_ms"] * T)
     for name, B, T in FULL:
-        row = dict(launch_timer("rollout_free", make(name, B), T, repeats=3),
-                   shape=f"{name} B={B} T={T}", plain_ms=plain_free_ms[name])
+        state = make(name, B)
+        if FULL_DTYPE[name] == "int32":
+            row = dict(launch_timer("rollout_free", state, T, repeats=3),
+                       shape=f"{name} B={B} T={T}", plain_ms=plain_free_ms[name])
+            row["env_steps_per_s"] = B * T / (row["ms"] / 1e3)
+            timings[f"rollout_free {name}"] = row
+            log(f"[7] rollout_free {name}: {row['ms']:.2f} ms, {row['env_steps_per_s']:.4g} env-steps/s "
+                f"({smi}); bound {row['bound_ms']:.4f} ms by {row['bound_by']}; plain {row['plain_ms']:.0f} ms")
+            continue
+        # the int16 kernel, and the int32 one on the same batch, in turns
+        # (int32, int16, int16, int32), two launches each turn
+        turns = {torch.int32: [], torch.int16: []}
+        for vdt in (torch.int32, torch.int16, torch.int16, torch.int32):
+            turns[vdt].append(launch_timer("rollout_free", state, T, repeats=2, vdt=vdt))
+        ms32 = sum(t["ms"] for t in turns[torch.int32]) / 2
+        row = dict(turns[torch.int16][0], ms=sum(t["ms"] for t in turns[torch.int16]) / 2,
+                   ms_turns=[t["ms"] for t in turns[torch.int16]],
+                   int32_ms=ms32, int32_ms_turns=[t["ms"] for t in turns[torch.int32]],
+                   int32_bound_ms=turns[torch.int32][0]["bound_ms"], shape=f"{name} B={B} T={T}",
+                   plain_ms=plain_free_ms[name])
+        row["ratio_to_int32"] = row["ms"] / ms32
         row["env_steps_per_s"] = B * T / (row["ms"] / 1e3)
-        timings[f"rollout_free {name}"] = row
-        log(f"[7] rollout_free {name}: {row['ms']:.2f} ms, {row['env_steps_per_s']:.4g} env-steps/s "
-            f"({smi}); bound {row['bound_ms']:.4f} ms by {row['bound_by']}; plain {row['plain_ms']:.0f} ms")
+        timings[f"rollout_free_i16 {name}"] = row
+        log(f"[7] rollout_free_i16 {name}: {row['ms']:.2f} ms against int32 {ms32:.2f} ms "
+            f"(ratio {row['ratio_to_int32']:.3f}), {row['env_steps_per_s']:.4g} env-steps/s ({smi}); "
+            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} (int32 {row['int32_bound_ms']:.4f}); "
+            f"plain {row['plain_ms']:.0f} ms")
     for key in ("rollout_driven", "rollout_driven_T512"):
         log(f"[7] {key} {timings[key]['shape']}: {timings[key]['ms']:.3f} ms ({smi}); "
             f"bound {timings[key]['bound_ms']:.5f} ms; plain {timings[key]['plain_ms']:.1f} ms")
@@ -449,25 +561,6 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()) + f" ({smi})")
 
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        def busy_share(fn):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            # device-side rows only (kernels, copies): the aten:: rows above
-            # them report the same device time again
-            rows = [e for e in prof.key_averages()
-                    if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
-            busy_us = sum(e.self_device_time_total for e in rows)
-            top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-            return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-                    "busy_share": busy_us / wall_us if busy_us else "not measured",
-                    "top": [(e.key, e.self_device_time_total / 1e3, e.count) for e in top]}
-
         def loop():
             nonlocal s
             for _ in range(n):
@@ -479,18 +572,195 @@ def main() -> int:
         report["profile"] = {"policy_loop": prof_loop, "free_ta01": prof_free}
         log(f"[8] profile policy loop: {prof_loop}\n[8] profile free ta01: {prof_free}")
 
-    main_rows = {"rollout_driven": timings["rollout_driven"], "rollout_free": timings["rollout_free ta01"]}
-    errs = {"rollout_driven": driven_err, "rollout_free": max(free_err, *free_full_err.values())}
+    # ---- 9-11. rules, replay, wrappers -------------------------------------
+    fr.reset_launch_counts()
+    rule_phase(report, dev, RULE_LANES, profile=args.profile)
+    replay_phase(report, dev, quick=False)
+    wrapper_phase(report, dev)
+    check(not any(fr.LAUNCHES.values()), f"rules, replay and wrappers launched a rollout kernel: {fr.LAUNCHES}")
+
+    main_rows = {"rollout_driven": timings["rollout_driven"], "rollout_free": timings["rollout_free ta41-ta50"],
+                 "rollout_free_i16": timings["rollout_free_i16 ta01"]}
+    errs = {"rollout_driven": driven_err}
+    for vdt, key in KEY.items():
+        names = [n for n, _, _ in FULL if FULL_DTYPE[n] == str(vdt).removeprefix("torch.")]
+        errs[key] = max(free_err[key], *(free_full_err[n] for n in names))
     kernels = [
-        {"name": n, "route": "cuda", "source": SOURCE, "replaces": REPLACES[n],
+        {"name": KERNELS[n][0], "route": "cuda", "source": SOURCE, "replaces": KERNELS[n][1],
          "launches": launches[n], "max_abs_err": errs[n], "ms": main_rows[n]["ms"],
          "plain_ms": main_rows[n]["plain_ms"], "bound_ms": main_rows[n]["bound_ms"],
          "bound_by": main_rows[n]["bound_by"], "library_ms": None, "shape": main_rows[n]["shape"]}
-        for n in REPLACES
+        for n in KERNELS
     ]
     report["kernels"] = kernels
     log(json.dumps({"kernels": kernels}))
     return finish(report, args, smi, kind, count)
+
+
+def rule_phase(report: dict, dev, lanes: int, profile: bool) -> None:
+    """Phase 9: the seven rules on ragged ta01-ta10 at ``lanes`` lanes per
+    rule, through ``compare_rules_batched`` on the card (timed per rule), and
+    through the same episodes with every action checked against the mask."""
+    import torch
+
+    from jssenv_tpu_torch import instances, vector
+    from jssenv_tpu_torch.rules import dispatching as dsp
+
+    src = instances.get_instance_set([f"ta{i:02d}" for i in range(1, 11)])
+    n_inst = len(src)
+    check(lanes % n_inst == 0, "lanes must tile the instances evenly")
+
+    def checked_episodes(device, name, explore, seed):
+        """(makespans, returns, illegal choices) of ``compare_rules_batched``'s
+        episodes for one rule, each chosen action checked against the mask."""
+        state = vector.make_batch(src, lanes, device=device)
+        gen = torch.Generator(device=state.device).manual_seed(seed)
+        base = dsp.get_rule(name).policy(explore_prob=explore)
+        illegal = torch.zeros((), dtype=torch.int64, device=state.device)
+
+        def policy(g, s):
+            a = base(g, s)
+            mask = s.action_mask()
+            slot = torch.where(a == s.num_jobs, s.jobs_pad, a).long()
+            ok = mask.gather(1, slot[:, None])[:, 0] | ~mask.any(dim=1)
+            illegal.add_((~ok).sum())
+            return a
+
+        _, ms, ret = vector.episode_makespans(gen, state, RULE_MAX_STEPS, policy)
+        return ms.cpu(), ret.cpu(), int(illegal)
+
+    out = {"config": RULE_SET, "lanes_per_rule": lanes, "max_steps": RULE_MAX_STEPS, "runs": {}}
+    for explore in EXPLORE:
+        rows = {}
+        t_cpu = 0.0
+        for i, name in enumerate(sorted(dsp.DISPATCHING_RULES)):
+            seed = SEED + i
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = dsp.compare_rules_batched(src, rules=[name], num_episodes=lanes, max_steps=RULE_MAX_STEPS,
+                                            explore_prob=explore, seed=seed, device=dev)[name]
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            ms, ret, illegal = checked_episodes(dev, name, explore, seed)
+            check(illegal == 0, f"rule {name} explore={explore}: {illegal} illegal actions")
+            check(bool((ms > 0).all()), f"rule {name} explore={explore}: an episode did not finish")
+            check(res["avg_makespan"] == float(ms.numpy().mean()) and res["avg_reward"] == float(ret.numpy().mean()),
+                  f"rule {name} explore={explore}: compare_rules_batched {res} differs from its checked episodes")
+            per_inst = ms.view(-1, n_inst)  # lane l runs instance l % n_inst
+            row = {"wall_s": wall_s, "avg_makespan": res["avg_makespan"], "avg_reward": res["avg_reward"],
+                   "makespan_per_instance_mean": per_inst.double().mean(0).tolist()}
+            if explore == 0.0:
+                check(bool((per_inst == per_inst[:1]).all()), f"rule {name}: greedy lanes of one instance differ")
+                t0 = time.perf_counter()
+                ms_cpu, ret_cpu, illegal_cpu = checked_episodes("cpu", name, explore, seed)
+                t_cpu += time.perf_counter() - t0
+                check(illegal_cpu == 0 and torch.equal(ms, ms_cpu) and torch.equal(ret, ret_cpu),
+                      f"rule {name}: the card's makespans or returns differ from the CPU run's")
+                row["makespan_per_instance"] = per_inst[0].tolist()
+            rows[name] = row
+            log(f"[9] rule {name} explore={explore}: {lanes} lanes in {wall_s:.3f} s on the card, "
+                f"avg makespan {res['avg_makespan']:.2f}, all legal, all finished")
+        out["runs"][str(explore)] = {"rules": rows, "card_s": sum(r["wall_s"] for r in rows.values()),
+                                     "cpu_check_s": t_cpu}
+        if explore == 0.0:
+            log(f"[9] greedy sweep: the card's per-lane makespans equal the CPU run's for all 7 rules "
+                f"(CPU run {t_cpu:.1f} s)")
+    if profile:
+        out["profile_spt"] = busy_share(lambda: dsp.compare_rules_batched(
+            src, rules=["SPT"], num_episodes=lanes, max_steps=RULE_MAX_STEPS, seed=SEED, device=dev))
+        log(f"[9] profile SPT sweep: {out['profile_spt']}")
+    report["rules"] = out
+
+
+def replay_phase(report: dict, dev, quick: bool) -> None:
+    """Phase 10: golden replays, native for every row, torch on the card for
+    the published optima and ta71 (ta01 only with ``quick``)."""
+    import torch
+
+    from jssenv_tpu_torch import instances, replay
+
+    golden = json.loads(GOLDEN.read_text())
+    stored = {k: v.get("optimum", v.get("makespan")) for k, v in golden.items()}
+    on_card = ["ta01"] if quick else sorted(k for k, v in golden.items() if "optimum" in v)
+    on_card += [] if quick else list(REPLAY_TORCH_EXTRA)
+    check(quick or len(on_card) == 13, f"expected 12 optima and ta71, got {on_card}")
+    rows = {}
+    for name in sorted(golden):
+        spec = instances.get_instance(name)
+        order = golden[name]["machine_order"]
+        t0 = time.perf_counter()
+        mk, st = replay.replay_machine_order(spec, order, backend="native")
+        row = {"native_s": time.perf_counter() - t0, "makespan": mk}
+        check(mk == stored[name] and st.done and not st.any_busy, f"native replay {name}: {mk} != {stored[name]}")
+        if name in on_card:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mk_t, st_t = replay.replay_machine_order(spec, order, device=dev)
+            torch.cuda.synchronize()
+            row["torch_card_s"] = time.perf_counter() - t0
+            check(st_t.device.type == dev.type, f"torch replay {name} ran on {st_t.device}")
+            check(mk_t == stored[name] and bool(st_t.done[0]) and not bool(st_t.any_busy[0]),
+                  f"torch replay {name}: {mk_t} != {stored[name]}")
+            check(torch.equal(st_t.solution[0].cpu(), torch.from_numpy(st.solution)),
+                  f"replay {name}: torch and native schedules differ")
+        rows[name] = row
+        log(f"[10] replay {name}: makespan {mk} (stored {stored[name]}), native {row['native_s'] * 1e3:.1f} ms"
+            + (f", torch on the card {row['torch_card_s']:.2f} s" if "torch_card_s" in row else ""))
+    report["replay"] = rows
+
+
+def wrapper_phase(report: dict, dev) -> None:
+    """Phase 11: a ta01 SPT episode through ``JssEnv`` on each engine; every
+    public attribute equal after every step."""
+    import numpy as np
+    import torch
+
+    from jssenv_tpu_torch.envs.gym_env import PUBLIC_ATTRIBUTES, JssEnv
+    from jssenv_tpu_torch.rules import dispatching as dsp
+
+    # the torch wrapper is the default one: no engine and no device given
+    envs = {"native": JssEnv({"instance_path": "ta01", "engine": "native"}),
+            "torch": JssEnv({"instance_path": "ta01"})}
+    check(envs["native"].uses_native_engine and not envs["torch"].uses_native_engine, "engine selection")
+    check(envs["torch"].engine_state.device.type == dev.type, "the default wrapper is not on the card")
+    compared = [a for a in PUBLIC_ATTRIBUTES if a not in ("colors", "start_timestamp")]
+
+    def same(ctx):
+        for name in compared:
+            a, b = getattr(envs["torch"], name), getattr(envs["native"], name)
+            if name == "state":
+                check(a.shape == b.shape and float(np.abs(a - b).max()) <= 1e-6, f"{ctx}: {name}")
+            elif isinstance(b, np.ndarray):
+                check(a.dtype == b.dtype and np.array_equal(a, b), f"{ctx}: {name}")
+            else:
+                check(type(a) is type(b) and a == b, f"{ctx}: {name} {a!r} != {b!r}")
+
+    rule = dsp.get_rule("SPT")
+    secs = {e: 0.0 for e in envs}
+    for env in envs.values():
+        env.reset()
+    same("reset")
+    done, steps = False, 0
+    while not done:
+        outs = {}
+        for e, env in envs.items():
+            t0 = time.perf_counter()
+            a = rule(env)
+            outs[e] = (a, env.step(a))
+            torch.cuda.synchronize()
+            secs[e] += time.perf_counter() - t0
+        (a_n, o_n), (a_t, o_t) = outs["native"], outs["torch"]
+        check(a_n == a_t and o_n[1:] == o_t[1:], f"step {steps}: actions or step outputs differ")
+        same(f"step {steps}")
+        done = o_n[2]
+        steps += 1
+        check(steps < 5000, "the SPT episode did not end")
+    mk = envs["native"].last_time_step
+    check(mk == envs["torch"].last_time_step >= 1231, f"SPT makespan {mk}")
+    report["wrappers"] = {"steps": steps, "makespan": mk,
+                          "ms_per_step": {e: s / steps * 1e3 for e, s in secs.items()}}
+    log(f"[11] JssEnv ta01 SPT: {steps} steps, makespan {mk}, every public attribute equal on both engines; "
+        + ", ".join(f"{e} {s / steps * 1e3:.3f} ms/step" for e, s in secs.items()))
 
 
 def finish(report, args, smi, kind, count) -> int:

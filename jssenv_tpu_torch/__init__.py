@@ -10,15 +10,26 @@ rollout written as hand-made CUDA kernels for NVIDIA Hopper
 * ``core.engine``        — reset / advance_time / fast_forward / step;
 * ``vector``             — ``make_batch``, ``step_autoreset``, ``rollout``;
 * ``core.fused_rollout`` — the whole rollout in one CUDA launch, with plain
-                           PyTorch twins used for CPU tensors.
+                           PyTorch twins used for CPU tensors;
+* ``native``             — the scalar C++ single-env engine (built with g++
+                           at first use);
+* ``replay``             — machine-order schedule replay;
+* ``rules.dispatching``  — the seven dispatching rules, batched;
+* ``envs.gym_env``       — ``JssEnv``, the reference-compatible Gym wrapper;
+* ``envs.vec_env``       — ``JssVectorEnv``, B lockstep envs behind one object;
+* ``render.gantt``       — Gantt charts of a schedule;
+* ``utils``              — ``create_env``, ``assign_env_config``, ``RunSettings``.
 
 Entry points place state on the CUDA card unless ``device="cpu"`` is given;
 without a card they raise instead of falling back to the CPU.
+
+Importing this package registers the ``"jss-torch-v1"`` environment with
+gymnasium, when gymnasium is installed (``"jss-v1"`` is the JAX package's).
 """
 
 __version__ = "0.1.0"
 
-from jssenv_tpu_torch import instances  # noqa: F401
+from jssenv_tpu_torch import instances, utils  # noqa: F401
 from jssenv_tpu_torch.instances import (  # noqa: F401
     InstanceSet,
     InstanceSpec,
@@ -28,3 +39,11 @@ from jssenv_tpu_torch.instances import (  # noqa: F401
     load_instance_file,
     parse_taillard_text,
 )
+
+try:
+    from gymnasium.envs.registration import register, registry
+
+    if "jss-torch-v1" not in registry:
+        register(id="jss-torch-v1", entry_point="jssenv_tpu_torch.envs.gym_env:JssEnv")
+except ImportError:  # pragma: no cover - gymnasium optional
+    pass

@@ -4,7 +4,11 @@
 //   * _driven_kernel (:598; caller-supplied actions, per-step raw rewards and
 //     the final state)                              -> rollout_driven_kernel;
 //   * _free_kernel (:653; in-kernel uniform-over-legal policy, auto-reset,
-//     episode stats and the reward-identity check)  -> rollout_free_kernel;
+//     episode stats and the reward-identity check)  -> rollout_free_kernel,
+//     instantiated on an int32 state buffer and, for the JAX package's int16
+//     value mode (value_dtype, :95), on an int16 one. The int16 one also
+//     stands for tools/repro_i16_mosaic.py's one-op kernel, a repro of the
+//     TPU compiler crash that keeps that mode off on the TPU;
 // both built on the step math _make_step (:243: step, fast_forward,
 // prioritization, check_no_op) and the in-kernel reset _fresh (:549). The
 // semantics are jssenv_tpu_torch.core.engine.step's, field for field; the
@@ -13,7 +17,7 @@
 // Design. One thread per env lane; a lane's whole rollout (T steps) runs in
 // one thread with no inter-thread communication. The state lives in device
 // memory in the batch-last layout that fused_rollout._to_lanes produces: one
-// (R, B) int32 buffer whose rows are the fields (offsets below), so
+// (R, B) int32 (or int16) buffer whose rows are the fields (offsets below), so
 // neighbouring threads touch neighbouring addresses on every access. The
 // static tables are one (n_inst, 4, J, M) int32 stack read through a per-lane
 // instance index, so ragged batches need no lane grouping, and lanes of one
@@ -67,9 +71,15 @@ struct Layout {
   __device__ int solution() const { return jbf() + 9 * J; }  // (J, M) rows
 };
 
-// One lane's view: its state column, its instance's tables and bounds.
+// One lane's view: its state column, its instance's tables and bounds. V is
+// the storage type of the state buffer (int32_t, or int16_t in the free
+// kernel's int16 value mode). A field is read as a V and promoted to int by
+// every expression that uses it, and an int is narrowed only where it is
+// stored back: all arithmetic stays in 32-bit registers, so no intermediate
+// can wrap. The tables and the lane constants stay int32.
+template <typename V>
 struct Lane {
-  int* s;          // state + b; row r of this lane at s[r * B]
+  V* s;            // state + b; row r of this lane at s[r * B]
   size_t B;
   Layout L;
   const int* om;   // (J, M) op_machine of this lane's instance
@@ -79,13 +89,14 @@ struct Lane {
   int J, M, nj, nm, mo;
   bool with_solution;
 
-  __device__ int& at(int row) { return s[(size_t)row * B]; }
-  __device__ int& row(int base, int x) { return s[(size_t)(base + x) * B]; }
+  __device__ V& at(int row) { return s[(size_t)row * B]; }
+  __device__ V& row(int base, int x) { return s[(size_t)(base + x) * B]; }
 };
 
 // engine.fast_forward: jump in closed form to the first re-legalization
 // time (or the last event); returns the machine idle holes (0 if inactive).
-__device__ int fast_forward(Lane& l) {
+template <typename V>
+__device__ int fast_forward(Lane<V>& l) {
   const int J = l.J, M = l.M, nm = l.nm;
   const int mbf = l.L.mbf();
   const int t0 = l.at(l.L.time());
@@ -184,7 +195,8 @@ __device__ int fast_forward(Lane& l) {
 }
 
 // engine.prioritization_non_final
-__device__ void prioritization(Lane& l) {
+template <typename V>
+__device__ void prioritization(Lane<V>& l) {
   const int J = l.J, M = l.M, nm = l.nm;
   int min_nf[JSS_MAX_M];
   for (int m = 0; m < M; ++m) min_nf[m] = JSS_I32_MAX;
@@ -215,7 +227,8 @@ __device__ void prioritization(Lane& l) {
 }
 
 // engine.check_no_op
-__device__ void check_no_op(Lane& l) {
+template <typename V>
+__device__ void check_no_op(Lane<V>& l) {
   const int J = l.J, M = l.M, nm = l.nm;
   const int mbf = l.L.mbf();
   bool any_busy = false;
@@ -228,7 +241,7 @@ __device__ void check_no_op(Lane& l) {
     }
   }
   const int nb_ml = l.at(l.L.nb_ml());
-  int& noop = l.at(l.L.noop_legal());
+  V& noop = l.at(l.L.noop_legal());
   noop = 0;
   if (!(any_busy && nb_ml <= 3 && l.at(l.L.nb_legal()) <= 4)) return;
   const int t = l.at(l.L.time());
@@ -292,7 +305,8 @@ __device__ void check_no_op(Lane& l) {
 
 // engine.step: allocate job `action` or wait (action >= nj); returns the raw
 // integer reward.
-__device__ int step(Lane& l, int action) {
+template <typename V>
+__device__ int step(Lane<V>& l, int action) {
   const int J = l.J, M = l.M;
   int raw = 0;
   if (action < l.nj) {
@@ -340,7 +354,8 @@ __device__ int step(Lane& l, int action) {
 
 // engine._fresh_state for one lane: padded job rows start finished, padded
 // machines are never legal.
-__device__ void fresh(Lane& l) {
+template <typename V>
+__device__ void fresh(Lane<V>& l) {
   const int J = l.J, M = l.M;
   l.at(l.L.time()) = 0;
   l.at(l.L.noop_legal()) = 0;
@@ -378,9 +393,10 @@ __device__ void fresh(Lane& l) {
 // Per-lane constants: rows of the (5, B) int32 buffer.
 enum { C_INST = 0, C_NJ, C_NM, C_MO, C_SO, C_ROWS };
 
-__device__ Lane make_lane(int* state, const int* tab, const int* lanec, int b,
-                          int B, int J, int M, int with_solution) {
-  Lane l{state + b, (size_t)B, Layout(J, M), nullptr, nullptr, nullptr, nullptr,
+template <typename V>
+__device__ Lane<V> make_lane(V* state, const int* tab, const int* lanec, int b,
+                             int B, int J, int M, int with_solution) {
+  Lane<V> l{state + b, (size_t)B, Layout(J, M), nullptr, nullptr, nullptr, nullptr,
          J, M, 0, 0, 0, with_solution != 0};
   const size_t JM = (size_t)J * M;
   const int* t = tab + (size_t)lanec[C_INST * B + b] * 4 * JM;
@@ -419,7 +435,7 @@ __global__ void rollout_driven_kernel(int* state, const int* tab, const int* lan
                                       int J, int M, int T, int with_solution) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  Lane l = make_lane(state, tab, lanec, b, B, J, M, with_solution);
+  Lane<int> l = make_lane(state, tab, lanec, b, B, J, M, with_solution);
   for (int t = 0; t < T; ++t) {
     rewards[(size_t)t * B + b] = step(l, actions[(size_t)t * B + b]);
     if (l.at(l.L.nb_legal()) == 0) fresh(l);
@@ -429,14 +445,18 @@ __global__ void rollout_driven_kernel(int* state, const int* tab, const int* lan
 // Per-lane stats rows of the (4, B) int64 output.
 enum { S_EPISODES = 0, S_MK_SUM, S_MK_MIN, S_VIOL };
 
-__global__ void rollout_free_kernel(int* state, const int* tab, const int* lanec,
+// V: the state buffer's storage type, int32_t or int16_t (the int16 value
+// mode of jssenv_tpu/core/pallas_rollout.py value_dtype, chosen by the
+// wrapper only when every stored value fits).
+template <typename V>
+__global__ void rollout_free_kernel(V* state, const int* tab, const int* lanec,
                                     const uint32_t* bits, unsigned long long seed,
                                     long long* stats, float* ret_out, int B, int J,
                                     int M, int T) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   // the stats never read the schedule: the state is light (no solution rows)
-  Lane l = make_lane(state, tab, lanec, b, B, J, M, 0);
+  Lane<V> l = make_lane(state, tab, lanec, b, B, J, M, 0);
   const int so = lanec[C_SO * B + b];
   const float mo_f = (float)l.mo;
   long long episodes = 0, mk_sum = 0, viol = 0;
@@ -482,11 +502,22 @@ __global__ void rollout_free_kernel(int* state, const int* tab, const int* lanec
 
 constexpr int kBlock = 128;
 
+template <typename V>
+static int launch_free(void* state, const void* tab, const void* lanec,
+                       const void* bits, unsigned long long seed, void* stats,
+                       void* ret_out, int B, int J, int M, int T, void* stream) {
+  const int grid = (B + kBlock - 1) / kBlock;
+  rollout_free_kernel<V><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      (V*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits, seed,
+      (long long*)stats, (float*)ret_out, B, J, M, T);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 int jss_max_machines() { return JSS_MAX_M; }
 
-// Both return cudaGetLastError() after the launch (0 = launched).
+// Each returns cudaGetLastError() after the launch (0 = launched).
 int jss_rollout_driven(void* state, const void* tab, const void* lanec,
                        const void* actions, void* rewards, int B, int J, int M,
                        int T, int with_solution, void* stream) {
@@ -500,11 +531,16 @@ int jss_rollout_driven(void* state, const void* tab, const void* lanec,
 int jss_rollout_free(void* state, const void* tab, const void* lanec,
                      const void* bits, unsigned long long seed, void* stats,
                      void* ret_out, int B, int J, int M, int T, void* stream) {
-  const int grid = (B + kBlock - 1) / kBlock;
-  rollout_free_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      (int*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits, seed,
-      (long long*)stats, (float*)ret_out, B, J, M, T);
-  return (int)cudaGetLastError();
+  return launch_free<int32_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J,
+                              M, T, stream);
+}
+
+// The same kernel on an (R, B) int16 state buffer.
+int jss_rollout_free_i16(void* state, const void* tab, const void* lanec,
+                         const void* bits, unsigned long long seed, void* stats,
+                         void* ret_out, int B, int J, int M, int T, void* stream) {
+  return launch_free<int16_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J,
+                              M, T, stream);
 }
 
 }  // extern "C"

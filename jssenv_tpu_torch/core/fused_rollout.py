@@ -20,8 +20,13 @@ Random bits: with ``bits=None`` the free rollout draws one 32-bit Philox4x32-10
 word per (step, lane), keyed by ``seed`` with counter (t, lane); the twin
 computes the same words (``philox_bits``), so both modes compare exactly.
 
-Host plumbing: the dynamic state moves to one batch-last (R, B) int32 buffer
-(``_to_lanes`` / ``_from_lanes``, rows in ``_ROWS`` order), the static tables
+Value dtype: the free rollout keeps its state buffer in int16 wherever every
+stored value fits (``value_dtype``, the JAX package's int16 mode) and then
+launches the int16 instantiation of its kernel; the driven rollout stays
+int32, as in the JAX package.
+
+Host plumbing: the dynamic state moves to one batch-last (R, B) int32 (or
+int16) buffer (``_to_lanes`` / ``_from_lanes``, rows in ``_ROWS`` order), the static tables
 to one (n_inst, 4, J, M) int32 stack of the batch's distinct instances with a
 per-lane instance index, so ragged batches need no lane grouping. The stack
 is built once per batch and cached (``_lane_inputs``).
@@ -42,7 +47,8 @@ from jssenv_tpu_torch.core.state import I32_MAX, EnvState
 _I32 = torch.int32
 
 # Kernel launches per entry point: each wrapper adds one where it launches.
-LAUNCHES: Dict[str, int] = {"rollout_driven": 0, "rollout_free": 0}
+# "rollout_free_i16" counts the free kernel's int16 instantiation.
+LAUNCHES: Dict[str, int] = {"rollout_driven": 0, "rollout_free": 0, "rollout_free_i16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -80,11 +86,28 @@ def _row_sizes(J: int, M: int, with_solution: bool):
     return [n[kind] for _, kind in _ROWS]
 
 
-def _to_lanes(state: EnvState, with_solution: bool) -> torch.Tensor:
-    """Batch-first dynamic fields -> one contiguous (R, B) int32 buffer."""
+def value_dtype(state: EnvState) -> torch.dtype:
+    """The free kernel's storage dtype: int16 wherever every stored value
+    fits, i.e. ``sum_op + 2*max_time_jobs + max_time_op < 32000`` with each
+    term the maximum over the batch's lanes (so one large instance in a
+    ragged batch keeps it int32), else int32. The bound covers every stored
+    value: ``time``, ``op_end_at`` and ``idle_total_alloc`` never exceed the
+    makespan, which never exceeds ``sum_op``. It is the JAX package's bound
+    (``pallas_rollout.value_dtype``); there the int16 mode also waits for
+    ``JSS_PALLAS_INT16=1`` because the TPU compiler crashes on it, a gate
+    the CUDA kernel does not need."""
+    so, mj, mo = torch.stack(
+        [state.sum_op.max(), state.max_time_jobs.max(), state.max_time_op.max()]
+    ).tolist()
+    return torch.int16 if so + 2 * mj + mo < 32000 else _I32
+
+
+def _to_lanes(state: EnvState, with_solution: bool, vdt: torch.dtype = _I32) -> torch.Tensor:
+    """Batch-first dynamic fields -> one contiguous (R, B) buffer of the
+    storage dtype ``vdt`` (int32 or int16; masks as 0/1)."""
     B = state.batch_size
     cols = [
-        getattr(state, name).reshape(B, -1).to(_I32)
+        getattr(state, name).reshape(B, -1).to(vdt)
         for name, kind in _ROWS
         if with_solution or kind != "JM"
     ]
@@ -92,8 +115,9 @@ def _to_lanes(state: EnvState, with_solution: bool) -> torch.Tensor:
 
 
 def _from_lanes(buf: torch.Tensor, state: EnvState, with_solution: bool) -> EnvState:
-    """Inverse of ``_to_lanes``: the fields of ``state`` replaced from ``buf``,
-    in their own shapes and dtypes (masks back to bool)."""
+    """Inverse of ``_to_lanes`` (of either storage dtype): the fields of
+    ``state`` replaced from ``buf``, in their own shapes and dtypes (masks
+    back to bool)."""
     parts = torch.split(buf, _row_sizes(state.jobs_pad, state.machines_pad, with_solution))
     upd = {}
     for (name, kind), rows in zip(_ROWS, parts):
@@ -183,8 +207,9 @@ def _lib() -> ctypes.CDLL:
     lib.jss_max_machines.restype = I
     lib.jss_rollout_driven.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     lib.jss_rollout_driven.restype = I
-    lib.jss_rollout_free.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, P]
-    lib.jss_rollout_free.restype = I
+    for fn in (lib.jss_rollout_free, lib.jss_rollout_free_i16):
+        fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, P]
+        fn.restype = I
     return lib
 
 
@@ -193,7 +218,7 @@ def _check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def _check_kernel_inputs(state: EnvState, *tensors: torch.Tensor) -> None:
+def _check_kernel_inputs(state: EnvState, *tensors: torch.Tensor, dtype: torch.dtype = _I32) -> None:
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -201,9 +226,9 @@ def _check_kernel_inputs(state: EnvState, *tensors: torch.Tensor) -> None:
     if M > lim:
         raise ValueError(f"the CUDA kernel handles at most {lim} machines, got {M}")
     for t in tensors:
-        if t.device != dev or t.dtype != _I32 or not t.is_contiguous():
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"kernel input must be contiguous int32 on {dev}, got {t.dtype} on {t.device}"
+                f"kernel input must be contiguous {dtype} on {dev}, got {t.dtype} on {t.device}"
             )
 
 
@@ -222,22 +247,32 @@ def launch_driven(state: EnvState, buf, tab, lanec, actions, rewards, with_solut
     LAUNCHES["rollout_driven"] += 1
 
 
-def launch_free(state: EnvState, buf, tab, lanec, bits, seed: int, stats, ret, T: int) -> None:
+def launch_free(
+    state: EnvState, buf, tab, lanec, bits, seed: int, stats, ret, T: int, vdt: torch.dtype = _I32
+) -> None:
     """One ``rollout_free_kernel`` launch on a light ``buf`` (no solution
     rows), updated in place: per-lane stats (4, B) int64 and returns (B,)
-    float32 written."""
-    _check_kernel_inputs(state, buf, tab, lanec, *(() if bits is None else (bits,)))
+    float32 written. ``vdt`` picks the instantiation (int32 or int16) and
+    must be ``buf``'s dtype: a buffer is never converted here."""
+    if vdt not in (_I32, torch.int16):
+        raise ValueError(f"the free kernel stores int32 or int16, not {vdt}")
+    if buf.dtype != vdt:
+        raise ValueError(f"the {vdt} free kernel needs a {vdt} state buffer, got {buf.dtype}")
+    _check_kernel_inputs(state, buf, dtype=vdt)
+    _check_kernel_inputs(state, tab, lanec, *(() if bits is None else (bits,)))
     if stats.dtype != torch.int64 or ret.dtype != torch.float32:
         raise ValueError("stats must be int64 and ret float32")
+    i16 = vdt == torch.int16
+    fn = _lib().jss_rollout_free_i16 if i16 else _lib().jss_rollout_free
     with torch.cuda.device(state.device):
-        err = _lib().jss_rollout_free(
+        err = fn(
             buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(),
             None if bits is None else bits.data_ptr(), seed & (2**64 - 1),
             stats.data_ptr(), ret.data_ptr(), state.batch_size, state.jobs_pad,
             state.machines_pad, T, torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(err, "rollout_free_kernel")
-    LAUNCHES["rollout_free"] += 1
+    _check_launch(err, "rollout_free_kernel<int16>" if i16 else "rollout_free_kernel")
+    LAUNCHES["rollout_free_i16" if i16 else "rollout_free"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -381,9 +416,10 @@ def free_lane_stats(
 ) -> Dict[str, torch.Tensor]:
     """Per-lane stats of a free rollout, (B,) each: ``episodes``, ``mk_sum``
     (int64), ``mk_min`` (int64, INT32_MAX where no episode ended), ``viol``
-    (int64), ``ret`` (float32 sum of scaled rewards). Kernel on CUDA, twin on
-    CPU; ``rollout_free`` reduces these. The stats never read the schedule,
-    so both run on the light state (``vector.strip_solution``)."""
+    (int64), ``ret`` (float32 sum of scaled rewards). Kernel on CUDA (its
+    int16 instantiation where ``value_dtype`` says int16), twin on CPU;
+    ``rollout_free`` reduces these. The stats never read the schedule, so
+    both run on the light state (``vector.strip_solution``)."""
     T = int(num_steps)
     if bits is not None:
         bits = _int_stream(bits, "bits", T, state)
@@ -392,13 +428,17 @@ def free_lane_stats(
     return _free_kernel(state, T, seed, bits)
 
 
-def _free_kernel(state: EnvState, T: int, seed: int, bits):
+def _free_kernel(state: EnvState, T: int, seed: int, bits, vdt: Optional[torch.dtype] = None):
+    """One free-kernel launch in the storage dtype ``vdt`` (by default
+    ``value_dtype``'s; an explicit int32 runs a batch that fits int16 in the
+    int32 instantiation, to hold the two against each other)."""
     B = state.batch_size
-    buf = _to_lanes(state, with_solution=False)
+    vdt = value_dtype(state) if vdt is None else vdt
+    buf = _to_lanes(state, with_solution=False, vdt=vdt)
     tab, lanec = _lane_inputs(state)
     stats = torch.empty((4, B), dtype=torch.int64, device=state.device)
     ret = torch.empty((B,), dtype=torch.float32, device=state.device)
-    launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T)
+    launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T, vdt)
     return {"episodes": stats[0], "mk_sum": stats[1], "mk_min": stats[2], "viol": stats[3], "ret": ret}
 
 

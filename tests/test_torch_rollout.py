@@ -112,6 +112,62 @@ def test_free_twin_matches_pallas(jx, case):
     assert got["min_makespan"].dtype == torch.int32
 
 
+# the int16 value mode: the storage dtype is chosen by the JAX package's
+# bound (asked there with its switch JSS_PALLAS_INT16=1 on, which the port
+# does not read), and the stats do not depend on it
+VALUE_DTYPE_CASES = {
+    "ta01": (lambda m: m.stack_instances([m.get_instance("ta01")]), 2),
+    "ta01-ta10": (lambda m: m.get_instance_set([f"ta{i:02d}" for i in range(1, 11)]), 10),
+    "ta41": (lambda m: m.stack_instances([m.get_instance("ta41")]), 2),
+    "ta01+ta41": (lambda m: m.get_instance_set(["ta01", "ta41"]), 2),
+    "rand6x5": (lambda m: m.stack_instances([m.random_instance(6, 5, (1, 9), seed=7)]), 3),
+}
+
+
+@pytest.fixture(scope="module")
+def value_dtype_batches(jx):
+    """(JAX batch, port batch) of each case, built once."""
+    return {name: (jx.vector.make_batch(build(jx.inst), B), tv.make_batch(build(ti), B, device="cpu"))
+            for name, (build, B) in VALUE_DTYPE_CASES.items()}
+
+
+@pytest.mark.parametrize("switch", [None, "1", "0"])
+def test_value_dtype_matches_jax(jx, value_dtype_batches, monkeypatch, switch):
+    """The port's dtype equals the JAX package's with the JAX switch on,
+    whatever the environment says when the port is asked."""
+    want_i16 = {"ta01": True, "ta01-ta10": True, "ta41": False, "ta01+ta41": False, "rand6x5": True}
+    for name, (js, state) in value_dtype_batches.items():
+        monkeypatch.setenv("JSS_PALLAS_INT16", "1")
+        want = jx.pallas.value_dtype(js)
+        if switch is None:
+            monkeypatch.delenv("JSS_PALLAS_INT16")
+        else:
+            monkeypatch.setenv("JSS_PALLAS_INT16", switch)
+        got = fr.value_dtype(state)
+        assert got in (torch.int16, torch.int32)
+        assert (got == torch.int16) == (want == jx.jnp.int16) == want_i16[name], name
+
+
+def test_free_twin_matches_pallas_int16(jx, monkeypatch):
+    """The pattern of tests/test_pallas.py's int16 test: the JAX kernel in
+    its int16 mode (interpret, the JAX switch on) and the port's twin give
+    the same stats."""
+    monkeypatch.setenv("JSS_PALLAS_INT16", "1")
+    build = lambda m: m.stack_instances([m.random_instance(6, 5, (1, 9), seed=7)])  # noqa: E731
+    B, T = 4, 120
+    bits = np.random.default_rng(1).integers(0, 2**31, size=(T, B), dtype=np.int32)
+    js = jx.vector.make_batch(build(jx.inst), B)
+    assert jx.pallas.value_dtype(js) == jx.jnp.int16
+    want = jx.pallas.rollout_free(js, T, tile=B, interpret=True, bits=jx.jnp.asarray(bits))
+    state = tv.make_batch(build(ti), B, device="cpu")
+    assert fr.value_dtype(state) == torch.int16
+    got = fr.rollout_free(state, T, bits=torch.from_numpy(bits))
+    for k in ("episodes", "total_makespan", "min_makespan", "steps", "identity_violations"):
+        assert int(got[k]) == int(np.asarray(want[k])), k
+    assert int(got["episodes"]) > 0 and int(got["identity_violations"]) == 0
+    assert float(got["total_return"]) == pytest.approx(float(np.asarray(want["total_return"])), rel=1e-5)
+
+
 def test_driven_twin_matches_xla_engine_at_B1024(jx):
     """B >= 1024: the batch size at which a TPU miscompile once hid."""
     jax, jv = jx.jax, jx.vector
@@ -207,6 +263,31 @@ def test_lane_layout_round_trip(light):
     for k in ts.FIELD_NAMES:
         v, w = getattr(back, k), getattr(state, k)
         assert v.dtype == w.dtype and torch.equal(v, w), k
+
+
+def test_int16_lane_layout_round_trip():
+    state = tv.make_batch(ti.get_instance_set(["ta01", "ta02"]), 4, device="cpu")
+    state, _ = fr.rollout_driven(state, _port_actions(state, 40, 2), 40)
+    state = tv.strip_solution(state)
+    buf = fr._to_lanes(state, False, torch.int16)
+    assert buf.dtype == torch.int16 and buf.is_contiguous()
+    assert torch.equal(buf.to(torch.int32), fr._to_lanes(state, False))
+    back = fr._from_lanes(buf, state, False)
+    for k in ts.FIELD_NAMES:
+        v, w = getattr(back, k), getattr(state, k)
+        assert v.dtype == w.dtype and torch.equal(v, w), k
+
+
+def test_int16_launch_never_converts_its_buffer():
+    state = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
+    tab, lanec = fr._lane_inputs(state)
+    st, ret = torch.zeros((4, 4), dtype=torch.int64), torch.zeros(4)
+    before = dict(fr.LAUNCHES)
+    with pytest.raises(ValueError, match="int16 state buffer"):
+        fr.launch_free(state, fr._to_lanes(state, False), tab, lanec, None, 0, st, ret, 1, torch.int16)
+    with pytest.raises(ValueError, match="int32 or int16"):
+        fr.launch_free(state, fr._to_lanes(state, False), tab, lanec, None, 0, st, ret, 1, torch.int64)
+    assert fr.LAUNCHES == before
 
 
 def _tables_of(state):
@@ -330,13 +411,44 @@ def test_free_kernel_matches_twin_on_card(cuda_dev, case, mode):
     src, B, T, pad = CARD_CASES[case]
     state = tv.make_batch(src(), B, device=cuda_dev, **pad)
     bits = torch.from_numpy(_bits(T, B, seed=2)).to(cuda_dev) if mode == "bits" else None
-    before = fr.LAUNCHES["rollout_free"]
+    # every case but the ragged one (ta41, ta71) fits int16 and runs that
+    # instantiation
+    key = "rollout_free" if case == "ragged" else "rollout_free_i16"
+    assert (fr.value_dtype(state) == torch.int16) == (key == "rollout_free_i16")
+    before = dict(fr.LAUNCHES)
     k = fr.free_lane_stats(state, T, seed=11, bits=bits)
-    assert fr.LAUNCHES["rollout_free"] == before + 1
+    assert fr.LAUNCHES[key] == before[key] + 1 and sum(fr.LAUNCHES.values()) == sum(before.values()) + 1
     r = fr.free_lane_stats_reference(state, T, seed=11, bits=bits)
-    for key in k:
-        assert torch.equal(k[key], r[key]), key
+    for f in k:
+        assert torch.equal(k[f], r[f]), f
     assert int(k["viol"].sum()) == 0
+
+
+# batches whose values fit int16; "ragged" is two instances, with T long
+# enough for ta01's 225 decisions
+INT16_CARD_CASES = dict(CARD_CASES, ragged=(lambda: ti.get_instance_set(["ta01", "ta02"]), 48, 320, {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(INT16_CARD_CASES))
+@pytest.mark.parametrize("mode", ["bits", "philox"])
+def test_int16_kernel_matches_int32_kernel_on_card(cuda_dev, case, mode):
+    """A batch whose values fit runs the int16 instantiation by default; its
+    per-lane stats equal the int32 instantiation's on the same batch and
+    the twin's."""
+    src, B, T, pad = INT16_CARD_CASES[case]
+    state = tv.make_batch(src(), B, device=cuda_dev, **pad)
+    bits = torch.from_numpy(_bits(T, B, seed=3)).to(cuda_dev) if mode == "bits" else None
+    assert fr.value_dtype(state) == torch.int16
+    before = dict(fr.LAUNCHES)
+    k16 = fr.free_lane_stats(state, T, seed=11, bits=bits)
+    k32 = fr._free_kernel(state, T, 11, bits, torch.int32)
+    assert fr.LAUNCHES["rollout_free_i16"] == before["rollout_free_i16"] + 1
+    assert fr.LAUNCHES["rollout_free"] == before["rollout_free"] + 1
+    r = fr.free_lane_stats_reference(state, T, seed=11, bits=bits)
+    for k in k16:
+        assert torch.equal(k16[k], k32[k]) and torch.equal(k16[k], r[k]), k
+    assert int(k16["viol"].sum()) == 0 and int(k16["episodes"].sum()) > 0
 
 
 @pytest.mark.cuda
