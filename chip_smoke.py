@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``jssenv_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--quick] [--out FILE] [--profile]
+    python3 chip_smoke.py [--quick] [--out FILE] [--profile] [--against ROOT]
 
 Phases (any failure raises and the script exits non-zero):
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power limit;
-2. build ``core/csrc/rollout.cu`` with nvcc and print its ``-Xptxas -v`` report;
+2. build ``core/csrc/rollout.cu`` with nvcc and print its ``-Xptxas -v`` report
+   (registers, stack, spills) and the launch geometry of each FULL config
+   (``fused_rollout.launch_geometry``: a warp a lane, lanes a block, shared
+   bytes);
 3. driven parity: the plain path (``vector.step_autoreset`` under
    ``random_legal_actions``) on the card records actions, raw rewards and the
    final state; ``fused_rollout.rollout_driven`` replays the actions in the
@@ -29,7 +32,10 @@ Phases (any failure raises and the script exits non-zero):
    be within 1% of the Philox run's; then, on the int16 batches, the int16
    kernel against the int32 one lane by lane on the same Philox seed;
 7. kernel times (CUDA events, after warm-up), the plain twins' times, the
-   least time the card could take, env-steps/s, int16 against int32;
+   least time the card could take, env-steps/s, int16 against int32; with
+   ``--against ROOT``, the kernels of another checkout (e.g. the parent
+   commit's, unpacked with ``git archive``) and this one's in turns (root,
+   this, this, root), each turn a process of its own;
 8. where a policy-loop step's time goes, stage by stage (host clock); with
    ``--profile`` also the device's busy share under ``torch.profiler``;
 9. the dispatching-rule sweep: all 7 rules on ragged ta01-ta10, 10240 lanes
@@ -46,9 +52,10 @@ Phases (any failure raises and the script exits non-zero):
    after every step.
 
 ``--quick`` runs phases 1-4 and 9-11 at small shapes (a first check of a new
-build). ``--out`` writes every measured number as JSON. The last stdout lines
-are the ``nvidia-smi`` line, one ``{"kernels": [...]}`` line and
-``{"ok": true, "device": {...}}``.
+build). ``--out`` writes every measured number as JSON. On an H100 the run
+takes about 5 minutes (``--quick`` about 1); ``--against`` adds about 3. The
+last stdout lines are the ``nvidia-smi`` line, one ``{"kernels": [...]}``
+line and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -134,7 +141,12 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true", help="run the small parity phases only")
     ap.add_argument("--out", default=None, help="write all measurements to this JSON file")
     ap.add_argument("--profile", action="store_true", help="add torch.profiler windows to phases 8 and 9")
+    ap.add_argument("--against", metavar="ROOT", default=None,
+                    help="also time another checkout's kernels (e.g. the parent commit's) in turns with these")
+    ap.add_argument("--time-kernels", metavar="ROOT", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.time_kernels:
+        return time_kernels_of(args.time_kernels, args.out)
 
     import torch
 
@@ -164,17 +176,19 @@ def main() -> int:
     fr._lib()
     report["build_s"] = time.perf_counter() - t0
     log(f"[2] built {SOURCE} in {report['build_s']:.1f}s\n{_build.ptxas_report('rollout')}")
-
-    def source(name):
-        if name in ("ta41-ta50", "ta01-ta10"):
-            lo, hi = (41, 50) if name == "ta41-ta50" else (1, 10)
-            return instances.get_instance_set([f"ta{i:02d}" for i in range(lo, hi + 1)])
-        if name == "rand6x5":
-            return instances.random_instance(6, 5, (1, 9), seed=3)
-        return instances.get_instance(name)
+    report["ptxas"] = _build.ptxas_report("rollout")
 
     def make(name, B, **pad):
-        return vector.make_batch(source(name), B, device=dev, **pad)
+        return vector.make_batch(source(instances, name), B, device=dev, **pad)
+
+    # the launch geometry (fused_rollout.launch_geometry) of each FULL config
+    # in its value dtype, and of the driven kernel's main shape
+    report["geometry"] = {}
+    for name, vdt in [(n, FULL_DTYPE[n]) for n, _, _ in FULL] + [("ta01", "int32")]:
+        few = make(name, 10)
+        geo = fr.launch_geometry(few.jobs_pad, few.machines_pad, getattr(torch, vdt))
+        report["geometry"][f"{name} {vdt}"] = geo._asdict()
+        log(f"[2] launch geometry {name} (J={few.jobs_pad}, M={few.machines_pad}) {vdt}: {geo}")
 
     def max_err(a, b) -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
@@ -329,7 +343,7 @@ def main() -> int:
     # policy-in-the-loop: the policy outside, one env step per driven launch
     loop_B = MAIN_B
     s = make("ta01", loop_B)
-    spec = source("ta01")
+    spec = source(instances, "ta01")
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     ep_raw = torch.zeros(loop_B, dtype=torch.int64, device=dev)
     loop_eps = torch.zeros((), dtype=torch.int64, device=dev)
@@ -422,67 +436,24 @@ def main() -> int:
             f"({int(k16['episodes'].sum())} episodes, 0 identity violations)")
 
     # ---- 7. kernel times and bounds ----------------------------------------
-    def launch_timer(kernel, state, T, actions=None, bits=None, repeats=5, resets=0, job_steps=0,
-                     vdt=torch.int32):
-        """Mean ms of one launch, each on a freshly restored state buffer,
-        and the launch's bound. ``resets`` and ``job_steps``: the episodes
-        that end and the jobs allocated in the launch (they set the driven
-        kernel's solution writes). ``vdt``: the free kernel's storage dtype."""
-        ws = kernel == "rollout_driven" and fr._solution_mode(state)
-        buf0 = fr._to_lanes(state, ws, vdt)
-        buf = buf0.clone()
-        tab, lanec = fr._lane_inputs(state)
-        B = state.batch_size
-        if kernel == "rollout_driven":
-            rewards = torch.empty((T, B), dtype=torch.int32, device=dev)
-            go = lambda: fr.launch_driven(state, buf, tab, lanec, actions, rewards, ws)  # noqa: E731
-        else:
-            st = torch.empty((4, B), dtype=torch.int64, device=dev)
-            ret = torch.empty((B,), dtype=torch.float32, device=dev)
-            go = lambda: fr.launch_free(state, buf, tab, lanec, bits, SEED, st, ret, T, vdt)  # noqa: E731
-        buf.copy_(buf0)
-        go()  # warm-up
-        ev = Events()
-        for _ in range(repeats):
-            buf.copy_(buf0)
-            with ev:
-                go()
-        # bytes: the state rows a step reads and writes, in the storage dtype
-        # (the solution is only written: one word per allocated job, J*M per
-        # reset), the tables, the lane constants the kernel reads, the
-        # actions or bits, the outputs
-        J, M = state.jobs_pad, state.machines_pad
-        state_bytes = 2 * (4 + 10 * J + 2 * M) * B * buf.element_size()
-        words = tab.numel()
-        if kernel == "rollout_driven":
-            words += 4 * B + 2 * T * B + (job_steps + resets * J * M if ws else 0)
-            ops_per = 4 * J + 2 * M
-        else:
-            words += 5 * B + (T * B if bits is not None else 0) + 2 * 4 * B + B
-            ops_per = 5 * J + 2 * M + (0 if bits is not None else 100)
-        nbytes, nops = state_bytes + 4 * words, T * B * ops_per
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
-        return {"ms": ev.ms(), "bytes": nbytes, "int_ops": nops,
-                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
     timings = {}
     # the driven kernel on inputs of the parity runs: the last step of the
     # main-shape run, and the first driven case
     state, acts, resets, job_steps = recorded["main"]
     timings["rollout_driven"] = dict(
-        launch_timer("rollout_driven", state, 1, actions=acts, resets=resets, job_steps=job_steps),
+        launch_timer(fr, dev, "rollout_driven", state, 1, actions=acts, resets=resets, job_steps=job_steps),
         shape=f"ta01 B={MAIN_B} T=1 (step {LOOP_STEPS} of a policy loop)", resets=resets,
         plain_ms=report["driven_main_shape"]["plain_step_ms"])
     name, B, T, _ = DRIVEN_CASES[0]
     state, acts, resets, job_steps = recorded["T512"]
     timings["rollout_driven_T512"] = dict(
-        launch_timer("rollout_driven", state, T, actions=acts, resets=resets, job_steps=job_steps),
+        launch_timer(fr, dev, "rollout_driven", state, T, actions=acts, resets=resets, job_steps=job_steps),
         shape=f"{name} B={B} T={T}", resets=resets,
         plain_ms=report["driven_parity"][0]["plain_step_ms"] * T)
     for name, B, T in FULL:
         state = make(name, B)
         if FULL_DTYPE[name] == "int32":
-            row = dict(launch_timer("rollout_free", state, T, repeats=3),
+            row = dict(launch_timer(fr, dev, "rollout_free", state, T, repeats=3),
                        shape=f"{name} B={B} T={T}", plain_ms=plain_free_ms[name])
             row["env_steps_per_s"] = B * T / (row["ms"] / 1e3)
             timings[f"rollout_free {name}"] = row
@@ -493,7 +464,7 @@ def main() -> int:
         # (int32, int16, int16, int32), two launches each turn
         turns = {torch.int32: [], torch.int16: []}
         for vdt in (torch.int32, torch.int16, torch.int16, torch.int32):
-            turns[vdt].append(launch_timer("rollout_free", state, T, repeats=2, vdt=vdt))
+            turns[vdt].append(launch_timer(fr, dev, "rollout_free", state, T, repeats=2, vdt=vdt))
         ms32 = sum(t["ms"] for t in turns[torch.int32]) / 2
         row = dict(turns[torch.int16][0], ms=sum(t["ms"] for t in turns[torch.int16]) / 2,
                    ms_turns=[t["ms"] for t in turns[torch.int16]],
@@ -511,6 +482,8 @@ def main() -> int:
         log(f"[7] {key} {timings[key]['shape']}: {timings[key]['ms']:.3f} ms ({smi}); "
             f"bound {timings[key]['bound_ms']:.5f} ms; plain {timings[key]['plain_ms']:.1f} ms")
     report["timings"] = timings
+    if args.against:
+        report["turns"] = turns_against(args.against, smi)
 
     # ---- 8. where the main path's time goes --------------------------------
     def policy_step(s, gen, clock=None):
@@ -595,6 +568,135 @@ def main() -> int:
     report["kernels"] = kernels
     log(json.dumps({"kernels": kernels}))
     return finish(report, args, smi, kind, count)
+
+
+def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, resets=0, job_steps=0,
+                 vdt=None):
+    """Mean ms of one launch (CUDA events), each on a freshly restored state
+    buffer, and the launch's bound. ``fr``: the ``fused_rollout`` module
+    whose kernels are timed (this checkout's or another's). ``resets`` and
+    ``job_steps``: the episodes that end and the jobs allocated in the
+    launch (they set the driven kernel's solution writes). ``vdt``: the free
+    kernel's storage dtype (int32 by default)."""
+    import torch
+
+    vdt = torch.int32 if vdt is None else vdt
+    ws = kernel == "rollout_driven" and fr._solution_mode(state)
+    buf0 = fr._to_lanes(state, ws, vdt)
+    buf = buf0.clone()
+    tab, lanec = fr._lane_inputs(state)
+    B = state.batch_size
+    if kernel == "rollout_driven":
+        rewards = torch.empty((T, B), dtype=torch.int32, device=dev)
+        go = lambda: fr.launch_driven(state, buf, tab, lanec, actions, rewards, ws)  # noqa: E731
+    else:
+        st = torch.empty((4, B), dtype=torch.int64, device=dev)
+        ret = torch.empty((B,), dtype=torch.float32, device=dev)
+        go = lambda: fr.launch_free(state, buf, tab, lanec, bits, SEED, st, ret, T, vdt)  # noqa: E731
+    buf.copy_(buf0)
+    go()  # warm-up
+    total = 0.0
+    for _ in range(repeats):
+        buf.copy_(buf0)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        go()
+        e1.record()
+        torch.cuda.synchronize()
+        total += e0.elapsed_time(e1)
+    # bytes: the light state rows in the storage dtype, read once by the free
+    # kernel (which writes no state) and read and written once by the driven
+    # one (whose solution is only written: one word per allocated job, J*M
+    # per reset); the tables, the lane constants the kernel reads, the
+    # actions or bits, the outputs
+    J, M = state.jobs_pad, state.machines_pad
+    passes = 2 if kernel == "rollout_driven" else 1
+    state_bytes = passes * (4 + 10 * J + 2 * M) * B * buf.element_size()
+    words = tab.numel()
+    if kernel == "rollout_driven":
+        words += 4 * B + 2 * T * B + (job_steps + resets * J * M if ws else 0)
+        ops_per = 4 * J + 2 * M
+    else:
+        words += 5 * B + (T * B if bits is not None else 0) + 2 * 4 * B + B
+        ops_per = 5 * J + 2 * M + (0 if bits is not None else 100)
+    nbytes, nops = state_bytes + 4 * words, T * B * ops_per
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
+    return {"ms": total / repeats, "bytes": nbytes, "int_ops": nops,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def source(instances, name):
+    """The instance or instance set of a config name."""
+    if name in ("ta41-ta50", "ta01-ta10"):
+        lo, hi = (41, 50) if name == "ta41-ta50" else (1, 10)
+        return instances.get_instance_set([f"ta{i:02d}" for i in range(lo, hi + 1)])
+    if name == "rand6x5":
+        return instances.random_instance(6, 5, (1, 9), seed=3)
+    return instances.get_instance(name)
+
+
+def time_kernels_of(root: str, out: str) -> int:
+    """``--time-kernels ROOT``: import ``jssenv_tpu_torch`` from the checkout
+    at ``root`` (this one, or another such as the parent commit's), build its
+    kernels there, and write to ``out`` (JSON) the time of its free kernel
+    on each FULL config in the config's value dtype and of its driven kernel
+    at the main shape (ta01, B=MAIN_B, T=1, the last step of a
+    LOOP_STEPS-step policy loop run on the plain path)."""
+    root_path = Path(root).resolve()
+    sys.path.insert(0, str(root_path))
+    import torch
+
+    from jssenv_tpu_torch import instances, vector
+    from jssenv_tpu_torch.core import _build, fused_rollout as fr
+
+    check(Path(fr.__file__).resolve().is_relative_to(root_path), f"imported {fr.__file__}, not {root}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    fr._lib()
+    res = {"root": str(root_path), "build_s": time.perf_counter() - t0, "ptxas": _build.ptxas_report("rollout")}
+    s = vector.make_batch(instances.get_instance("ta01"), MAIN_B, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    stats = vector.RolloutStats.zero(dev)
+    for _ in range(LOOP_STEPS - 1):
+        s, _, stats = vector.step_autoreset(s, vector.random_legal_actions(gen, s), stats)
+    acts = vector.random_legal_actions(gen, s)[None].contiguous()
+    res["rollout_driven"] = launch_timer(fr, dev, "rollout_driven", s, 1, actions=acts, repeats=20)["ms"]
+    for name, B, T in FULL:
+        state = vector.make_batch(source(instances, name), B, device=dev)
+        vdt = fr.value_dtype(state)
+        res[f"rollout_free {name}"] = launch_timer(fr, dev, "rollout_free", state, T, repeats=2, vdt=vdt)["ms"]
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def turns_against(root: str, smi: str) -> dict:
+    """``--against ROOT``: the kernels of the checkout at ``root`` and of this
+    one, timed in turns (root, this, this, root), each turn a process of its
+    own (``--time-kernels``) on this card."""
+    here = Path(__file__).resolve().parent
+    scratch = here / "jssenv_tpu_torch" / "build"
+    scratch.mkdir(parents=True, exist_ok=True)
+    turns = []
+    for i, (tag, r) in enumerate((("parent", root), ("change", here), ("change", here), ("parent", root))):
+        out = scratch / f"turn{i}.json"
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--time-kernels", str(r), "--out", str(out)],
+                       check=True, timeout=900)
+        turns.append((tag, json.loads(out.read_text())))
+        log(f"[7b] turn {i} ({tag}, {r}): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in turns[-1][1].items() if k.startswith("rollout")))
+    keys = [k for k in turns[0][1] if k.startswith("rollout")]
+    rows = {}
+    for k in keys:
+        p = [t[k] for tag, t in turns if tag == "parent"]
+        c = [t[k] for tag, t in turns if tag == "change"]
+        rows[k] = {"parent_ms": p, "change_ms": c, "ratio": (sum(c) / 2) / (sum(p) / 2)}
+        log(f"[7b] {k}: parent {p[0]:.4f}, {p[1]:.4f} ms; change {c[0]:.4f}, {c[1]:.4f} ms; "
+            f"change/parent {rows[k]['ratio']:.4f} ({smi})")
+    return {"root": str(root), "rows": rows,
+            "ptxas": {tag: t["ptxas"] for tag, t in turns[:2]}}
 
 
 def rule_phase(report: dict, dev, lanes: int, profile: bool) -> None:

@@ -29,14 +29,16 @@ Host plumbing: the dynamic state moves to one batch-last (R, B) int32 (or
 int16) buffer (``_to_lanes`` / ``_from_lanes``, rows in ``_ROWS`` order), the static tables
 to one (n_inst, 4, J, M) int32 stack of the batch's distinct instances with a
 per-lane instance index, so ragged batches need no lane grouping. The stack
-is built once per batch and cached (``_lane_inputs``).
+is built once per batch and cached (``_lane_inputs``). ``launch_geometry``
+sizes the launch: a warp per lane, each block's lanes with their state in
+shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -199,32 +201,78 @@ def _lane_inputs_uncached(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
+# Launch geometry (csrc/rollout.cu): a warp per env lane, the lane's state
+# rows and 2M int32 scratch words in shared memory.
+_WARP = 32  # threads a lane (JSS_WARP in the source)
+_BLOCK_THREADS = 256  # a block's threads at most (JSS_MAX_THREADS in the source)
+_SMEM_LIMIT = 232448  # shared bytes a block can have on Hopper (227 KB)
+_MAX_M = 64  # JSS_MAX_M: at most two machines a thread
+
+
+class Geometry(NamedTuple):
+    group: int  # threads per lane: one warp
+    lanes: int  # lanes per block
+    threads: int  # threads per block, lanes * group
+    state_stride: int  # a lane's state slice, in elements of the storage dtype
+    scratch_stride: int  # a lane's scratch slice, in int32 words
+    shared_bytes: int  # dynamic shared memory of a block
+
+
+def _bank_pad(words: int) -> int:
+    """The least stride >= ``words`` that is 1 modulo 32 words: the rows of
+    consecutive lanes start on different banks."""
+    return words + (1 - words) % 32
+
+
+def launch_geometry(J: int, M: int, vdt: torch.dtype = _I32) -> Geometry:
+    """The kernels' launch geometry for a (J, M) batch whose state is stored
+    in ``vdt``. A lane runs on one warp: thread r owns jobs r, r + 32, ...
+    and machines r, r + 32. Lanes per block: as many as fit
+    ``_BLOCK_THREADS`` threads and the shared-memory limit. Raises
+    ``ValueError`` where one lane cannot fit."""
+    if M > _MAX_M:
+        raise ValueError(f"the CUDA kernel handles at most {_MAX_M} machines, got {M}")
+    item = 2 if vdt == torch.int16 else 4
+    rows = 4 + 10 * J + 2 * M
+    state_words = _bank_pad(-(-rows * item // 4))
+    scratch = _bank_pad(2 * M)
+    lane_bytes = 4 * (state_words + scratch)
+    if lane_bytes > _SMEM_LIMIT:
+        raise ValueError(
+            f"a lane of J={J} jobs and M={M} machines needs {lane_bytes} bytes of shared "
+            f"memory; a block has at most {_SMEM_LIMIT}"
+        )
+    lanes = min(_BLOCK_THREADS // _WARP, _SMEM_LIMIT // lane_bytes)
+    return Geometry(_WARP, lanes, lanes * _WARP, state_words * 4 // item, scratch, lanes * lane_bytes)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The built ``csrc/rollout.cu`` with its C signatures declared."""
     lib = _build.load("rollout")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.jss_max_machines.restype = I
-    lib.jss_rollout_driven.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+    geometry = [I, I, I, I]  # lanes, state stride, scratch stride, shared bytes
+    lib.jss_rollout_driven.argtypes = [P, P, P, P, P, I, I, I, I, I, *geometry, P]
     lib.jss_rollout_driven.restype = I
     for fn in (lib.jss_rollout_free, lib.jss_rollout_free_i16):
-        fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, *geometry, P]
         fn.restype = I
     return lib
 
 
-def _check_launch(err: int, name: str) -> None:
+def _geometry_args(geo: Geometry):
+    return geo.lanes, geo.state_stride, geo.scratch_stride, geo.shared_bytes
+
+
+def _check_launch(err: int, name: str, geo: Geometry) -> None:
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+        raise RuntimeError(f"{name}: CUDA launch refused or failed with cudaError {err} ({geo})")
 
 
 def _check_kernel_inputs(state: EnvState, *tensors: torch.Tensor, dtype: torch.dtype = _I32) -> None:
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    M, lim = state.machines_pad, _lib().jss_max_machines()
-    if M > lim:
-        raise ValueError(f"the CUDA kernel handles at most {lim} machines, got {M}")
     for t in tensors:
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
@@ -237,13 +285,14 @@ def launch_driven(state: EnvState, buf, tab, lanec, actions, rewards, with_solut
     updated in place, ``rewards`` (T, B) written) on the current stream."""
     _check_kernel_inputs(state, buf, tab, lanec, actions, rewards)
     T, B = actions.shape
+    geo = launch_geometry(state.jobs_pad, state.machines_pad)
     with torch.cuda.device(state.device):
         err = _lib().jss_rollout_driven(
             buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), actions.data_ptr(),
             rewards.data_ptr(), B, state.jobs_pad, state.machines_pad, T,
-            int(with_solution), torch.cuda.current_stream().cuda_stream,
+            int(with_solution), *_geometry_args(geo), torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(err, "rollout_driven_kernel")
+    _check_launch(err, "rollout_driven_kernel", geo)
     LAUNCHES["rollout_driven"] += 1
 
 
@@ -251,9 +300,9 @@ def launch_free(
     state: EnvState, buf, tab, lanec, bits, seed: int, stats, ret, T: int, vdt: torch.dtype = _I32
 ) -> None:
     """One ``rollout_free_kernel`` launch on a light ``buf`` (no solution
-    rows), updated in place: per-lane stats (4, B) int64 and returns (B,)
-    float32 written. ``vdt`` picks the instantiation (int32 or int16) and
-    must be ``buf``'s dtype: a buffer is never converted here."""
+    rows), which it reads and does not write: per-lane stats (4, B) int64 and
+    returns (B,) float32 written. ``vdt`` picks the instantiation (int32 or
+    int16) and must be ``buf``'s dtype: a buffer is never converted here."""
     if vdt not in (_I32, torch.int16):
         raise ValueError(f"the free kernel stores int32 or int16, not {vdt}")
     if buf.dtype != vdt:
@@ -264,14 +313,15 @@ def launch_free(
         raise ValueError("stats must be int64 and ret float32")
     i16 = vdt == torch.int16
     fn = _lib().jss_rollout_free_i16 if i16 else _lib().jss_rollout_free
+    geo = launch_geometry(state.jobs_pad, state.machines_pad, vdt)
     with torch.cuda.device(state.device):
         err = fn(
             buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(),
             None if bits is None else bits.data_ptr(), seed & (2**64 - 1),
             stats.data_ptr(), ret.data_ptr(), state.batch_size, state.jobs_pad,
-            state.machines_pad, T, torch.cuda.current_stream().cuda_stream,
+            state.machines_pad, T, *_geometry_args(geo), torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(err, "rollout_free_kernel<int16>" if i16 else "rollout_free_kernel")
+    _check_launch(err, "rollout_free_kernel<int16>" if i16 else "rollout_free_kernel", geo)
     LAUNCHES["rollout_free_i16" if i16 else "rollout_free"] += 1
 
 

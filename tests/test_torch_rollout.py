@@ -372,6 +372,39 @@ def test_light_state_stays_light():
     assert final.solution.shape == (4, 0, 5) and raw.shape == (40, 4)
 
 
+# (J, M) of ta01, ta41, ta71, padded ta01 and the widest the kernel takes
+GEOMETRY_SHAPES = {"ta01": (15, 15), "ta41": (30, 20), "ta71": (100, 20), "ta01-padded": (16, 16),
+                   "33x64": (33, 64)}
+
+
+@pytest.mark.parametrize("vdt", [torch.int16, torch.int32], ids=["int16", "int32"])
+@pytest.mark.parametrize("shape", sorted(GEOMETRY_SHAPES))
+def test_launch_geometry(shape, vdt):
+    J, M = GEOMETRY_SHAPES[shape]
+    geo = fr.launch_geometry(J, M, vdt)
+    G, item = geo.group, torch.tensor([], dtype=vdt).element_size()
+    assert G & (G - 1) == 0 and min(32, max(J, M)) <= G <= 32  # a power of two, one warp at most
+    assert G == 32  # a warp per lane
+    assert -(-J // G) * G >= J and 2 * G >= M  # job slots cover J; two machine slots cover M
+    assert geo.threads == geo.lanes * G <= 256 and geo.lanes >= 1
+    rows = 4 + 10 * J + 2 * M
+    assert geo.state_stride >= rows and geo.state_stride * item % 4 == 0 and geo.scratch_stride >= 2 * M
+    lane_words = geo.state_stride * item // 4
+    assert geo.shared_bytes == geo.lanes * 4 * (lane_words + geo.scratch_stride) <= 232448
+    # the lanes of a block start their rows on different banks
+    starts = {(lane * lane_words) % 32 for lane in range(geo.lanes)}
+    assert len(starts) == geo.lanes
+    assert fr.launch_geometry(J, M, vdt) == geo
+
+
+def test_launch_geometry_refuses_what_cannot_fit():
+    with pytest.raises(ValueError, match="J=6000 jobs and M=20 machines"):
+        fr.launch_geometry(6000, 20)
+    fr.launch_geometry(6000, 20, torch.int16)  # half the bytes fit
+    with pytest.raises(ValueError, match="machines"):
+        fr.launch_geometry(10, 65)
+
+
 # ---------------------------------------------------------------------------
 # on the card: the CUDA kernels against the twins
 # ---------------------------------------------------------------------------
@@ -382,6 +415,13 @@ CARD_CASES = {
     "padded": (lambda: ti.get_instance("ta01"), 32, 260, {"jobs_pad": 16, "machines_pad": 16}),
     "ragged": (lambda: ti.get_instance_set(["ta01", "ta41", "ta71"]), 48, 120, {}),
     "episodes": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 100, 200, {}),
+    # a second, nearly empty job slot (job 32), M at its limit (two machine slots)
+    "33x64": (lambda: ti.random_instance(33, 64, (1, 9), seed=6), 8, 2300, {}),
+    # B not a multiple of the 8 lanes of a ta01 block
+    "ta01-B37": (lambda: ti.get_instance("ta01"), 37, 300, {}),
+    # the warp larger than J: a 2x2 instance with a padded machine; ranks 2 to
+    # 31 own no job, many episodes
+    "2x2": (lambda: ti.random_instance(2, 2, (1, 9), seed=5), 37, 60, {"machines_pad": 3}),
 }
 
 
@@ -413,8 +453,8 @@ def test_free_kernel_matches_twin_on_card(cuda_dev, case, mode):
     bits = torch.from_numpy(_bits(T, B, seed=2)).to(cuda_dev) if mode == "bits" else None
     # every case but the ragged one (ta41, ta71) fits int16 and runs that
     # instantiation
-    key = "rollout_free" if case == "ragged" else "rollout_free_i16"
-    assert (fr.value_dtype(state) == torch.int16) == (key == "rollout_free_i16")
+    key = "rollout_free_i16" if fr.value_dtype(state) == torch.int16 else "rollout_free"
+    assert (key == "rollout_free") == (case == "ragged")
     before = dict(fr.LAUNCHES)
     k = fr.free_lane_stats(state, T, seed=11, bits=bits)
     assert fr.LAUNCHES[key] == before[key] + 1 and sum(fr.LAUNCHES.values()) == sum(before.values()) + 1
@@ -461,3 +501,23 @@ def test_kernel_wrappers_refuse_bad_inputs_on_card(cuda_dev):
     wide = tv.make_batch(ti.random_instance(6, 70, (1, 9), seed=2), 4, device=cuda_dev)
     with pytest.raises(ValueError, match="machines"):
         fr.rollout_free(wide, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refused", ["threads", "shared"])
+def test_refused_launch_raises_on_card(cuda_dev, monkeypatch, refused):
+    """A geometry the card refuses (too many threads a block, more shared
+    memory than a block may have) raises; nothing runs in its place."""
+    state = tv.make_batch(ti.get_instance("ta01"), 16, device=cuda_dev)
+    geo = fr.launch_geometry(state.jobs_pad, state.machines_pad)
+    if refused == "threads":
+        bad = geo._replace(lanes=64, threads=64 * 32, shared_bytes=64 * geo.shared_bytes // geo.lanes)
+    else:
+        bad = geo._replace(shared_bytes=240000)
+    monkeypatch.setattr(fr, "launch_geometry", lambda *a, **k: bad)
+    before = dict(fr.LAUNCHES)
+    with pytest.raises(RuntimeError, match="refused or failed"):
+        fr.rollout_driven(state, torch.zeros((2, 16), dtype=torch.int32, device=cuda_dev), 2)
+    with pytest.raises(RuntimeError, match="refused or failed"):
+        fr.free_lane_stats(state, 2, seed=1)
+    assert fr.LAUNCHES == before
