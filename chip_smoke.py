@@ -10,12 +10,15 @@ Phases (any failure raises and the script exits non-zero):
    (registers, stack, spills) and the launch geometry of each FULL config
    (``fused_rollout.launch_geometry``: a warp a lane, lanes a block, shared
    bytes);
-3. driven parity: the plain path (``vector.step_autoreset`` under
-   ``random_legal_actions``) on the card records actions, raw rewards and the
-   final state; ``fused_rollout.rollout_driven`` replays the actions in the
-   kernel; rewards and every state field must be equal. Also at the main
-   path's shape (ta01, B=16384, one step per launch) for as many steps as the
-   policy loop takes, across episode ends and open no-op gates;
+3. driven parity: the plain twin (``vector.step_autoreset``'s two calls,
+   under ``random_legal_actions``) on the card records actions, raw rewards,
+   episode ends and the final state; ``fused_rollout.rollout_driven``
+   replays the actions in the kernel; rewards, ends and every state field
+   must be equal, and the launch without ends must give the same run. Also
+   at the main paths' shapes, one step per launch for as many steps as the
+   policy loop takes, across episode ends and open no-op gates: ta01
+   B=16384 on the full state (the policy loop) and ta01 B=8192 on the light
+   state (``vector.strip_solution``, as the learner and serving run it);
 4. free parity, bits mode: the same (T, B) bits through the kernel and the
    plain twin; per-lane integer stats equal, return within rel 1e-5, no
    reward-identity violations. Where a case's values fit int16, both
@@ -49,13 +52,29 @@ Phases (any failure raises and the script exits non-zero):
    torch engine on the card, each to its stored makespan, timed per row;
 11. one ta01 SPT episode through ``JssEnv`` on each engine (``"native"``,
    and the default ``"torch"`` on the card); every public attribute equal
-   after every step.
+   after every step;
+12. serving: greedy ``learner.evaluate_policy`` of the shipped checkpoints
+   (``models_data``, loaded by ``checkpoint.params_from_flax``), each env
+   step one driven launch: at bfloat16 under the JAX package's test bounds
+   (``ta41_distill`` recorded only), at float32 equal to the JAX package's
+   float32 makespans, one run with 63 sampled lanes; the reward identity of
+   each greedy episode from the kernel's rewards and ends;
+13. training at full width: the JAX package's learner configuration (ta01,
+   B=8192, unroll 32, 256x256 ``MaskedPolicyNet``, REINFORCE), then 2 PPO
+   updates at that shape and 2 ``perjob`` updates on ta41 (B=1024, rich
+   features): finite losses, every parameter moved, exactly ``unroll_steps``
+   driven launches an update, the reward identity on every lane that ends;
+   ms an update, env-steps/s, the rollout/learn split (CUDA events), the
+   busy share with ``--profile``; then the driven kernel held against its
+   twin on the learner's last recorded step (light state, every state
+   field, rewards and ends equal) and timed there, ends written.
 
-``--quick`` runs phases 1-4 and 9-11 at small shapes (a first check of a new
+``--quick`` runs phases 1-4 and 9-13 at small shapes (a first check of a new
 build). ``--out`` writes every measured number as JSON. On an H100 the run
-takes about 5 minutes (``--quick`` about 1); ``--against`` adds about 3. The
+takes about 6 minutes (``--quick`` about 2); ``--against`` adds about 3. The
 last stdout lines are the ``nvidia-smi`` line, one ``{"kernels": [...]}``
-line and ``{"ok": true, "device": {...}}``.
+line and ``{"ok": true, "device": {...}}``; the driven kernel's
+``launches`` there sum phases 5, 12 and 13, each counted from zero.
 """
 
 from __future__ import annotations
@@ -83,7 +102,8 @@ DRIVEN_CASES = (
     ("ta01", 512, 256, {"jobs_pad": 16, "machines_pad": 16}),
     ("rand6x5", 256, 256, {}),
 )
-QUICK_DRIVEN_CASES = (("ta01", 256, 300, {}), ("rand6x5", 128, 128, {}), ("ta71", 64, 64, {}))
+QUICK_DRIVEN_CASES = (("ta01", 256, 300, {}), ("ta01", 256, 300, {"light": True}), ("rand6x5", 128, 128, {}),
+                      ("ta71", 64, 64, {}))
 FREE_CASES = (("ta01", 1024, 512), ("ta41-ta50", 1280, 768))
 QUICK_FREE_CASES = (("ta01", 256, 300), ("rand6x5", 128, 128))
 FULL = (("ta01", 16384, 1024), ("ta01-ta10", 10240, 1024), ("ta41-ta50", 10240, 1024), ("ta71", 8192, 3072))
@@ -91,10 +111,50 @@ FULL = (("ta01", 16384, 1024), ("ta01-ta10", 10240, 1024), ("ta41-ta50", 10240, 
 FULL_DTYPE = {"ta01": "int16", "ta01-ta10": "int16", "ta41-ta50": "int32", "ta71": "int32"}
 MAIN_B = 16384  # ta01 lanes of the policy-in-the-loop main path
 LOOP_STEPS = 256  # its steps, one driven launch each
+LEARNER_B = 8192  # ta01 lanes of the learner's light env state (phase 13)
 RULE_SET, RULE_LANES, QUICK_RULE_LANES, RULE_MAX_STEPS = "ta01-ta10", 10240, 70, 4096
 EXPLORE = (0.0, 0.1)
 GOLDEN = Path(__file__).resolve().parent / "tests" / "data" / "golden_solutions.json"
 REPLAY_TORCH_EXTRA = ("ta71",)  # replayed on the card beside the published optima
+
+# phase 12: (checkpoint, instance, compute dtype, sampled lanes beside the
+# greedy one, the JAX package's value): a bound (< at bfloat16, from
+# tests/test_parallel.py), its float32 makespan on the CPU, or None (recorded
+# only: ta41_distill at bfloat16 sits on argmax ties)
+MODELS = Path(__file__).resolve().parent / "models_data"
+CHECKPOINT_CONFIG = {  # checkpoint -> (arch, hidden, features)
+    "ta01_policy": ("flat", (256, 256), "reference"),
+    "ta01_policy_rich": ("flat", (256, 256), "rich"),
+    "ta41_policy_rich": ("flat", (256, 256), "rich"),
+    "ta_cross_policy": ("perjob", (128, 128), "rich"),
+    "ta41_distill": ("perjob", (128, 128), "rich"),
+}
+SERVING = (
+    ("ta01_policy", "ta01", "bfloat16", 0, 1500),
+    ("ta01_policy_rich", "ta01", "bfloat16", 0, 1400),
+    ("ta41_policy_rich", "ta41", "bfloat16", 0, 2499),
+    ("ta_cross_policy", "ta45", "bfloat16", 0, 2487),
+    ("ta_cross_policy", "ta09", "bfloat16", 0, 1541),
+    ("ta41_distill", "ta41", "bfloat16", 0, None),
+    ("ta01_policy_rich", "ta01", "float32", 0, 1347),
+    ("ta41_distill", "ta41", "float32", 0, 2658),
+    ("ta41_policy_rich", "ta41", "float32", 0, None),
+    ("ta01_policy_rich", "ta01", "bfloat16", 63, 1400),
+)
+SERVING_QUICK = (("ta01_policy_rich", "ta01", "float32", 0, 1347), ("ta01_policy", "ta01", "bfloat16", 7, 1500))
+# phase 13: (tag, instance, B, updates, LearnerConfig fields); the first is the
+# JAX package's learner configuration (docs/BENCHMARKS.md: ta01, B=8192,
+# unroll 32, 256x256 MaskedPolicyNet, REINFORCE)
+TRAIN = (
+    ("reinforce", "ta01", LEARNER_B, 12, {}),
+    ("ppo", "ta01", LEARNER_B, 2, {"algo": "ppo"}),
+    ("perjob", "ta41", 1024, 2, {"arch": "perjob", "hidden": (128, 128), "features": "rich"}),
+)
+TRAIN_QUICK = (
+    ("reinforce", "ta01", 512, 2, {"unroll_steps": 8}),
+    ("ppo", "ta01", 512, 2, {"algo": "ppo", "unroll_steps": 8}),
+    ("perjob", "ta41", 64, 2, {"arch": "perjob", "hidden": (128, 128), "features": "rich", "unroll_steps": 8}),
+)
 
 # LAUNCHES key -> (kernel, the TPU kernel it replaces)
 KERNELS = {
@@ -140,7 +200,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true", help="run the small parity phases only")
     ap.add_argument("--out", default=None, help="write all measurements to this JSON file")
-    ap.add_argument("--profile", action="store_true", help="add torch.profiler windows to phases 8 and 9")
+    ap.add_argument("--profile", action="store_true", help="add torch.profiler windows to phases 8, 9 and 13")
     ap.add_argument("--against", metavar="ROOT", default=None,
                     help="also time another checkout's kernels (e.g. the parent commit's) in turns with these")
     ap.add_argument("--time-kernels", metavar="ROOT", default=None, help=argparse.SUPPRESS)
@@ -224,59 +284,75 @@ def main() -> int:
     driven_err = 0
     recorded = {}  # the first case's inputs, episodes and allocations, timed in phase 7
     for i, (name, B, T, pad) in enumerate(driven_cases):
-        state = make(name, B, **pad)
+        state = make(name, B, **{k: v for k, v in pad.items() if k != "light"})
+        if pad.get("light"):
+            state = vector.strip_solution(state)
         gen = torch.Generator(device=dev).manual_seed(SEED + i)
-        stats = vector.RolloutStats.zero(dev)
-        acts, raws, s = [], [], state
+        acts, raws, ends, s = [], [], [], state
         plain = Events()
         for _ in range(T):
             a = vector.random_legal_actions(gen, s)
-            with plain:
-                s, tr, stats = vector.step_autoreset(s, a, stats)
+            with plain:  # the twin's step: vector.step_autoreset's vstep and reset_lanes
+                s, r, e = fr.rollout_driven_reference(s, a[None], 1, return_ends=True)
             acts.append(a)
-            raws.append(tr.raw_reward)
+            raws.append(r[0])
+            ends.append(e[0])
         kern = Events()
         with kern:
-            fin, rew = fr.rollout_driven(state, torch.stack(acts), T)
+            fin, rew, k_ends = fr.rollout_driven(state, torch.stack(acts), T, return_ends=True)
         torch.cuda.synchronize()
-        err = max(max_err(rew, torch.stack(raws)), state_err(fin, s))
-        check(err == 0, f"driven {name}: rewards differ")
+        ends = torch.stack(ends)
+        err = max(max_err(rew, torch.stack(raws)), max_err(k_ends, ends), state_err(fin, s))
+        check(err == 0, f"driven {name}: rewards or ends differ")
+        fin_plain, rew_plain = fr.rollout_driven(state, torch.stack(acts), T)  # the launch without ends
+        check(max(max_err(rew_plain, rew), state_err(fin_plain, fin)) == 0, f"driven {name}: ends changed the run")
         driven_err = max(driven_err, err)
-        row = {"config": name, "pad": pad, "B": B, "T": T, "episodes": int(stats.episodes),
+        episodes = int((ends > 0).sum())
+        row = {"config": name, "pad": pad, "B": B, "T": T, "episodes": episodes,
                "max_abs_err": err, "kernel_call_ms": kern.ms(), "plain_step_ms": plain.ms()}
         report["driven_parity"].append(row)
-        log(f"[3] driven parity {row}")
+        log(f"[3] driven parity (rewards, ends, state) {row}")
         if i == 0:
             acts = torch.stack(acts)
-            recorded["T512"] = (state, acts, int(stats.episodes), int((acts < state.num_jobs).sum()))
+            recorded["T512"] = (state, acts, episodes, int((acts < state.num_jobs).sum()))
     check(any(r["episodes"] > 0 for r in report["driven_parity"]), "no episode crossed a boundary")
 
     if not args.quick:
-        # the main path's driven shape: one step per launch at B=MAIN_B, as
-        # long as the policy loop, so that lanes reset and no-op gates open
-        B, T = MAIN_B, LOOP_STEPS
-        s_p = s_k = make("ta01", B)
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        stats = vector.RolloutStats.zero(dev)
-        noop_steps = torch.zeros((), dtype=torch.int64, device=dev)
-        plain = Events()
-        for t in range(T):
-            a = vector.random_legal_actions(gen, s_p)
-            s_in, eps_in = s_p, stats.episodes
-            with plain:
-                s_p, tr, stats = vector.step_autoreset(s_p, a, stats)
-            s_k, rew = fr.rollout_driven(s_k, a[None], 1)
-            err = max(max_err(rew[0], tr.raw_reward), state_err(s_k, s_p))
-            check(err == 0, f"driven B={B}: rewards differ")
-            noop_steps += s_p.noop_legal.sum()
-        recorded["main"] = (s_in, a[None].contiguous(), int(stats.episodes - eps_in),
-                            int((a < s_in.num_jobs).sum()))
-        row = {"B": B, "T": T, "max_abs_err": 0, "episodes": int(stats.episodes),
-               "noop_legal_lane_steps": int(noop_steps), "plain_step_ms": plain.ms()}
-        check(row["episodes"] > 0 and row["noop_legal_lane_steps"] > 0,
-              f"main-shape parity crossed no episode end or no open no-op gate: {row}")
-        report["driven_main_shape"] = row
-        log(f"[3] driven parity at the main path's shape {row}")
+        # the main paths' driven shapes, one step per launch, as long as the
+        # policy loop, so that lanes reset and no-op gates open: the policy
+        # loop's (B=MAIN_B, full state) and the learner's and serving's
+        # (B=LEARNER_B, light state: vector.strip_solution)
+        for key, B, light in (("driven_main_shape", MAIN_B, False), ("driven_learner_shape", LEARNER_B, True)):
+            T = LOOP_STEPS
+            s_p = s_k = make("ta01", B)
+            if light:
+                s_p = s_k = vector.strip_solution(s_p)
+            gen = torch.Generator(device=dev).manual_seed(SEED + B)
+            episodes = torch.zeros((), dtype=torch.int64, device=dev)
+            noop_steps = torch.zeros((), dtype=torch.int64, device=dev)
+            plain = Events()
+            for t in range(T):
+                a = vector.random_legal_actions(gen, s_p)
+                s_in = s_p
+                with plain:
+                    s_p, r_p, e_p = fr.rollout_driven_reference(s_p, a[None], 1, return_ends=True)
+                s_k, rew, e_k = fr.rollout_driven(s_k, a[None], 1, return_ends=True)
+                err = max(max_err(rew, r_p), max_err(e_k, e_p), state_err(s_k, s_p))
+                check(err == 0, f"driven B={B} light={light}: rewards or ends differ")
+                check(s_k.solution.shape[1] == (0 if light else s_k.jobs_pad),
+                      f"driven B={B} light={light}: solution rows {s_k.solution.shape[1]}")
+                noop_steps += s_p.noop_legal.sum()
+                episodes += (e_p > 0).sum()
+            if not light:
+                recorded["main"] = (s_in, a[None].contiguous(), int((e_p > 0).sum()),
+                                    int((a < s_in.num_jobs).sum()))
+            row = {"B": B, "T": T, "light": light, "max_abs_err": 0, "episodes": int(episodes),
+                   "noop_legal_lane_steps": int(noop_steps), "plain_step_ms": plain.ms()}
+            check(row["episodes"] > 0 and row["noop_legal_lane_steps"] > 0,
+                  f"{key} parity crossed no episode end or no open no-op gate: {row}")
+            report[key] = row
+            log(f"[3] driven parity (rewards, ends, state) at ta01 B={B}, one step a launch, "
+                f"{'light' if light else 'full'} state: {row}")
 
     # ---- 4. free parity, bits mode -----------------------------------------
     def rand_bits(T, B, seed):
@@ -332,6 +408,8 @@ def main() -> int:
         rule_phase(report, dev, QUICK_RULE_LANES, profile=False)
         replay_phase(report, dev, quick=True)
         wrapper_phase(report, dev)
+        serving_phase(report, dev, quick=True)
+        training_phase(report, dev, quick=True, profile=False)
         kernels = [{"name": KERNELS[n][0], "launches": fr.LAUNCHES[n]} for n in KERNELS]
         log(json.dumps({"kernels": kernels}))
         return finish(report, args, smi, kind, count)
@@ -552,6 +630,37 @@ def main() -> int:
     wrapper_phase(report, dev)
     check(not any(fr.LAUNCHES.values()), f"rules, replay and wrappers launched a rollout kernel: {fr.LAUNCHES}")
 
+    # ---- 12-13. serving and training: the policy nets on the driven kernel -
+    driven_by_path = {"policy_loop": launches["rollout_driven"],
+                      "serving": serving_phase(report, dev, quick=False)}
+    driven_by_path["training"], call = training_phase(report, dev, quick=False, profile=args.profile)
+    launches["rollout_driven"] = sum(driven_by_path.values())
+    report["main_path"]["driven_launches_by_path"] = driven_by_path
+    # the driven kernel at the learner's shape: the last env step of the
+    # REINFORCE run (light state), its ends written; kernel and twin on the
+    # same inputs must agree in every state field, the rewards and the ends
+    st, acts = call["state"], call["actions"]
+    check(st.solution.shape[1] == 0, "the learner's env state is not light")
+    twin = Events()
+    for _ in range(2):
+        with twin:
+            ref = fr.rollout_driven_reference(st, acts, 1, return_ends=True)
+    got = fr.rollout_driven(st, acts, 1, return_ends=True)
+    torch.cuda.synchronize()
+    err = max(state_err(got[0], ref[0]), max_err(got[1], ref[1]), max_err(got[2], ref[2]))
+    check(err == 0 and got[0].solution.shape[1] == 0, "driven at the learner's shape: kernel and twin differ")
+    driven_err = max(driven_err, err)
+    log(f"[13] rollout_driven at the learner's shape: kernel equals its twin on the recorded step "
+        f"({int((ref[2] > 0).sum())} lanes end)")
+    timings["rollout_driven_learner"] = dict(
+        launch_timer(fr, dev, "rollout_driven", st, 1, actions=acts, resets=int(call["resets"].sum()),
+                     job_steps=int(call["jobs"].sum()), ends=True, repeats=20),
+        shape=f"ta01 B={st.batch_size} T=1 with ends (the learner's env step, light state)",
+        plain_ms=twin.ms(), launches=driven_by_path["training"])
+    row = timings["rollout_driven_learner"]
+    log(f"[13] rollout_driven at the learner's shape {row['shape']}: {row['ms']:.4f} ms ({smi}); bound "
+        f"{row['bound_ms']:.5f} ms by {row['bound_by']}; plain {row['plain_ms']:.2f} ms")
+
     main_rows = {"rollout_driven": timings["rollout_driven"], "rollout_free": timings["rollout_free ta41-ta50"],
                  "rollout_free_i16": timings["rollout_free_i16 ta01"]}
     errs = {"rollout_driven": driven_err}
@@ -565,19 +674,23 @@ def main() -> int:
          "bound_by": main_rows[n]["bound_by"], "library_ms": None, "shape": main_rows[n]["shape"]}
         for n in KERNELS
     ]
+    kernels[0]["launches_by_path"] = driven_by_path
+    kernels[0]["learner_shape"] = {k: timings["rollout_driven_learner"][k]
+                                   for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
     report["kernels"] = kernels
     log(json.dumps({"kernels": kernels}))
     return finish(report, args, smi, kind, count)
 
 
 def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, resets=0, job_steps=0,
-                 vdt=None):
+                 vdt=None, ends=False):
     """Mean ms of one launch (CUDA events), each on a freshly restored state
     buffer, and the launch's bound. ``fr``: the ``fused_rollout`` module
     whose kernels are timed (this checkout's or another's). ``resets`` and
     ``job_steps``: the episodes that end and the jobs allocated in the
     launch (they set the driven kernel's solution writes). ``vdt``: the free
-    kernel's storage dtype (int32 by default)."""
+    kernel's storage dtype (int32 by default). ``ends``: the driven kernel
+    also writes its (T, B) episode ends, as the learner's steps do."""
     import torch
 
     vdt = torch.int32 if vdt is None else vdt
@@ -588,7 +701,9 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
     B = state.batch_size
     if kernel == "rollout_driven":
         rewards = torch.empty((T, B), dtype=torch.int32, device=dev)
-        go = lambda: fr.launch_driven(state, buf, tab, lanec, actions, rewards, ws)  # noqa: E731
+        out_ends = torch.empty_like(rewards) if ends else None
+        extra = (out_ends,) if ends else ()  # an older checkout's launcher takes no ends
+        go = lambda: fr.launch_driven(state, buf, tab, lanec, actions, rewards, ws, *extra)  # noqa: E731
     else:
         st = torch.empty((4, B), dtype=torch.int64, device=dev)
         ret = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -608,13 +723,14 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
     # kernel (which writes no state) and read and written once by the driven
     # one (whose solution is only written: one word per allocated job, J*M
     # per reset); the tables, the lane constants the kernel reads, the
-    # actions or bits, the outputs
+    # actions or bits, the outputs (the driven kernel's rewards and, when
+    # asked, its ends: T*B words each)
     J, M = state.jobs_pad, state.machines_pad
     passes = 2 if kernel == "rollout_driven" else 1
     state_bytes = passes * (4 + 10 * J + 2 * M) * B * buf.element_size()
     words = tab.numel()
     if kernel == "rollout_driven":
-        words += 4 * B + 2 * T * B + (job_steps + resets * J * M if ws else 0)
+        words += 4 * B + (3 if ends else 2) * T * B + (job_steps + resets * J * M if ws else 0)
         ops_per = 4 * J + 2 * M
     else:
         words += 5 * B + (T * B if bits is not None else 0) + 2 * 4 * B + B
@@ -863,6 +979,192 @@ def wrapper_phase(report: dict, dev) -> None:
                           "ms_per_step": {e: s / steps * 1e3 for e, s in secs.items()}}
     log(f"[11] JssEnv ta01 SPT: {steps} steps, makespan {mk}, every public attribute equal on both engines; "
         + ", ".join(f"{e} {s / steps * 1e3:.3f} ms/step" for e, s in secs.items()))
+
+
+class DrivenRecorder:
+    """While active, wraps ``fused_rollout.rollout_driven`` (which
+    ``step_autoreset`` and ``evaluate_policy`` call) to see each call's
+    inputs, raw rewards and ends; launches are still counted where the
+    kernel launches, nowhere else. ``on_call(state, actions, raw, ends)``
+    runs after each call. It sees only calls made through the module
+    attribute, so each phase that uses it requires its call count to equal
+    the kernel's launch count."""
+
+    def __init__(self, fr, on_call):
+        self.fr, self.on_call = fr, on_call
+
+    def __enter__(self):
+        orig = self.orig = self.fr.rollout_driven
+
+        def wrapped(state, actions, num_steps, return_ends=False):
+            out = orig(state, actions, num_steps, return_ends)
+            self.on_call(state, actions, out[1], out[2] if return_ends else None)
+            return out
+
+        self.fr.rollout_driven = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.fr.rollout_driven = self.orig
+
+
+def serving_phase(report: dict, dev, quick: bool) -> int:
+    """Phase 12: greedy ``evaluate_policy`` of the shipped checkpoints on the
+    card, every env step in the driven kernel; returns its driven launches.
+    bfloat16 against the JAX package's test bounds, float32 against its
+    float32 makespans on the CPU; each greedy episode's reward identity
+    checked from the kernel's own rewards and ends."""
+    import torch
+
+    from jssenv_tpu_torch import checkpoint, instances
+    from jssenv_tpu_torch.core import fused_rollout as fr
+    from jssenv_tpu_torch.parallel import learner
+
+    runs = SERVING_QUICK if quick else SERVING
+    rows, launches = [], 0
+    for name, spec_name, dtype, lanes, want in runs:
+        arch, hidden, features = CHECKPOINT_CONFIG[name]
+        cfg = learner.LearnerConfig(arch=arch, hidden=hidden, features=features,
+                                    compute_dtype=getattr(torch, dtype))
+        spec = instances.get_instance(spec_name)
+        params = checkpoint.params_from_flax(MODELS / f"{name}.npz")
+        raws, ends = [], []
+        fr.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with DrivenRecorder(fr, lambda s, a, r, e: (raws.append(r[0, 0]), ends.append(e[0, 0]))):
+            res = learner.evaluate_policy(params, spec, cfg, stochastic_lanes=lanes, max_steps=4096, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = fr.LAUNCHES["rollout_driven"]
+        check(n == res["steps"] and n == len(ends) and sum(fr.LAUNCHES.values()) == n,
+              f"serve {name} {spec_name}: {fr.LAUNCHES} launches for {res['steps']} steps")
+        launches += n
+        mk = res["greedy_makespan"]
+        raws, ends = torch.stack(raws).cpu(), torch.stack(ends).cpu()
+        check(mk > 0 and bool((ends > 0).any()), f"serve {name} {spec_name}: no complete schedule ({mk})")
+        first = int((ends > 0).nonzero()[0, 0])
+        check(int(ends[first]) == mk, f"serve {name} {spec_name}: makespan {mk}, first end {int(ends[first])}")
+        check(int(raws[:first + 1].sum()) == 2 * spec.sum_op - spec.num_machines * mk,
+              f"serve {name} {spec_name}: reward identity fails")
+        if want is not None:
+            ok = mk == want if dtype == "float32" else mk < want
+            check(ok, f"serve {name} {spec_name} {dtype}: makespan {mk}, expected "
+                  f"{'' if dtype == 'float32' else '< '}{want}")
+        row = dict(res, checkpoint=name, instance=spec_name, dtype=dtype, expected=want, seconds=secs,
+                   ms_per_step=secs / n * 1e3, launches=n)
+        rows.append(row)
+        log(f"[12] serve {name} on {spec_name} ({dtype}, {1 + lanes} lanes): greedy makespan {mk} "
+            f"({'recorded, no bound' if want is None else ('JAX value ' if dtype == 'float32' else 'JAX bound < ') + str(want)}), "
+            f"{n} steps, {n} driven launches, "
+            f"{secs:.2f} s, {secs / n * 1e3:.3f} ms a step"
+            + (f"; sampled best {res['best_sampled_makespan']}, mean {res['avg_sampled_makespan']:.1f}"
+               if lanes else ""))
+    report["serving"] = rows
+    return launches
+
+
+def training_phase(report: dict, dev, quick: bool, profile: bool):
+    """Phase 13: the learner at full width (ta01, B=8192, unroll 32, 256x256
+    MaskedPolicyNet, REINFORCE; then PPO at the same shape and the perjob
+    net on ta41 with rich features). Every loss finite, every parameter
+    moved, ``unroll_steps`` driven launches an update, the reward identity
+    on every lane that ends; ms an update, env-steps/s and the
+    rollout/learn split by CUDA events. Returns (driven launches, the
+    learner-shape driven launch recorded for timing)."""
+    import dataclasses
+
+    import torch
+
+    from jssenv_tpu_torch import instances, vector
+    from jssenv_tpu_torch.core import fused_rollout as fr
+    from jssenv_tpu_torch.parallel import learner
+
+    out, launches = {}, 0
+    last_call = {}
+    runs = TRAIN_QUICK if quick else TRAIN
+    for tag, spec_name, B, updates, extra in runs:
+        cfg = learner.LearnerConfig(**extra)
+        T = cfg.unroll_steps
+        spec = instances.get_instance(spec_name)
+        state = vector.strip_solution(vector.make_batch(spec, B, device=dev))
+        ts = learner.init_train_state(SEED, state, cfg)
+        step = learner.make_train_step(cfg)
+        p0 = {k: v.detach().clone() for k, v in ts.model.state_dict().items()}
+        so, nm = 2 * spec.sum_op, spec.num_machines
+        ep_raw = torch.zeros(B, dtype=torch.int64, device=dev)
+        viol = torch.zeros((), dtype=torch.int64, device=dev)
+        ended = torch.zeros((), dtype=torch.int64, device=dev)
+        roll_end = []
+
+        def on_call(s, a, raw, e):
+            nonlocal ep_raw
+            ep_raw += raw[0]
+            done = e[0] > 0
+            viol.add_((done & (ep_raw != so - nm * e[0].to(torch.int64))).sum())
+            ended.add_(done.sum())
+            ep_raw = torch.where(done, 0, ep_raw)
+            if tag == "reinforce":
+                last_call.update(state=s, actions=a.to(torch.int32).contiguous(), resets=done,
+                                 jobs=a < s.num_jobs)
+            calls[0] += 1
+            if calls[0] % T == 0:  # the update's rollout is done
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                roll_end.append(ev)
+
+        calls = [0]
+        starts, ends_ev, metrics = [], [], []
+        fr.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with DrivenRecorder(fr, on_call):
+            for _ in range(updates):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                ts, m = step(ts)
+                e1.record()
+                starts.append(e0)
+                ends_ev.append(e1)
+                metrics.append(m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = fr.LAUNCHES["rollout_driven"]
+        check(n == updates * T and sum(fr.LAUNCHES.values()) == n,
+              f"train {tag}: {fr.LAUNCHES} launches for {updates} updates of {T} steps")
+        check(calls[0] == n, f"train {tag}: the recorder saw {calls[0]} of {n} driven launches")
+        launches += n
+        losses = [float(m["loss"]) for m in metrics]
+        check(all(map(lambda x: x == x and abs(x) != float("inf"), losses)), f"train {tag}: losses {losses}")
+        moved = {k: float((v - p0[k]).abs().max()) for k, v in ts.model.state_dict().items()}
+        check(all(v > 0 for v in moved.values()), f"train {tag}: parameters that did not move {moved}")
+        check(int(viol) == 0, f"train {tag}: {int(viol)} reward-identity violations")
+        eps = sum(int(m["episodes"]) for m in metrics)
+        check(eps == int(ended), f"train {tag}: {eps} episodes in the stats, {int(ended)} lanes ended")
+        check(quick or tag != "reinforce" or eps > 0, f"train {tag}: no episode ended")
+        upd_ms = [a.elapsed_time(b) for a, b in zip(starts, ends_ev)]
+        roll_ms = [a.elapsed_time(b) for a, b in zip(starts, roll_end)]
+        steady = slice(1, None) if updates > 1 else slice(None)  # the first update warms up
+        mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+        row = {"instance": spec_name, "B": B, "updates": updates, "config": {k: str(v) for k, v in
+                                                                          dataclasses.asdict(cfg).items()},
+               "losses": losses, "episodes": eps, "identity_violations": int(viol), "launches": n,
+               "wall_s": wall, "ms_per_update": mean(upd_ms[steady]), "ms_per_update_all": upd_ms,
+               "rollout_ms": mean(roll_ms[steady]),
+               "learn_ms": mean([u - r for u, r in zip(upd_ms, roll_ms)][steady]),
+               "min_makespan": min(int(m["min_makespan"]) for m in metrics),
+               "mean_makespan": (sum(int(m["total_makespan"]) for m in metrics) / eps) if eps else None}
+        row["env_steps_per_s"] = B * T / (row["ms_per_update"] / 1e3)
+        if tag == "reinforce" and profile:
+            row["profile"] = busy_share(lambda: [step(ts) for _ in range(2)])
+        out[tag] = row
+        log(f"[13] train {tag} {spec_name} B={B} T={T} {cfg.arch} {cfg.hidden} {cfg.features}: {updates} updates, "
+            f"{row['ms_per_update']:.2f} ms an update (rollout {row['rollout_ms']:.2f}, returns+loss+backward+Adam "
+            f"{row['learn_ms']:.2f}; CUDA events), {row['env_steps_per_s']:.4g} training env-steps/s, "
+            f"{n} driven launches, {eps} episodes, 0 identity violations, losses {[f'{x:.4f}' for x in losses]}"
+            + (f"; profile {row['profile']}" if "profile" in row else ""))
+    report["training"] = out
+    return launches, last_call
 
 
 def finish(report, args, smi, kind, count) -> int:

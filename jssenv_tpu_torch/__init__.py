@@ -18,7 +18,13 @@ rollout written as hand-made CUDA kernels for NVIDIA Hopper
 * ``envs.gym_env``       — ``JssEnv``, the reference-compatible Gym wrapper;
 * ``envs.vec_env``       — ``JssVectorEnv``, B lockstep envs behind one object;
 * ``render.gantt``       — Gantt charts of a schedule;
-* ``utils``              — ``create_env``, ``assign_env_config``, ``RunSettings``.
+* ``utils``              — ``create_env``, ``assign_env_config``, ``RunSettings``;
+* ``models.policy``      — ``MaskedPolicyNet``, ``PerJobPolicyNet``, ``sample_action``;
+* ``checkpoint``         — the JAX package's npz checkpoints, and flax weights
+                           carried into the port's nets and back;
+* ``parallel.learner``   — the actor-learner (REINFORCE, PPO) and greedy or
+                           sampled evaluation, every env step in the driven
+                           kernel on the card.
 
 Entry points place state on the CUDA card unless ``device="cpu"`` is given;
 without a card they raise instead of falling back to the CPU.

@@ -2,7 +2,8 @@
 //
 // Replaces the two Pallas TPU kernels of jssenv_tpu/core/pallas_rollout.py:
 //   * _driven_kernel (:598; caller-supplied actions, per-step raw rewards and
-//     the final state)                              -> rollout_driven_kernel;
+//     the final state; here also, on request, each lane's episode ends, which
+//     a learner's frames and stats need)           -> rollout_driven_kernel;
 //   * _free_kernel (:653; in-kernel uniform-over-legal policy, auto-reset,
 //     episode stats and the reward-identity check)  -> rollout_free_kernel,
 //     instantiated on an int32 state buffer and, for the JAX package's int16
@@ -592,9 +593,11 @@ enum { S_EPISODES = 0, S_MK_SUM, S_MK_MIN, S_VIOL };
 
 // The per-step inputs (actions, random words) come 32 steps at a time: rank
 // r loads or draws step t + r, and step t takes rank t % 32's by a shuffle.
+// `ends` (T, B), where not null: the makespan of the episode a lane finished
+// at step t (its time, read before fresh() clears it), else 0.
 __global__ void __launch_bounds__(JSS_MAX_THREADS, JSS_MIN_BLOCKS) rollout_driven_kernel(
-    int* state, const int* tab, const int* lanec, const int* actions, int* rewards, int B,
-    int J, int M, int T, int with_solution, int stride, int scr_stride) {
+    int* state, const int* tab, const int* lanec, const int* actions, int* rewards, int* ends,
+    int B, int J, int M, int T, int with_solution, int stride, int scr_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Place p = place();
   const int R = Layout(J, M).light_rows();
@@ -608,8 +611,12 @@ __global__ void __launch_bounds__(JSS_MAX_THREADS, JSS_MIN_BLOCKS) rollout_drive
       const int q = t & (JSS_WARP - 1);
       if (q == 0 && t + g.r < T) a_mine = actions[(size_t)(t + g.r) * B + p.b];
       const int raw = step(g, __shfl_sync(JSS_FULL, a_mine, q));
-      if (g.leader()) rewards[(size_t)t * B + p.b] = raw;
-      if (g.at(g.L.nb_legal()) == 0) fresh(g);
+      const bool done = g.at(g.L.nb_legal()) == 0;
+      if (g.leader()) {
+        rewards[(size_t)t * B + p.b] = raw;
+        if (ends) ends[(size_t)t * B + p.b] = done ? g.at(g.L.time()) : 0;
+      }
+      if (done) fresh(g);
     }
   }
   __syncthreads();
@@ -702,14 +709,15 @@ extern "C" {
 
 // Each returns 0 when the kernel launched, else the CUDA error (a geometry
 // the card refuses: too many threads or too much shared memory).
+// `ends` may be null: no episode-end output.
 int jss_rollout_driven(void* state, const void* tab, const void* lanec, const void* actions,
-                       void* rewards, int B, int J, int M, int T, int with_solution, int lanes,
-                       int stride, int scr_stride, int smem, void* stream) {
+                       void* rewards, void* ends, int B, int J, int M, int T, int with_solution,
+                       int lanes, int stride, int scr_stride, int smem, void* stream) {
   const int err = launch_check(rollout_driven_kernel, J, M, lanes, stride, scr_stride, smem, 4);
   if (err || B == 0) return err;
   rollout_driven_kernel<<<(B + lanes - 1) / lanes, lanes * JSS_WARP, smem, (cudaStream_t)stream>>>(
-      (int*)state, (const int*)tab, (const int*)lanec, (const int*)actions, (int*)rewards, B, J,
-      M, T, with_solution, stride, scr_stride);
+      (int*)state, (const int*)tab, (const int*)lanec, (const int*)actions, (int*)rewards,
+      (int*)ends, B, J, M, T, with_solution, stride, scr_stride);
   return (int)cudaGetLastError();
 }
 

@@ -3,9 +3,13 @@
 The PyTorch counterpart of ``jssenv_tpu/core/pallas_rollout.py``. Two entry
 points with the JAX signatures (minus the TPU's ``tile``/``interpret``):
 
-* ``rollout_driven(state, actions, num_steps)`` — T steps on a caller-supplied
-  (T, B) action stream, finished lanes auto-reset exactly like
-  ``vector.step_autoreset``; returns (final state, (T, B) int32 raw rewards).
+* ``rollout_driven(state, actions, num_steps, return_ends=False)`` — T steps
+  on a caller-supplied (T, B) action stream, finished lanes auto-reset exactly
+  like ``vector.step_autoreset``; returns (final state, (T, B) int32 raw
+  rewards) and, when asked, the (T, B) int32 episode ends: the makespan where
+  a lane finished at that step, else 0. ``step_autoreset`` is one such step
+  with ``vector.step_autoreset``'s signature and results: the env step of the
+  learner (``parallel.learner``).
 * ``rollout_free(state, num_steps, seed=0, with_solution=True, bits=None)`` —
   T steps of a uniform-over-legal policy sampled inside the kernel, auto-reset
   and episode stats with the exact reward-identity check
@@ -252,7 +256,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("rollout")
     P, I = ctypes.c_void_p, ctypes.c_int
     geometry = [I, I, I, I]  # lanes, state stride, scratch stride, shared bytes
-    lib.jss_rollout_driven.argtypes = [P, P, P, P, P, I, I, I, I, I, *geometry, P]
+    lib.jss_rollout_driven.argtypes = [P, P, P, P, P, P, I, I, I, I, I, *geometry, P]
     lib.jss_rollout_driven.restype = I
     for fn in (lib.jss_rollout_free, lib.jss_rollout_free_i16):
         fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, *geometry, P]
@@ -280,17 +284,23 @@ def _check_kernel_inputs(state: EnvState, *tensors: torch.Tensor, dtype: torch.d
             )
 
 
-def launch_driven(state: EnvState, buf, tab, lanec, actions, rewards, with_solution: bool) -> None:
+def launch_driven(
+    state: EnvState, buf, tab, lanec, actions, rewards, with_solution: bool, ends=None
+) -> None:
     """One ``rollout_driven_kernel`` launch on prepared buffers (``buf`` is
-    updated in place, ``rewards`` (T, B) written) on the current stream."""
-    _check_kernel_inputs(state, buf, tab, lanec, actions, rewards)
+    updated in place, ``rewards`` (T, B) and, unless None, ``ends`` (T, B)
+    written) on the current stream."""
+    _check_kernel_inputs(state, buf, tab, lanec, actions, rewards, *(() if ends is None else (ends,)))
     T, B = actions.shape
+    if rewards.shape != (T, B) or (ends is not None and ends.shape != (T, B)):
+        raise ValueError(f"rewards and ends must be (T, B)=({T}, {B})")
     geo = launch_geometry(state.jobs_pad, state.machines_pad)
     with torch.cuda.device(state.device):
         err = _lib().jss_rollout_driven(
             buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), actions.data_ptr(),
-            rewards.data_ptr(), B, state.jobs_pad, state.machines_pad, T,
-            int(with_solution), *_geometry_args(geo), torch.cuda.current_stream().cuda_stream,
+            rewards.data_ptr(), None if ends is None else ends.data_ptr(), B, state.jobs_pad,
+            state.machines_pad, T, int(with_solution), *_geometry_args(geo),
+            torch.cuda.current_stream().cuda_stream,
         )
     _check_launch(err, "rollout_driven_kernel", geo)
     LAUNCHES["rollout_driven"] += 1
@@ -358,12 +368,12 @@ def _int_stream(x: torch.Tensor, name: str, T: int, state: EnvState) -> torch.Te
 # ---------------------------------------------------------------------------
 
 
-def rollout_driven(
-    state: EnvState, actions: torch.Tensor, num_steps: int
-) -> Tuple[EnvState, torch.Tensor]:
+def rollout_driven(state: EnvState, actions: torch.Tensor, num_steps: int, return_ends: bool = False):
     """Run ``num_steps`` steps on a (T, B) action stream with auto-reset.
 
-    Returns (final state, (T, B) int32 raw rewards); stepwise identical to
+    Returns (final state, (T, B) int32 raw rewards), and with
+    ``return_ends`` also the (T, B) int32 episode ends (the makespan where
+    the lane finished at that step, else 0); stepwise identical to
     ``vector.step_autoreset`` on the same actions. A light state
     (``vector.strip_solution``) stays light. CUDA state: one kernel launch;
     CPU state: the plain twin."""
@@ -371,30 +381,57 @@ def rollout_driven(
     actions = _int_stream(actions, "actions", T, state)
     with_solution = _solution_mode(state)
     if state.device.type == "cpu":
-        return rollout_driven_reference(state, actions, T)
-    return _driven_kernel(state, actions, T, with_solution)
+        return rollout_driven_reference(state, actions, T, return_ends)
+    return _driven_kernel(state, actions, T, with_solution, return_ends)
 
 
-def _driven_kernel(state: EnvState, actions: torch.Tensor, T: int, with_solution: bool):
+def _driven_kernel(state: EnvState, actions: torch.Tensor, T: int, with_solution: bool, with_ends: bool):
     buf = _to_lanes(state, with_solution)
     tab, lanec = _lane_inputs(state)
     rewards = torch.empty((T, state.batch_size), dtype=_I32, device=state.device)
-    launch_driven(state, buf, tab, lanec, actions, rewards, with_solution)
-    return _from_lanes(buf, state, with_solution), rewards
+    ends = torch.empty_like(rewards) if with_ends else None
+    launch_driven(state, buf, tab, lanec, actions, rewards, with_solution, ends)
+    out = (_from_lanes(buf, state, with_solution), rewards)
+    return out + (ends,) if with_ends else out
 
 
 def rollout_driven_reference(
-    state: EnvState, actions: torch.Tensor, num_steps: int
-) -> Tuple[EnvState, torch.Tensor]:
-    """Plain twin of the driven kernel: ``vector.step_autoreset`` per step."""
-    stats = vector.RolloutStats.zero(state.device)
-    raws = []
+    state: EnvState, actions: torch.Tensor, num_steps: int, return_ends: bool = False
+):
+    """Plain twin of the driven kernel: per step, ``vector.step_autoreset``'s
+    two calls (``vstep``, then ``reset_lanes`` on the finished lanes), the
+    ends taken from ``tr.done`` and the stepped state's time between them."""
+    raws, ends = [], []
     for t in range(int(num_steps)):
-        state, tr, stats = vector.step_autoreset(state, actions[t], stats)
+        new_state, tr = vector.vstep(state, actions[t])
         raws.append(tr.raw_reward)
-    if not raws:
-        return state, torch.empty((0, state.batch_size), dtype=_I32, device=state.device)
-    return state, torch.stack(raws)
+        ends.append(torch.where(tr.done, new_state.time, 0))
+        state = vector.reset_lanes(new_state, tr.done)
+    empty = torch.empty((0, state.batch_size), dtype=_I32, device=state.device)
+    out = (state, torch.stack(raws) if raws else empty, torch.stack(ends) if ends else empty)
+    return out if return_ends else out[:2]
+
+
+def step_autoreset(
+    state: EnvState, actions: torch.Tensor, stats: vector.RolloutStats
+) -> Tuple[EnvState, engine.Transition, vector.RolloutStats]:
+    """``vector.step_autoreset`` through the driven kernel: one
+    ``rollout_driven`` launch at T=1 with ends on a CUDA state (a failed
+    build or launch raises), its twin on a CPU state. The same results: the
+    Transition (scaled ``reward`` as in ``engine.step``, ``raw_reward``,
+    ``done``) and the stats, whose makespans come from the ends, exactly."""
+    state, raw, ends = rollout_driven(state, actions[None], 1, return_ends=True)
+    raw, ends = raw[0], ends[0]
+    done = ends > 0  # a finished episode has a positive makespan
+    reward = raw.to(torch.float32) / state.max_time_op.to(torch.float32)
+    stats = vector.RolloutStats(
+        episodes=stats.episodes + done.sum(),
+        total_makespan=stats.total_makespan + ends.sum(dtype=torch.int64),
+        min_makespan=torch.minimum(stats.min_makespan, torch.where(done, ends, I32_MAX).amin()),
+        total_return=stats.total_return + reward.sum(),
+        steps=stats.steps + actions.shape[0],
+    )
+    return state, engine.Transition(reward=reward, raw_reward=raw, done=done), stats
 
 
 # ---------------------------------------------------------------------------

@@ -93,14 +93,14 @@ def _port_modules():
     names = {str(f.relative_to(ROOT / "jssenv_tpu_torch")) for f in files}
     assert {"vector.py", "core/fused_rollout.py", "native/__init__.py", "replay.py",
             "rules/dispatching.py", "envs/gym_env.py", "envs/vec_env.py", "render/gantt.py",
-            "utils.py"} <= names
+            "utils.py", "models/policy.py", "checkpoint.py", "parallel/learner.py"} <= names
     return files + [ROOT / "chip_smoke.py"]
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports jax, flax or the
-    JAX package — not even its framework-free modules."""
-    banned = ("jax", "jaxlib", "flax", "jssenv_tpu")
+    """No module of the port, and not chip_smoke.py, imports jax, flax, optax
+    or the JAX package — not even its framework-free modules."""
+    banned = ("jax", "jaxlib", "flax", "optax", "jssenv_tpu")
     for path in _port_modules():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

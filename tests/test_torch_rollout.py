@@ -88,6 +88,38 @@ def test_driven_twin_matches_pallas(jx, case):
     assert fr.LAUNCHES == before  # CPU: the twin, no kernel
 
 
+@pytest.mark.parametrize("case", sorted(DRIVEN) + ["ta41"])
+def test_driven_twin_ends_are_jax_done_times_time(jx, case):
+    """The twin's (T, B) ends: where JAX's step says done, the stepped
+    state's time (the makespan), else 0; rewards and final state as
+    ``rollout_driven`` without ends."""
+    jax, jv = jx.jax, jx.vector
+    if case == "ta41":  # long enough for a random-legal ta41 episode to end
+        build, B, T = (lambda m: m.stack_instances([m.get_instance("ta41")])), 2, 700
+    else:
+        build, B, T, _ = DRIVEN[case]
+    state = tv.make_batch(build(ti), B, device="cpu")
+    acts = _port_actions(state, T, seed=len(case))
+    final, raw, ends = fr.rollout_driven(state, acts, T, return_ends=True)
+    final2, raw2 = fr.rollout_driven(state, acts, T)
+    assert ends.dtype == torch.int32 and ends.shape == (T, B) and torch.equal(raw, raw2)
+    _same_state(final, ts.to_numpy(final2))
+
+    @jax.jit
+    def step(s, a, stats):
+        new, tr = jv.vstep(s, a)
+        s, _, stats = jv.step_autoreset(s, a, stats)
+        return s, stats, jx.jnp.where(tr.done, new.time, 0)
+
+    js, stats, want = jv.make_batch(build(jx.inst), B), jv.RolloutStats.zero(), []
+    for t in range(T):
+        js, stats, e = step(js, jx.jnp.asarray(acts[t].numpy()), stats)
+        want.append(np.asarray(e))
+    np.testing.assert_array_equal(ends.numpy(), np.stack(want))
+    assert int((ends > 0).sum()) == int(stats.episodes) and int(ends.sum()) == int(stats.total_makespan)
+    assert case == "single_ta01" or int(stats.episodes) > 0
+
+
 FREE = {
     "single": (lambda m: m.stack_instances([m.random_instance(6, 5, (1, 9), seed=7)]), 4, 200, 4),
     "ragged": (lambda m: m.stack_instances([m.random_instance(6, 5, (1, 9), seed=3),
@@ -442,6 +474,27 @@ def test_driven_kernel_matches_twin_on_card(cuda_dev, case):
     light = tv.strip_solution(state)
     lfinal, lraw = fr.rollout_driven(light, acts, T)
     assert torch.equal(lraw, ref_raw) and lfinal.solution.shape[1] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
+def test_driven_kernel_ends_match_twin_on_card(cuda_dev, case):
+    """The kernel's episode ends equal the twin's, on a full and a light
+    state; asking for them changes neither the rewards nor the state."""
+    src, B, T, pad = CARD_CASES[case]
+    state = tv.make_batch(src(), B, device=cuda_dev, **pad)
+    acts = _port_actions(state, T, seed=4)
+    ref, ref_raw, ref_ends = fr.rollout_driven_reference(state, acts, T, return_ends=True)
+    for s in (state, tv.strip_solution(state)):
+        before = fr.LAUNCHES["rollout_driven"]
+        final, raw, ends = fr.rollout_driven(s, acts, T, return_ends=True)
+        assert fr.LAUNCHES["rollout_driven"] == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(ends, ref_ends) and torch.equal(raw, ref_raw)
+        for k in ts.FIELD_NAMES:
+            if k != "solution" or s is state:
+                assert torch.equal(getattr(final, k), getattr(ref, k)), k
+    assert int((ref_ends > 0).sum()) > 0 or case not in ("episodes", "2x2")  # the short-episode cases end
 
 
 @pytest.mark.cuda
