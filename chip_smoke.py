@@ -44,8 +44,9 @@ Phases (any failure raises and the script exits non-zero):
 9. the dispatching-rule sweep: all 7 rules on ragged ta01-ta10, 10240 lanes
    per rule, through ``compare_rules_batched`` on the card, timed per rule.
    Each rule's episodes are also run with every chosen action checked
-   against the legal mask: at ``explore_prob=0`` the card's per-lane
-   makespans must equal the same sweep's on the CPU, at ``explore_prob=0.1``
+   against the legal mask: at ``explore_prob=0`` every lane of an instance
+   must end alike and the card's per-lane makespans and returns equal a
+   CPU run of one lane an instance, at ``explore_prob=0.1``
    every episode must finish with only legal actions;
 10. replay: every golden row of ``tests/data/golden_solutions.json`` through
    the native engine, and the 12 published optima plus ta71 through the
@@ -67,14 +68,36 @@ Phases (any failure raises and the script exits non-zero):
    ms an update, env-steps/s, the rollout/learn split (CUDA events), the
    busy share with ``--profile``; then the driven kernel held against its
    twin on the learner's last recorded step (light state, every state
-   field, rewards and ends equal) and timed there, ends written.
+   field, rewards and ends equal) and timed there, ends written;
+14. data and tensor parallel on this card: (a) a 1-rank NCCL group, the
+   learner configuration of phase 13 through ``make_train_step(config,
+   mesh)``, 4 updates against the plain step from the same seed (actions
+   equal, loss and params within rel 1e-6, bit-equality reported), ms an
+   update and the NCCL all-reduce's device time; (b) 2 ranks on this card
+   over gloo (processes of this script, ``--rank-worker``), dp=2 then mp=2,
+   at float32 and bfloat16, 2 updates each, against the plain card run
+   (float32: actions equal, loss rel 1e-5, params 1e-5 of the largest;
+   bfloat16: the JAX test's bounds); (c) their ``sharded_rollout`` of
+   ragged ta41-ta50, global B=10240, T=1024, each rank one free-kernel
+   launch with its ``lane_offset``, integer stats equal to the unsharded
+   kernel run; and the offset kernel against its twin and the whole
+   batch's run on one shard, int32 and int16;
+15. distillation at ``tools/distill_30x20.py``'s width (perjob 128x128, rich,
+   B=1024, unroll 640, ``loss_chunks`` 8): the four ta41 teachers collected
+   on the card (equal to ``models_data/distill_ta41_pairs.npz``), 5
+   pretrain epochs at batch 512 (CE falls), 2 fine-tune updates, greedy
+   ta41 makespans before and after, each teacher and epoch timed;
+16. ``invariant_errors`` over phase 13's learner batch (all 0), then its
+   TrainState saved and loaded on the card: the next update bit-equal to
+   the uninterrupted one.
 
-``--quick`` runs phases 1-4 and 9-13 at small shapes (a first check of a new
+``--quick`` runs phases 1-4 and 9-16 at small shapes (a first check of a new
 build). ``--out`` writes every measured number as JSON. On an H100 the run
-takes about 6 minutes (``--quick`` about 2); ``--against`` adds about 3. The
+takes about 8 minutes (``--quick`` about 3); ``--against`` adds about 3. The
 last stdout lines are the ``nvidia-smi`` line, one ``{"kernels": [...]}``
 line and ``{"ok": true, "device": {...}}``; the driven kernel's
-``launches`` there sum phases 5, 12 and 13, each counted from zero.
+``launches`` there sum phases 5, 12, 13, 14 (both ranks' too) and 15, and
+the free kernels' phases 5 and 14, each path counted from zero.
 """
 
 from __future__ import annotations
@@ -204,9 +227,14 @@ def main() -> int:
     ap.add_argument("--against", metavar="ROOT", default=None,
                     help="also time another checkout's kernels (e.g. the parent commit's) in turns with these")
     ap.add_argument("--time-kernels", metavar="ROOT", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--rank-worker", nargs=4, metavar=("WORK", "RANK", "WORLD", "PORT"), default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_kernels:
         return time_kernels_of(args.time_kernels, args.out)
+    if args.rank_worker:
+        work, rank, world, port = args.rank_worker
+        return rank_worker(work, int(rank), int(world), int(port), args.quick)
 
     import torch
 
@@ -409,7 +437,10 @@ def main() -> int:
         replay_phase(report, dev, quick=True)
         wrapper_phase(report, dev)
         serving_phase(report, dev, quick=True)
-        training_phase(report, dev, quick=True, profile=False)
+        _, call = training_phase(report, dev, quick=True, profile=False)
+        parallel_phase(report, dev, quick=True)
+        distill_phase(report, dev, quick=True)
+        resume_phase(report, dev, call["final"])
         kernels = [{"name": KERNELS[n][0], "launches": fr.LAUNCHES[n]} for n in KERNELS]
         log(json.dumps({"kernels": kernels}))
         return finish(report, args, smi, kind, count)
@@ -661,6 +692,19 @@ def main() -> int:
     log(f"[13] rollout_driven at the learner's shape {row['shape']}: {row['ms']:.4f} ms ({smi}); bound "
         f"{row['bound_ms']:.5f} ms by {row['bound_by']}; plain {row['plain_ms']:.2f} ms")
 
+    # ---- 14-16. data and tensor parallel, distillation, diagnostics and resume
+    par_launches, par_errs = parallel_phase(report, dev, quick=False)
+    driven_by_path["parallel"] = par_launches["rollout_driven"]
+    driven_by_path["distill"] = distill_phase(report, dev, quick=False)
+    resume_phase(report, dev, call["final"])
+    launches["rollout_driven"] = sum(driven_by_path.values())
+    free_by_path = {}
+    for key in KEY.values():
+        free_by_path[key] = {"main_path": launches[key], "sharded": par_launches[key]}
+        launches[key] += par_launches[key]
+        free_err[key] = max(free_err[key], par_errs[key])
+    report["main_path"]["driven_launches_by_path"] = driven_by_path
+
     main_rows = {"rollout_driven": timings["rollout_driven"], "rollout_free": timings["rollout_free ta41-ta50"],
                  "rollout_free_i16": timings["rollout_free_i16 ta01"]}
     errs = {"rollout_driven": driven_err}
@@ -675,6 +719,8 @@ def main() -> int:
         for n in KERNELS
     ]
     kernels[0]["launches_by_path"] = driven_by_path
+    kernels[1]["launches_by_path"] = free_by_path["rollout_free"]
+    kernels[2]["launches_by_path"] = free_by_path["rollout_free_i16"]
     kernels[0]["learner_shape"] = {k: timings["rollout_driven_learner"][k]
                                    for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
     report["kernels"] = kernels
@@ -757,7 +803,8 @@ def time_kernels_of(root: str, out: str) -> int:
     kernels there, and write to ``out`` (JSON) the time of its free kernel
     on each FULL config in the config's value dtype and of its driven kernel
     at the main shape (ta01, B=MAIN_B, T=1, the last step of a
-    LOOP_STEPS-step policy loop run on the plain path)."""
+    LOOP_STEPS-step policy loop run on the plain path) and at the first
+    driven parity case's (ta01, B=1024, T=512 random-policy steps)."""
     root_path = Path(root).resolve()
     sys.path.insert(0, str(root_path))
     import torch
@@ -780,6 +827,15 @@ def time_kernels_of(root: str, out: str) -> int:
         s, _, stats = vector.step_autoreset(s, vector.random_legal_actions(gen, s), stats)
     acts = vector.random_legal_actions(gen, s)[None].contiguous()
     res["rollout_driven"] = launch_timer(fr, dev, "rollout_driven", s, 1, actions=acts, repeats=20)["ms"]
+    # the first driven parity case's shape: T=512 steps of a random policy
+    name, B, T, _ = DRIVEN_CASES[0]
+    s0 = s = vector.make_batch(source(instances, name), B, device=dev)
+    acts = []
+    for _ in range(T):
+        acts.append(vector.random_legal_actions(gen, s))
+        s, _, stats = vector.step_autoreset(s, acts[-1], stats)
+    res["rollout_driven_T512"] = launch_timer(fr, dev, "rollout_driven", s0, T, actions=torch.stack(acts).contiguous(),
+                                              repeats=5)["ms"]
     for name, B, T in FULL:
         state = vector.make_batch(source(instances, name), B, device=dev)
         vdt = fr.value_dtype(state)
@@ -828,10 +884,11 @@ def rule_phase(report: dict, dev, lanes: int, profile: bool) -> None:
     n_inst = len(src)
     check(lanes % n_inst == 0, "lanes must tile the instances evenly")
 
-    def checked_episodes(device, name, explore, seed):
+    def checked_episodes(device, name, explore, seed, n=lanes):
         """(makespans, returns, illegal choices) of ``compare_rules_batched``'s
-        episodes for one rule, each chosen action checked against the mask."""
-        state = vector.make_batch(src, lanes, device=device)
+        episodes for one rule on ``n`` lanes, each chosen action checked
+        against the mask."""
+        state = vector.make_batch(src, n, device=device)
         gen = torch.Generator(device=state.device).manual_seed(seed)
         base = dsp.get_rule(name).policy(explore_prob=explore)
         illegal = torch.zeros((), dtype=torch.int64, device=state.device)
@@ -869,10 +926,14 @@ def rule_phase(report: dict, dev, lanes: int, profile: bool) -> None:
                    "makespan_per_instance_mean": per_inst.double().mean(0).tolist()}
             if explore == 0.0:
                 check(bool((per_inst == per_inst[:1]).all()), f"rule {name}: greedy lanes of one instance differ")
+                # greedy lanes of one instance are equal (just checked), so one
+                # CPU lane an instance holds every card lane
                 t0 = time.perf_counter()
-                ms_cpu, ret_cpu, illegal_cpu = checked_episodes("cpu", name, explore, seed)
+                ms_cpu, ret_cpu, illegal_cpu = checked_episodes("cpu", name, explore, seed, n_inst)
                 t_cpu += time.perf_counter() - t0
-                check(illegal_cpu == 0 and torch.equal(ms, ms_cpu) and torch.equal(ret, ret_cpu),
+                reps = lanes // n_inst
+                check(illegal_cpu == 0 and torch.equal(ms, ms_cpu.repeat(reps))
+                      and torch.equal(ret, ret_cpu.repeat(reps)),
                       f"rule {name}: the card's makespans or returns differ from the CPU run's")
                 row["makespan_per_instance"] = per_inst[0].tolist()
             rows[name] = row
@@ -1158,6 +1219,7 @@ def training_phase(report: dict, dev, quick: bool, profile: bool):
         if tag == "reinforce" and profile:
             row["profile"] = busy_share(lambda: [step(ts) for _ in range(2)])
         out[tag] = row
+        last_call.setdefault("final", {})[tag] = (ts, cfg)
         log(f"[13] train {tag} {spec_name} B={B} T={T} {cfg.arch} {cfg.hidden} {cfg.features}: {updates} updates, "
             f"{row['ms_per_update']:.2f} ms an update (rollout {row['rollout_ms']:.2f}, returns+loss+backward+Adam "
             f"{row['learn_ms']:.2f}; CUDA events), {row['env_steps_per_s']:.4g} training env-steps/s, "
@@ -1165,6 +1227,485 @@ def training_phase(report: dict, dev, quick: bool, profile: bool):
             + (f"; profile {row['profile']}" if "profile" in row else ""))
     report["training"] = out
     return launches, last_call
+
+
+# phase 14: the learner's global batch and updates (the 1-rank NCCL run and
+# its plain twin run ``updates``; the 2-rank gloo runs ``rank_updates``), the
+# sharded free rollout (config, global B, T), and the offset kernel's shard
+# checks (config, storage dtype, global B, T; the shard is the second half;
+# T long enough for episodes to end)
+PARALLEL = {"B": LEARNER_B, "unroll": 32, "updates": 4, "rank_updates": 2, "free": ("ta41-ta50", 10240, 1024),
+            "offset": (("ta41-ta50", "int32", 2048, 768), ("ta01", "int32", 2048, 300),
+                       ("ta01", "int16", 2048, 300))}
+PARALLEL_QUICK = {"B": 512, "unroll": 8, "updates": 2, "rank_updates": 2, "free": ("ta41-ta50", 1280, 128),
+                  "offset": (("ta41-ta50", "int32", 512, 64), ("ta01", "int16", 512, 64))}
+RANK_MESHES = (("dp2", 2, 1), ("mp2", 1, 2))  # (tag, dp, mp) of the 2-rank runs
+RANK_DTYPES = ("float32", "bfloat16")
+# phase 15: tools/distill_30x20.py's configuration; the teachers are ta41's
+# golden optimum and the orders of models_data/distill_ta41_aug.json
+DISTILL = {"epochs": 5, "batch": 512, "finetune": 2, "lanes": 1024, "teachers": 4, "unroll": 640}
+DISTILL_QUICK = {"epochs": 2, "batch": 512, "finetune": 1, "lanes": 64, "teachers": 1, "unroll": 32}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_config(quick: bool, dtype: str):
+    """The JAX package's learner configuration (ta01, unroll 32, 256x256
+    MaskedPolicyNet, REINFORCE) in ``dtype``; unroll 8 with ``quick``."""
+    import torch
+
+    from jssenv_tpu_torch.parallel import learner
+
+    P = PARALLEL_QUICK if quick else PARALLEL
+    return learner.LearnerConfig(unroll_steps=P["unroll"], compute_dtype=getattr(torch, dtype))
+
+
+def learner_run(dev, cfg, B: int, updates: int, mesh=None, snaps=()):
+    """``updates`` train steps from SEED on a ta01 light batch of B lanes
+    (this rank's part of it on ``mesh``, the net partitioned when mp > 1):
+    the actions of every env step (T*updates, B_local), the losses, ms an
+    update (CUDA events) and the whole params after each update in
+    ``snaps``; the final TrainState and step under "ts" and "step"."""
+    import torch
+
+    from jssenv_tpu_torch import instances, vector
+    from jssenv_tpu_torch.core import fused_rollout as fr
+    from jssenv_tpu_torch.parallel import learner
+
+    state = vector.strip_solution(vector.make_batch(instances.get_instance("ta01"), B, device=dev))
+    ts = learner.init_train_state(SEED, state, cfg)
+    if mesh is not None:
+        ts = learner.shard_train_state(ts, mesh, mp_axis="mp" if mesh.mp > 1 else None)
+    step = learner.make_train_step(cfg, mesh)
+    acts, losses, events, params = [], [], [], {}
+    with DrivenRecorder(fr, lambda s, a, r, e: acts.append(a[0].clone())):
+        for i in range(updates):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            ts, m = step(ts)
+            e1.record()
+            events.append((e0, e1))
+            losses.append(float(m["loss"]))
+            if i + 1 in snaps:
+                params[i + 1] = learner.gather_params(ts.model, mesh)
+    torch.cuda.synchronize()
+    return {"actions": torch.stack(acts), "losses": losses, "ms": [a.elapsed_time(b) for a, b in events],
+            "params": params, "ts": ts, "step": step}
+
+
+def params_err(got: dict, want: dict) -> float:
+    """max |got - want| over every parameter, over the largest |want|."""
+    scale = max(float(v.abs().max()) for v in want.values())
+    return max(float((got[k].to(v.device) - v).abs().max()) for k, v in want.items()) / scale
+
+
+def adam_outliers(got: dict, want: dict, rel: float = 1e-5):
+    """(count, largest difference) of the parameter elements further than
+    ``rel`` of the largest |want| from ``want``, and the element count."""
+    import torch
+
+    scale = max(float(v.abs().max()) for v in want.values())
+    d = torch.cat([(got[k].to(v.device) - v).abs().flatten() for k, v in want.items()])
+    over = d > rel * scale
+    return int(over.sum()), float(d[over].max()) if bool(over.any()) else 0.0, d.numel()
+
+
+def rank_worker(work: str, rank: int, world: int, port: int, quick: bool) -> int:
+    """One rank of phase 14(b)-(c) (``--rank-worker``): gloo on card 0 with
+    ``world`` ranks; each mesh of RANK_MESHES and dtype of RANK_DTYPES runs
+    ``rank_updates`` learner updates, then the sharded free rollout; the
+    results go to ``work/rank<rank>.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from jssenv_tpu_torch import instances, vector
+    from jssenv_tpu_torch.core import fused_rollout as fr
+    from jssenv_tpu_torch.parallel import mesh as meshlib, multihost
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    P = PARALLEL_QUICK if quick else PARALLEL
+    out = {}
+    fr.reset_launch_counts()
+    for tag, dp, mp in RANK_MESHES:
+        mesh = meshlib.make_mesh(dp=dp, mp=mp, device=dev)
+        for dt in RANK_DTYPES:
+            run = learner_run(dev, parallel_config(quick, dt), P["B"], P["rank_updates"], mesh, (P["rank_updates"],))
+            key = f"{tag}_{dt}"
+            out.update({f"{key}_actions": run["actions"].cpu().numpy(), f"{key}_losses": np.asarray(run["losses"]),
+                        f"{key}_offset": mesh.lanes(P["B"])[0], f"{key}_ms": np.asarray(run["ms"])})
+            out.update({f"{key}_p_{k}": v.cpu().numpy() for k, v in run["params"][P["rank_updates"]].items()})
+    learner_launches = dict(fr.LAUNCHES)
+    name, B, T = P["free"]
+    mesh = meshlib.make_mesh(dp=world, mp=1, device=dev)
+    state = vector.make_batch(source(instances, name), B, device=dev)
+    fr.reset_launch_counts()
+    stats = meshlib.sharded_rollout(mesh, SEED, state, T)
+    out.update({f"free_{k}": v.item() for k, v in stats.items()})
+    out["free_launches"] = json.dumps(dict(fr.LAUNCHES))
+    out["learner_launches"] = json.dumps(learner_launches)
+    np.savez(Path(work) / f"rank{rank}.npz", **out)
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(work: Path, world: int, quick: bool, timeout: int = 240):
+    """Run ``world`` rank workers (this script, ``--rank-worker``); every
+    child is waited for or killed, and any failure fails the phase."""
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank-worker", str(work), str(r),
+                               str(world), str(port)] + (["--quick"] if quick else []),
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    check(all(c == 0 for c in codes), f"rank workers exited {codes}:\n" + "\n---\n".join(outs))
+
+
+def parallel_phase(report: dict, dev, quick: bool):
+    """Phase 14: (a) a 1-rank NCCL group: the learner's step through
+    ``make_train_step(config, mesh)`` against the plain step from the same
+    seed (actions equal, loss and params within rel 1e-6; bit-equality
+    reported), ms an update and the NCCL all-reduce's share; (b) 2 ranks on
+    this card over gloo (spawned processes), dp=2 then mp=2, at float32 and
+    bfloat16, against the plain card run; (c) their sharded free rollout
+    (the kernel with each shard's ``lane_offset``) against the unsharded
+    kernel run; and the offset kernel against its twin on one shard, int32
+    and int16. Returns (launches by kernel on the path, max errors by
+    kernel)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from jssenv_tpu_torch import instances, vector
+    from jssenv_tpu_torch.core import fused_rollout as fr
+    from jssenv_tpu_torch.instances import stack_instances
+    from jssenv_tpu_torch.parallel import mesh as meshlib, multihost
+
+    P = PARALLEL_QUICK if quick else PARALLEL
+    B, updates, ru = P["B"], P["updates"], P["rank_updates"]
+    out = {"config": {k: str(v) for k, v in P.items()}}
+    path = {k: 0 for k in fr.LAUNCHES}
+    errs = {k: 0.0 for k in fr.LAUNCHES}
+
+    # (a) one rank, NCCL
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    mesh = meshlib.make_mesh()
+    cfg = parallel_config(quick, "bfloat16")
+    T = cfg.unroll_steps
+    plain = learner_run(dev, cfg, B, updates, snaps=(ru, updates))
+    fr.reset_launch_counts()
+    nccl = learner_run(dev, cfg, B, updates, mesh, snaps=(ru, updates))
+    launches = dict(fr.LAUNCHES)
+    check(launches == {"rollout_driven": updates * T, "rollout_free": 0, "rollout_free_i16": 0},
+          f"1-rank NCCL learner launches {launches}")
+    path["rollout_driven"] += launches["rollout_driven"]
+    check(torch.equal(nccl["actions"], plain["actions"]), "1-rank NCCL: actions differ from the plain step's")
+    loss_rel = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(nccl["losses"], plain["losses"]))
+    p_rel = params_err(nccl["params"][updates], plain["params"][updates])
+    bit_equal = nccl["losses"] == plain["losses"] and all(
+        torch.equal(nccl["params"][updates][k], v) for k, v in plain["params"][updates].items())
+    ts, step = nccl["ts"], nccl["step"]
+    # one more update with every collective timed on the host clock,
+    # synchronised before and after (an in-place all-reduce over one NCCL
+    # rank may launch no kernel at all)
+    coll = []
+    orig_all_reduce = meshlib.all_reduce
+
+    def timed_all_reduce(t, group, op=dist.ReduceOp.SUM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig_all_reduce(t, group, op)
+        torch.cuda.synchronize()
+        coll.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    meshlib.all_reduce = timed_all_reduce
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, _ = step(ts)
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        meshlib.all_reduce = orig_all_reduce
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ts, _ = step(ts)
+        e1.record()
+        torch.cuda.synchronize()
+    prof_ms = e0.elapsed_time(e1)
+    dev_rows = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    nccl_ms = sum(e.self_device_time_total for e in dev_rows if "nccl" in e.key.lower()) / 1e3
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    steady = slice(1, None) if updates > 1 else slice(None)
+    out["nccl_1rank"] = {
+        "B": B, "updates": updates, "losses": nccl["losses"], "plain_losses": plain["losses"],
+        "loss_rel_err": loss_rel, "params_rel_err": p_rel, "bit_equal": bit_equal,
+        "reassociated": "none" if bit_equal else
+        "the means over the global batch are sums over the global count (pg_loss, v_loss, entropy)",
+        "ms_per_update": mean(nccl["ms"][steady]), "plain_ms_per_update": mean(plain["ms"][steady]),
+        "profiled_update_ms": prof_ms, "nccl_device_ms": nccl_ms if dev_rows else "not measured",
+        "nccl_share": nccl_ms / prof_ms if dev_rows else "not measured", "launches": launches,
+        "all_reduce_calls": len(coll), "all_reduce_host_ms": sum(coll), "timed_update_ms": timed_ms,
+        "all_reduce_share": sum(coll) / timed_ms}
+    log(f"[14a] 1-rank NCCL learner, ta01 B={B} T={T} 256x256 bfloat16, {updates} updates: actions equal, "
+        f"loss rel err {loss_rel:.3g}, params rel err {p_rel:.3g}, bit-equal {bit_equal}; "
+        f"{out['nccl_1rank']['ms_per_update']:.2f} ms an update (plain {out['nccl_1rank']['plain_ms_per_update']:.2f}); "
+        f"NCCL device time {nccl_ms:.4f} ms of a {prof_ms:.2f} ms profiled update; {len(coll)} all-reduce calls "
+        f"{sum(coll):.3f} ms on the synchronised host clock of a {timed_ms:.2f} ms update")
+    check(loss_rel <= 1e-6 and p_rel <= 1e-6, f"1-rank NCCL step differs from the plain one: {out['nccl_1rank']}")
+    dist.destroy_process_group()
+    refs = {"bfloat16": plain}
+    refs["float32"] = learner_run(dev, parallel_config(quick, "float32"), B, ru, snaps=(ru,))
+
+    # (b), (c): two ranks on this card over gloo
+    work = Path(__file__).resolve().parent / "jssenv_tpu_torch" / "build" / "ranks"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    spawn_ranks(work, 2, quick)
+    out["ranks_wall_s"] = time.perf_counter() - t0
+    ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(2)]
+    rows, fails = {}, []
+    for tag, dp, mp in RANK_MESHES:
+        for dt in RANK_DTYPES:
+            key, ref = f"{tag}_{dt}", refs[dt]
+            want_a = ref["actions"][: ru * T].cpu().numpy()
+            got_a = np.concatenate([ranks[d * mp][f"{key}_actions"] for d in range(dp)], axis=1)
+            mism = int((got_a != want_a).sum()) + sum(
+                int((r[f"{key}_actions"] != ranks[(r[f"{key}_offset"] * dp // B) * mp][f"{key}_actions"]).sum())
+                for r in ranks)
+            loss_rel = max(abs(float(a) - b) / max(1.0, abs(b)) for r in ranks
+                           for a, b in zip(r[f"{key}_losses"], ref["losses"][:ru]))
+            want_p = ref["params"][ru]
+            p_rel = max(params_err({k: torch.from_numpy(r[f"{key}_p_{k}"]) for k in want_p},
+                                   {k: v.cpu() for k, v in want_p.items()}) for r in ranks)
+            allclose = all(np.allclose(r[f"{key}_p_{k}"], v.cpu().numpy(), rtol=5e-2, atol=5e-3)
+                           for r in ranks for k, v in want_p.items())
+            row = {"action_mismatches": mism, "actions": int(want_a.size), "loss_rel_err": loss_rel,
+                   "params_rel_err": p_rel, "ms_per_update": [r[f"{key}_ms"].tolist() for r in ranks]}
+            if dt == "float32":
+                # Adam's first updates move a weight by about +-lr whatever
+                # its gradient's size: a weight whose gradient is below the
+                # float32 noise of a sum taken in another order may move the
+                # other way. Such elements (beyond 1e-5 of the largest
+                # parameter) must be few (1e-4 of all) and within
+                # 2 * lr * updates
+                n_over, max_over, n_all = max(adam_outliers(
+                    {k: torch.from_numpy(r[f"{key}_p_{k}"]) for k in want_p}, {k: v.cpu() for k, v in want_p.items()})
+                    for r in ranks)
+                lr = parallel_config(quick, dt).learning_rate
+                row.update({"params_beyond_1e-5": n_over, "params_beyond_max": max_over, "params": n_all})
+                ok = (mism == 0 and loss_rel <= 1e-5
+                      and n_over <= 1e-4 * n_all and max_over <= 2 * lr * ru * (1 + 1e-3))
+            else:
+                # bfloat16: the JAX test's bounds; an action may flip where a
+                # product summed in another order rounds to the other
+                # neighbouring bfloat16 (recorded, held under 1e-3 of them)
+                ok = mism <= 1e-3 * want_a.size and loss_rel <= 5e-3 and allclose
+            rows[key] = dict(row, ok=ok)
+            if not ok:
+                fails.append(key)
+            log(f"[14b] {tag} over gloo, 2 ranks on this card, {dt}, global B={B}, {ru} updates: "
+                f"{mism} of {want_a.size} actions differ, loss rel err {loss_rel:.3g}, params rel err {p_rel:.3g}"
+                + (f" ({row['params_beyond_1e-5']} of {row['params']} elements beyond 1e-5, at most "
+                   f"{row['params_beyond_max']:.3g})" if dt == "float32" else ""))
+    out["ranks"] = rows
+    for r in ranks:
+        lr = json.loads(str(r["learner_launches"]))
+        check(lr["rollout_driven"] == ru * T * len(RANK_MESHES) * len(RANK_DTYPES),
+              f"rank worker learner launches {lr}")
+        path["rollout_driven"] += lr["rollout_driven"]
+
+    name, Bf, Tf = P["free"]
+    full = vector.make_batch(source(instances, name), Bf, device=dev)
+    ref = {k: v.item() for k, v in fr.rollout_free(full, Tf, seed=SEED).items()}
+    rel = 0.0
+    for r in ranks:
+        fl = json.loads(str(r["free_launches"]))
+        key = "rollout_free" if fr.value_dtype(full) == torch.int32 else "rollout_free_i16"
+        check(fl[key] == 1 and sum(fl.values()) == 1, f"sharded free rollout launches {fl}")
+        path[key] += 1
+        for k in ("episodes", "total_makespan", "min_makespan", "identity_violations", "steps"):
+            check(int(r[f"free_{k}"]) == ref[k], f"sharded free {name}: {k} {int(r[f'free_{k}'])} != {ref[k]}")
+        rel = max(rel, abs(float(r["free_total_return"]) - ref["total_return"]) / max(1.0, abs(ref["total_return"])))
+        check(rel <= 1e-5, f"sharded free {name}: total_return rel err {rel}")
+    out["sharded_free"] = dict(ref, config=name, B=Bf, T=Tf, ranks=2, return_rel_err=rel)
+    check(quick or ref["episodes"] > 0, f"sharded free {name}: no episode ended")
+    log(f"[14c] sharded free rollout {name} B={Bf} T={Tf} over 2 gloo ranks, each one kernel launch with its "
+        f"lane_offset: integer stats equal to the unsharded kernel's ({ref['episodes']} episodes), "
+        f"return rel err {rel:.3g}")
+
+    # the offset kernel against its twin, and against the whole batch's
+    # kernel run, on the second half of a batch
+    out["offset"] = {}
+    for name, vdt, Bo, To in P["offset"]:
+        vdt = getattr(torch, vdt)
+        src = source(instances, name)
+        src = stack_instances([src]) if not hasattr(src, "names") else src
+        whole = vector.make_lanes(src, torch.arange(Bo), dev)
+        shard = vector.make_lanes(src, torch.arange(Bo // 2, Bo), dev)
+        check(vdt == torch.int32 or fr.value_dtype(shard) == torch.int16, f"{name} does not fit int16")
+        k = fr._free_kernel(shard, To, SEED, None, vdt, lane_offset=Bo // 2)
+        w = fr._free_kernel(whole, To, SEED, None, vdt)
+        t = fr.free_lane_stats_reference(shard, To, SEED, lane_offset=Bo // 2)
+        for key_ in ("episodes", "mk_sum", "mk_min", "viol"):
+            check(torch.equal(k[key_], t[key_]) and torch.equal(k[key_], w[key_][Bo // 2:]),
+                  f"offset kernel {name} {vdt}: {key_} differs")
+        check(torch.equal(k["ret"], w["ret"][Bo // 2:]), f"offset kernel {name} {vdt}: returns differ from the whole run's")
+        ret_err = float((k["ret"] - t["ret"]).abs().max())
+        kk = "rollout_free" if vdt == torch.int32 else "rollout_free_i16"
+        errs[kk] = max(errs[kk], ret_err)
+        out["offset"][f"{name} {vdt}"] = {"B": Bo, "T": To, "episodes": int(k["episodes"].sum()),
+                                          "ret_max_abs_err": ret_err}
+        check(quick or int(k["episodes"].sum()) > 0, f"offset kernel {name}: no episode ended")
+        log(f"[14] offset kernel {name} {str(vdt).removeprefix('torch.')}: lanes [{Bo // 2}, {Bo}) with lane_offset "
+            f"{Bo // 2} equal the twin's and the whole batch's ({int(k['episodes'].sum())} episodes, T={To})")
+    report["parallel"] = out
+    check(not fails, f"2-rank runs outside their bounds: {fails} {rows}")
+    return path, errs
+
+
+def distill_phase(report: dict, dev, quick: bool) -> int:
+    """Phase 15: tools/distill_30x20.py's configuration (perjob 128x128,
+    rich, B=1024, unroll 640, loss_chunks 8): the four ta41 teachers
+    collected on the card (each to its recorded makespan, together equal to
+    models_data/distill_ta41_pairs.npz), 5 pretrain epochs at batch 512 (CE
+    falls), 2 fine-tune updates (every env step a driven launch), the greedy
+    ta41 makespan. Returns its driven launches."""
+    import numpy as np
+    import torch
+
+    from jssenv_tpu_torch import distill, instances, vector
+    from jssenv_tpu_torch.core import fused_rollout as fr
+    from jssenv_tpu_torch.parallel import learner
+
+    D = DISTILL_QUICK if quick else DISTILL
+    cfg = learner.LearnerConfig(hidden=(128, 128), arch="perjob", features="rich", unroll_steps=D["unroll"],
+                                loss_chunks=8)
+    spec = instances.get_instance("ta41")
+    golden = json.loads(GOLDEN.read_text())["ta41"]
+    aug = json.loads((MODELS / "distill_ta41_aug.json").read_text())
+    teachers = ([(golden["machine_order"], golden["optimum"])]
+                + [(r["machine_order"], r["makespan"]) for r in aug])[: D["teachers"]]
+    out = {"teachers": []}
+    sets = []
+    for order, want in teachers:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pairs = distill.collect_teacher_pairs(spec, order, cfg, device=dev)
+        secs = time.perf_counter() - t0
+        check(pairs["makespan"] == want, f"teacher replays to {pairs['makespan']}, recorded {want}")
+        sets.append(pairs)
+        out["teachers"].append({"makespan": want, "pairs": len(pairs["action"]), "seconds": secs})
+        log(f"[15] teacher ta41 makespan {want}: {len(pairs['action'])} pairs collected on the card in {secs:.2f} s")
+    merged = distill.merge_pairs(sets)
+    with np.load(MODELS / "distill_ta41_pairs.npz") as z:
+        shipped = {k: z[k][: len(merged["action"])] for k in distill.PAIR_KEYS}
+    obs_err = float(np.abs(merged["obs"] - shipped["obs"]).max())
+    check(obs_err <= 1e-6 and all(np.array_equal(merged[k], shipped[k]) for k in ("mask", "valid", "action")),
+          f"teacher pairs differ from the shipped distill_ta41_pairs.npz (obs err {obs_err})")
+    log(f"[15] {len(merged['action'])} pairs equal the shipped rows (obs max err {obs_err:.3g}, the rest exact)")
+    env1 = vector.strip_solution(vector.make_batch(spec, 1, device=dev))
+    stamps = []
+
+    def on_epoch(msg):
+        stamps.append((time.perf_counter(), float(msg.split("ce=")[1])))
+
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = distill.pretrain(SEED, merged, env1, cfg, epochs=D["epochs"], batch_size=D["batch"], log_fn=on_epoch)
+    ce = [c for _, c in stamps]
+    epoch_s = [b - a for a, b in zip([t0] + [t for t, _ in stamps[:-1]], [t for t, _ in stamps])]
+    check(len(ce) == D["epochs"] and ce[-1] < ce[0], f"pretrain CE did not fall: {ce}")
+    pre = learner.evaluate_policy(params, spec, cfg, max_steps=4096, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, hist = learner.train(spec, batch_size=D["lanes"], num_updates=D["finetune"], config=cfg, log_every=1,
+                             log_fn=lambda *_: None, init_params=params, device=dev)
+    torch.cuda.synchronize()
+    ft_s = (time.perf_counter() - t0) / D["finetune"]
+    fin = learner.evaluate_policy(ts.model.state_dict(), spec, cfg, max_steps=4096, device=dev)
+    n = fr.LAUNCHES["rollout_driven"]
+    check(n == D["finetune"] * cfg.unroll_steps + pre["steps"] + fin["steps"] and sum(fr.LAUNCHES.values()) == n,
+          f"distillation launches {fr.LAUNCHES}")
+    check(all(map(lambda h: h["loss"] == h["loss"], hist)) and pre["greedy_makespan"] > 0 and fin["greedy_makespan"] > 0,
+          f"fine-tune {hist}, greedy {pre} {fin}")
+    out.update(pairs=len(merged["action"]), obs_max_err=obs_err, ce=ce, epoch_s=epoch_s,
+               pretrained_greedy=pre["greedy_makespan"], finetune_s_per_update=ft_s, finetune=hist,
+               greedy_makespan=fin["greedy_makespan"], launches=n)
+    report["distill"] = out
+    log(f"[15] pretrain {D['epochs']} epochs at batch {D['batch']}: CE {[f'{c:.4f}' for c in ce]}, "
+        f"{[f'{e:.3f}' for e in epoch_s]} s an epoch; greedy ta41 {pre['greedy_makespan']}; "
+        f"{D['finetune']} fine-tune updates at B={D['lanes']} unroll {cfg.unroll_steps}, {ft_s:.2f} s an update; "
+        f"greedy ta41 after them {fin['greedy_makespan']}; {n} driven launches")
+    return n
+
+
+def resume_phase(report: dict, dev, final: dict) -> None:
+    """Phase 16: ``invariant_errors`` over the learner's batch after phase
+    13 (all zero); then ``save_train_state`` -> ``load_train_state`` into a
+    fresh template on the card, and the next update of both: losses and
+    params bit-equal (same process, same shapes, so cuBLAS takes the same
+    algorithms)."""
+    import torch
+
+    from jssenv_tpu_torch import checkpoint, diagnostics, instances, vector
+    from jssenv_tpu_torch.parallel import learner
+
+    ts, cfg = final["reinforce"]
+    bits = diagnostics.invariant_errors(ts.env_state)
+    check(bits.device.type == dev.type and not bool(bits.any()),
+          f"invariant errors on {int((bits != 0).sum())} lanes after training")
+    path = Path(__file__).resolve().parent / "jssenv_tpu_torch" / "build" / "train_state.npz"
+    t0 = time.perf_counter()
+    checkpoint.save_train_state(str(path), ts)
+    save_s = time.perf_counter() - t0
+    fresh = vector.strip_solution(vector.make_batch(instances.get_instance("ta01"), ts.env_state.batch_size,
+                                                    device=dev))
+    t0 = time.perf_counter()
+    back = checkpoint.load_train_state(str(path), learner.init_train_state(SEED + 1, fresh, cfg))
+    load_s = time.perf_counter() - t0
+    step = learner.make_train_step(cfg)
+    ts2, m = step(ts)
+    back2, m_back = step(back)
+    sd, sd_back = ts2.model.state_dict(), back2.model.state_dict()
+    bit_equal = all(float(m[k]) == float(m_back[k]) for k in m) and all(torch.equal(sd[k], sd_back[k]) for k in sd)
+    err = params_err(sd_back, sd)
+    report["resume"] = {"lanes": ts.env_state.batch_size, "invariant_errors": 0, "bit_equal": bit_equal,
+                        "params_rel_err": err, "save_s": save_s, "load_s": load_s,
+                        "bytes": path.stat().st_size}
+    log(f"[16] invariant_errors 0 on all {ts.env_state.batch_size} lanes after training; train state saved "
+        f"({path.stat().st_size} bytes, {save_s:.2f} s) and loaded ({load_s:.2f} s) on the card: the next update "
+        f"{'is bit-equal' if bit_equal else f'differs (params rel err {err:.3g})'} to the uninterrupted one")
+    check(bit_equal, f"the resumed update differs from the uninterrupted one: {report['resume']}")
 
 
 def finish(report, args, smi, kind, count) -> int:

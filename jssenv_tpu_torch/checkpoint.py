@@ -16,11 +16,15 @@ restores into a template whose flattened names must equal the saved ones.
 * ``params_to_flax`` is the inverse: a module's weights as flax-named
   arrays in the JAX package's flattening order, so ``save(path,
   params_to_flax(model))`` loads into the JAX package's ``checkpoint.load``.
+* ``save_train_state`` / ``load_train_state`` hold a whole learner
+  ``TrainState`` in that format, so that a killed run resumes where its last
+  update left it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import re
 import tempfile
@@ -29,6 +33,8 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 from torch import nn
+
+from jssenv_tpu_torch.core.state import FIELD_NAMES
 
 _FLAX_NAME = re.compile(r"^\['params'\]\['([^']+)'\]\['(kernel|bias)'\]$")
 
@@ -124,3 +130,71 @@ def params_to_flax(module: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict
         leaves.append((layer, "kernel" if kind == "weight" else "bias", arr.T if kind == "weight" else arr))
     return {f"['params']['{layer}']['{leaf}']": np.ascontiguousarray(a) for layer, leaf, a in sorted(
         leaves, key=lambda x: (x[0], x[1]))}
+
+
+_ADAM = ("step", "exp_avg", "exp_avg_sq")
+
+
+def _train_state_arrays(ts) -> Dict[str, Any]:
+    named = {f"model/{k}": v for k, v in ts.model.state_dict().items()}
+    for k, p in ts.model.named_parameters():
+        for leaf, v in ts.optimizer.state.get(p, {}).items():
+            if leaf not in _ADAM:
+                raise ValueError(f"optimizer state {leaf!r} of {k} is not Adam's")
+            named[f"optim/{leaf}/{k}"] = v
+    named.update({f"env/{k}": getattr(ts.env_state, k) for k in FIELD_NAMES})
+    named["generator"] = ts.generator.get_state()
+    named["steps"] = np.asarray(ts.steps, np.int64)
+    return named
+
+
+def save_train_state(path: str, ts) -> None:
+    """Save a learner ``TrainState`` atomically (``save``): the net's
+    ``state_dict`` (``model/<name>``), Adam's ``step``, ``exp_avg`` and
+    ``exp_avg_sq`` of every parameter that has them (``optim/<leaf>/<name>``),
+    every field of the env state (``env/<field>``), the generator's state
+    and the update count."""
+    save(path, _train_state_arrays(ts))
+
+
+def load_train_state(path: str, template):
+    """The ``TrainState`` saved at ``path``, restored into ``template`` (a
+    ``TrainState`` of the same configuration and batch, e.g. a fresh
+    ``learner.init_train_state``): the net's parameters and buffers copied
+    in place, Adam's state set on the template's optimizer on each
+    parameter's device and dtype, the env state on the template's device
+    and dtypes, the generator's state restored (a CPU byte tensor for any
+    device's generator). Raises ``ValueError`` where the saved names or
+    shapes differ from the template's; Adam's entries may be absent (a
+    state saved before its first update) or present for every parameter."""
+    saved = load(path)
+    want = _train_state_arrays(template)
+    params = dict(template.model.named_parameters())
+    optim = {f"optim/{leaf}/{k}" for k in params for leaf in _ADAM}
+    base = [k for k in want if not k.startswith("optim/")]
+    got_optim = {k for k in saved if k.startswith("optim/")}
+    if [k for k in saved if not k.startswith("optim/")] != base or got_optim not in (set(), optim):
+        raise ValueError(f"checkpoint structure mismatch: saved {len(saved)} arrays, template {len(want)}")
+    for k in base:
+        if k != "generator" and tuple(np.shape(saved[k])) != tuple(np.shape(_host(want[k]))):
+            raise ValueError(f"checkpoint structure mismatch: {k} saved {np.shape(saved[k])}, "
+                             f"template {tuple(np.shape(_host(want[k])))}")
+    sd = template.model.state_dict()
+    template.model.load_state_dict({k: torch.from_numpy(saved[f"model/{k}"]) for k in sd})
+    opt = template.optimizer
+    for k, p in params.items():
+        if not got_optim:
+            opt.state.pop(p, None)
+            continue
+        group = next(g for g in opt.param_groups if any(q is p for q in g["params"]))
+        step_dev = p.device if group.get("capturable") or group.get("fused") else torch.device("cpu")
+        opt.state[p] = {
+            "step": torch.from_numpy(saved[f"optim/step/{k}"]).to(step_dev),
+            "exp_avg": torch.from_numpy(saved[f"optim/exp_avg/{k}"]).to(p.device, p.dtype),
+            "exp_avg_sq": torch.from_numpy(saved[f"optim/exp_avg_sq/{k}"]).to(p.device, p.dtype),
+        }
+    env = template.env_state
+    env = env.replace(**{k: torch.from_numpy(saved[f"env/{k}"]).to(env.device, getattr(env, k).dtype)
+                         for k in FIELD_NAMES})
+    template.generator.set_state(torch.from_numpy(saved["generator"]))
+    return dataclasses.replace(template, env_state=env, steps=int(saved["steps"]))

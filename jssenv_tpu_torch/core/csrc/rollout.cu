@@ -626,11 +626,14 @@ __global__ void __launch_bounds__(JSS_MAX_THREADS, JSS_MIN_BLOCKS) rollout_drive
 // V: the state buffer's storage type, int32_t or int16_t (the int16 value
 // mode of jssenv_tpu/core/pallas_rollout.py value_dtype, chosen by the
 // wrapper only when every stored value fits). The state is read, not written.
+// `lane_offset`: this batch's first lane in a larger batch split over ranks; the
+// Philox counter takes the global lane, so a shard draws the words that its
+// lanes draw in the whole batch (0 for an unsplit batch).
 template <typename V>
 __global__ void __launch_bounds__(JSS_MAX_THREADS, JSS_MIN_BLOCKS) rollout_free_kernel(
     const V* state, const int* tab, const int* lanec, const uint32_t* bits,
     unsigned long long seed, long long* stats, float* ret_out, int B, int J, int M, int T,
-    int stride, int scr_stride) {
+    int lane_offset, int stride, int scr_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Place p = place();
   // the stats never read the schedule: the state is light (no solution rows)
@@ -647,7 +650,8 @@ __global__ void __launch_bounds__(JSS_MAX_THREADS, JSS_MIN_BLOCKS) rollout_free_
   for (int t = 0; t < T; ++t) {
     const int q = t & (JSS_WARP - 1);
     if (q == 0 && t + g.r < T)
-      w_mine = bits ? bits[(size_t)(t + g.r) * B + p.b] : philox_word(seed, t + g.r, p.b);
+      w_mine = bits ? bits[(size_t)(t + g.r) * B + p.b]
+                    : philox_word(seed, t + g.r, (uint32_t)(lane_offset + p.b));
     const int raw = step(g, sample(g, __shfl_sync(JSS_FULL, w_mine, q)));
     ep_raw += raw;
     ret += (float)raw / mo_f;
@@ -695,13 +699,14 @@ static int launch_check(K kernel, int J, int M, int lanes, int stride, int scr_s
 template <typename V>
 static int launch_free(void* state, const void* tab, const void* lanec, const void* bits,
                        unsigned long long seed, void* stats, void* ret_out, int B, int J, int M,
-                       int T, int lanes, int stride, int scr_stride, int smem, void* stream) {
+                       int T, int lane_offset, int lanes, int stride, int scr_stride, int smem,
+                       void* stream) {
   const int err =
       launch_check(rollout_free_kernel<V>, J, M, lanes, stride, scr_stride, smem, (int)sizeof(V));
   if (err || B == 0) return err;
   rollout_free_kernel<V><<<(B + lanes - 1) / lanes, lanes * JSS_WARP, smem, (cudaStream_t)stream>>>(
       (const V*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits, seed,
-      (long long*)stats, (float*)ret_out, B, J, M, T, stride, scr_stride);
+      (long long*)stats, (float*)ret_out, B, J, M, T, lane_offset, stride, scr_stride);
   return (int)cudaGetLastError();
 }
 
@@ -723,18 +728,19 @@ int jss_rollout_driven(void* state, const void* tab, const void* lanec, const vo
 
 int jss_rollout_free(void* state, const void* tab, const void* lanec, const void* bits,
                      unsigned long long seed, void* stats, void* ret_out, int B, int J, int M,
-                     int T, int lanes, int stride, int scr_stride, int smem, void* stream) {
-  return launch_free<int32_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J, M, T, lanes,
-                              stride, scr_stride, smem, stream);
+                     int T, int lane_offset, int lanes, int stride, int scr_stride, int smem,
+                     void* stream) {
+  return launch_free<int32_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J, M, T,
+                              lane_offset, lanes, stride, scr_stride, smem, stream);
 }
 
 // The same kernel on an (R, B) int16 state buffer.
 int jss_rollout_free_i16(void* state, const void* tab, const void* lanec, const void* bits,
                          unsigned long long seed, void* stats, void* ret_out, int B, int J,
-                         int M, int T, int lanes, int stride, int scr_stride, int smem,
-                         void* stream) {
-  return launch_free<int16_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J, M, T, lanes,
-                              stride, scr_stride, smem, stream);
+                         int M, int T, int lane_offset, int lanes, int stride, int scr_stride,
+                         int smem, void* stream) {
+  return launch_free<int16_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J, M, T,
+                              lane_offset, lanes, stride, scr_stride, smem, stream);
 }
 
 }  // extern "C"

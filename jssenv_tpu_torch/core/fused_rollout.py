@@ -21,8 +21,10 @@ On a CUDA state each launches its hand-written kernel
 ``core.engine`` and ``vector``. Nothing falls back from one to the other.
 
 Random bits: with ``bits=None`` the free rollout draws one 32-bit Philox4x32-10
-word per (step, lane), keyed by ``seed`` with counter (t, lane); the twin
-computes the same words (``philox_bits``), so both modes compare exactly.
+word per (step, lane), keyed by ``seed`` with counter (t, lane_offset + lane);
+the twin computes the same words (``philox_bits``), so both modes compare
+exactly. ``lane_offset`` (0 by default) is the lane's place in a batch split
+over ranks: a shard draws the words its lanes draw in the whole batch.
 
 Value dtype: the free rollout keeps its state buffer in int16 wherever every
 stored value fits (``value_dtype``, the JAX package's int16 mode) and then
@@ -259,7 +261,7 @@ def _lib() -> ctypes.CDLL:
     lib.jss_rollout_driven.argtypes = [P, P, P, P, P, P, I, I, I, I, I, *geometry, P]
     lib.jss_rollout_driven.restype = I
     for fn in (lib.jss_rollout_free, lib.jss_rollout_free_i16):
-        fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, *geometry, P]
+        fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, *geometry, P]
         fn.restype = I
     return lib
 
@@ -307,12 +309,14 @@ def launch_driven(
 
 
 def launch_free(
-    state: EnvState, buf, tab, lanec, bits, seed: int, stats, ret, T: int, vdt: torch.dtype = _I32
+    state: EnvState, buf, tab, lanec, bits, seed: int, stats, ret, T: int, vdt: torch.dtype = _I32,
+    lane_offset: int = 0,
 ) -> None:
     """One ``rollout_free_kernel`` launch on a light ``buf`` (no solution
     rows), which it reads and does not write: per-lane stats (4, B) int64 and
     returns (B,) float32 written. ``vdt`` picks the instantiation (int32 or
-    int16) and must be ``buf``'s dtype: a buffer is never converted here."""
+    int16) and must be ``buf``'s dtype: a buffer is never converted here.
+    ``lane_offset``: the global index of lane 0 in the Philox counter."""
     if vdt not in (_I32, torch.int16):
         raise ValueError(f"the free kernel stores int32 or int16, not {vdt}")
     if buf.dtype != vdt:
@@ -329,7 +333,8 @@ def launch_free(
             buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(),
             None if bits is None else bits.data_ptr(), seed & (2**64 - 1),
             stats.data_ptr(), ret.data_ptr(), state.batch_size, state.jobs_pad,
-            state.machines_pad, T, *_geometry_args(geo), torch.cuda.current_stream().cuda_stream,
+            state.machines_pad, T, int(lane_offset), *_geometry_args(geo),
+            torch.cuda.current_stream().cuda_stream,
         )
     _check_launch(err, "rollout_free_kernel<int16>" if i16 else "rollout_free_kernel", geo)
     LAUNCHES["rollout_free_i16" if i16 else "rollout_free"] += 1
@@ -457,12 +462,12 @@ def _philox4x32(c, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def philox_bits(seed: int, t: int, batch_size: int, device) -> torch.Tensor:
+def philox_bits(seed: int, t: int, batch_size: int, device, lane_offset: int = 0) -> torch.Tensor:
     """(B,) int32 random words of step ``t``: word 0 of Philox4x32-10 with
-    key = ``seed`` (64 bits) and counter (t, lane, 0, 0) — the words the free
-    kernel draws with ``bits=None``."""
+    key = ``seed`` (64 bits) and counter (t, lane_offset + lane, 0, 0) — the
+    words the free kernel draws with ``bits=None``."""
     seed &= 2**64 - 1
-    lane = torch.arange(batch_size, dtype=torch.int64, device=device)
+    lane = (torch.arange(batch_size, dtype=torch.int64, device=device) + lane_offset) & _U32
     z = torch.zeros_like(lane)
     w = _philox4x32((z + (t & _U32), lane, z, z), seed & _U32, seed >> 32)[0]
     return (w - ((w >> 31) << 32)).to(_I32)  # uint32 -> int32, same bits
@@ -500,22 +505,28 @@ def free_lane_stats(
     num_steps: int,
     seed: int = 0,
     bits: Optional[torch.Tensor] = None,
+    lane_offset: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Per-lane stats of a free rollout, (B,) each: ``episodes``, ``mk_sum``
     (int64), ``mk_min`` (int64, INT32_MAX where no episode ended), ``viol``
     (int64), ``ret`` (float32 sum of scaled rewards). Kernel on CUDA (its
     int16 instantiation where ``value_dtype`` says int16), twin on CPU;
     ``rollout_free`` reduces these. The stats never read the schedule, so
-    both run on the light state (``vector.strip_solution``)."""
+    both run on the light state (``vector.strip_solution``).
+    ``lane_offset``: where this batch starts in a batch split over ranks
+    (``parallel.mesh``); lane ``b`` draws global lane ``lane_offset + b``'s
+    Philox words, so a shard's stats are its lanes' stats in the whole
+    batch."""
     T = int(num_steps)
     if bits is not None:
         bits = _int_stream(bits, "bits", T, state)
     if state.device.type == "cpu":
-        return free_lane_stats_reference(state, T, seed, bits)
-    return _free_kernel(state, T, seed, bits)
+        return free_lane_stats_reference(state, T, seed, bits, lane_offset)
+    return _free_kernel(state, T, seed, bits, lane_offset=lane_offset)
 
 
-def _free_kernel(state: EnvState, T: int, seed: int, bits, vdt: Optional[torch.dtype] = None):
+def _free_kernel(state: EnvState, T: int, seed: int, bits, vdt: Optional[torch.dtype] = None,
+                 lane_offset: int = 0):
     """One free-kernel launch in the storage dtype ``vdt`` (by default
     ``value_dtype``'s; an explicit int32 runs a batch that fits int16 in the
     int32 instantiation, to hold the two against each other)."""
@@ -525,7 +536,7 @@ def _free_kernel(state: EnvState, T: int, seed: int, bits, vdt: Optional[torch.d
     tab, lanec = _lane_inputs(state)
     stats = torch.empty((4, B), dtype=torch.int64, device=state.device)
     ret = torch.empty((B,), dtype=torch.float32, device=state.device)
-    launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T, vdt)
+    launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T, vdt, lane_offset)
     return {"episodes": stats[0], "mk_sum": stats[1], "mk_min": stats[2], "viol": stats[3], "ret": ret}
 
 
@@ -534,6 +545,7 @@ def free_lane_stats_reference(
     num_steps: int,
     seed: int = 0,
     bits: Optional[torch.Tensor] = None,
+    lane_offset: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Plain twin of the free kernel, per lane: sample with
     ``sample_from_bits``, ``engine.step``, identity check, auto-reset."""
@@ -546,7 +558,7 @@ def free_lane_stats_reference(
     ep_raw = torch.zeros((B,), dtype=_I32, device=dev)
     identity0 = 2 * state.sum_op
     for t in range(int(num_steps)):
-        w = bits[t] if bits is not None else philox_bits(seed, t, B, dev)
+        w = bits[t] if bits is not None else philox_bits(seed, t, B, dev, lane_offset)
         state, tr = engine.step(state, sample_from_bits(w, state))
         done = tr.done
         ep_raw = ep_raw + tr.raw_reward
@@ -567,6 +579,7 @@ def rollout_free(
     seed: int = 0,
     with_solution: bool = True,
     bits: Optional[torch.Tensor] = None,
+    lane_offset: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Free-running uniform-over-legal rollout with auto-reset.
 
@@ -578,9 +591,10 @@ def rollout_free(
     (the per-episode return accumulator starts at zero). ``bits``: optional
     (T, B) int32/uint32 words used instead of Philox. ``with_solution`` is
     accepted for the JAX signature and ignored: the stats never read the
-    schedule, so the rollout always runs on the light state."""
+    schedule, so the rollout always runs on the light state. ``lane_offset``:
+    as in ``free_lane_stats``."""
     T = int(num_steps)
-    lanes = free_lane_stats(state, T, seed, bits)
+    lanes = free_lane_stats(state, T, seed, bits, lane_offset)
     return _reduce_stats(lanes, T, state.batch_size)
 
 
@@ -590,11 +604,12 @@ def rollout_free_reference(
     seed: int = 0,
     with_solution: bool = True,
     bits: Optional[torch.Tensor] = None,
+    lane_offset: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Plain twin of ``rollout_free`` on any device (``with_solution`` ignored
     as there)."""
     T = int(num_steps)
     if bits is not None:
         bits = _int_stream(bits, "bits", T, state)
-    lanes = free_lane_stats_reference(state, T, seed, bits)
+    lanes = free_lane_stats_reference(state, T, seed, bits, lane_offset)
     return _reduce_stats(lanes, T, state.batch_size)

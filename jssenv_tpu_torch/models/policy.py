@@ -35,9 +35,9 @@ class Dense(nn.Linear):
     default: LeCun normal (truncated at two standard deviations) weight,
     zero bias."""
 
-    def __init__(self, in_features: int, out_features: int, compute_dtype: torch.dtype):
+    def __init__(self, in_features: int, out_features: int, compute_dtype: torch.dtype, device=None):
         self.compute_dtype = compute_dtype
-        super().__init__(in_features, out_features)
+        super().__init__(in_features, out_features, device=device)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         # flax variance_scaling(1, "fan_in", "truncated_normal"): the std of
@@ -149,12 +149,21 @@ class PerJobPolicyNet(nn.Module):
 
 
 def sample_action(
-    generator: Optional[torch.Generator], logits: torch.Tensor
+    generator: Optional[torch.Generator], logits: torch.Tensor, lanes: Optional[Tuple[int, int]] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample from masked logits by Gumbel-max on ``generator`` (on the
     logits' device); returns (action int64, log_prob float32). The draws
-    differ from ``jax.random.categorical``'s."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    differ from ``jax.random.categorical``'s.
+
+    ``lanes = (offset, global_batch)``: the (B, A) logits are rows
+    [offset, offset + B) of a batch of ``global_batch`` rows split over
+    ranks (``parallel.mesh``). The noise is drawn for the whole batch and
+    these rows kept, so a row's action does not depend on the split; at
+    (0, B) it is the draw without ``lanes``."""
+    shape = logits.shape if lanes is None else (lanes[1],) + tuple(logits.shape[1:])
+    u = torch.rand(shape, generator=generator, device=logits.device)
+    if lanes is not None:
+        u = u[lanes[0]:lanes[0] + logits.shape[0]]
     gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
     action = torch.argmax(logits + gumbel, dim=-1)
     logp = torch.log_softmax(logits, dim=-1).gather(-1, action[..., None])[..., 0]

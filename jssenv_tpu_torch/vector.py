@@ -76,12 +76,20 @@ def make_batch(
 ) -> EnvState:
     """B fresh envs on ``device`` (CUDA by default). For an InstanceSet,
     instances tile round-robin over the lanes."""
-    dev = resolve_device(device)
     if isinstance(source, InstanceSpec):
         source = stack_instances(
             [source], jobs_pad=jobs_pad or None, machines_pad=machines_pad or None
         )
-    idx = torch.arange(batch_size) % len(source)
+    return make_lanes(source, torch.arange(batch_size), device)
+
+
+def make_lanes(source: InstanceSet, lanes: torch.Tensor, device: Device = None) -> EnvState:
+    """Fresh envs for the given global lane indices of a round-robin batch
+    of ``source``: lane ``i`` runs instance ``i % len(source)``, so a rank
+    that builds only its own lanes (``parallel.multihost``) holds exactly
+    those lanes of ``make_batch``'s batch."""
+    dev = resolve_device(device)
+    idx = lanes.to(torch.int64) % len(source)
     take = lambda x: torch.as_tensor(np.asarray(x))[idx].to(dev)  # noqa: E731
     state = engine.init_state(
         take(source.op_machine),

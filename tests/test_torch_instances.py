@@ -93,7 +93,8 @@ def _port_modules():
     names = {str(f.relative_to(ROOT / "jssenv_tpu_torch")) for f in files}
     assert {"vector.py", "core/fused_rollout.py", "native/__init__.py", "replay.py",
             "rules/dispatching.py", "envs/gym_env.py", "envs/vec_env.py", "render/gantt.py",
-            "utils.py", "models/policy.py", "checkpoint.py", "parallel/learner.py"} <= names
+            "utils.py", "models/policy.py", "checkpoint.py", "parallel/learner.py", "parallel/mesh.py",
+            "parallel/multihost.py", "distill.py", "diagnostics.py"} <= names
     return files + [ROOT / "chip_smoke.py"]
 
 
