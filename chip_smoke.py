@@ -89,9 +89,20 @@ Phases (any failure raises and the script exits non-zero):
    ta41 makespans before and after, each teacher and epoch timed;
 16. ``invariant_errors`` over phase 13's learner batch (all 0), then its
    TrainState saved and loaded on the card: the next update bit-equal to
-   the uninterrupted one.
+   the uninterrupted one;
+17. the solver (``anneal``, ``solve``; plain PyTorch, no kernel of its own):
+   ``evaluate_orders`` on the 12 published optima, on the card equal to the
+   CPU and to the optimum; the sweep, tails, critical pairs, neighbor
+   bounds and swap estimates of 1024 random feasible ta41 orders, card
+   equal to CPU; ``solve`` on ta01 at the JAX package's defaults (batch
+   2048, 4 sweeps), then with 600 refine iterations of annealing and of
+   tabu, each result replayed to its makespan; ta41 tabu at
+   docs/BENCHMARKS.md's round-5 configuration (128 chains x 8 proposals)
+   in the three neighborhoods, 200 iterations (cut from 50 000). Seconds a
+   stage, ms a refine iteration, sweep passes and host reads a sweep, the
+   makespans; no rollout kernel is launched.
 
-``--quick`` runs phases 1-4 and 9-16 at small shapes (a first check of a new
+``--quick`` runs phases 1-4 and 9-17 at small shapes (a first check of a new
 build). ``--out`` writes every measured number as JSON. On an H100 the run
 takes about 8 minutes (``--quick`` about 3); ``--against`` adds about 3. The
 last stdout lines are the ``nvidia-smi`` line, one ``{"kernels": [...]}``
@@ -441,6 +452,7 @@ def main() -> int:
         parallel_phase(report, dev, quick=True)
         distill_phase(report, dev, quick=True)
         resume_phase(report, dev, call["final"])
+        solver_phase(report, dev, quick=True, smi=smi)
         kernels = [{"name": KERNELS[n][0], "launches": fr.LAUNCHES[n]} for n in KERNELS]
         log(json.dumps({"kernels": kernels}))
         return finish(report, args, smi, kind, count)
@@ -697,6 +709,7 @@ def main() -> int:
     driven_by_path["parallel"] = par_launches["rollout_driven"]
     driven_by_path["distill"] = distill_phase(report, dev, quick=False)
     resume_phase(report, dev, call["final"])
+    solver_phase(report, dev, quick=False, smi=smi)
     launches["rollout_driven"] = sum(driven_by_path.values())
     free_by_path = {}
     for key in KEY.values():
@@ -1706,6 +1719,150 @@ def resume_phase(report: dict, dev, final: dict) -> None:
         f"({path.stat().st_size} bytes, {save_s:.2f} s) and loaded ({load_s:.2f} s) on the card: the next update "
         f"{'is bit-equal' if bit_equal else f'differs (params rel err {err:.3g})'} to the uninterrupted one")
     check(bit_equal, f"the resumed update differs from the uninterrupted one: {report['resume']}")
+
+
+# phase 17: solve() at the JAX package's defaults (jssenv_tpu/solve.py:100-115)
+# on ta01, refined 600 iterations as tests/test_solve.py:41 does; ta41 tabu
+# at docs/BENCHMARKS.md's round-5 configuration (128 chains x 8 proposals,
+# seeded from a 1024-lane rollout), its 50 000 iterations cut to 200
+SOLVER = {"orders": 1024, "batch": 2048, "sweeps": 4, "refine": 600, "ta41_lanes": 1024, "chains": 128,
+          "proposals": 8, "tabu_iters": 200}
+SOLVER_QUICK = {"orders": 128, "batch": 256, "sweeps": 2, "refine": 40, "ta41_lanes": 256, "chains": 32,
+                "proposals": 8, "tabu_iters": 20}
+
+
+def solver_phase(report: dict, dev, quick: bool, smi: str) -> None:
+    """Phase 17: the solver on the card (module docstring). Its sweeps read
+    their loop condition on the host every ``anneal.SWEEP_PASSES`` passes;
+    the phase reports passes and host reads per sweep beside the times."""
+    import torch
+
+    from jssenv_tpu_torch import anneal, instances, replay, solve, vector
+    from jssenv_tpu_torch.core import engine, fused_rollout as fr
+
+    cfg = SOLVER_QUICK if quick else SOLVER
+    launches_before = dict(fr.LAUNCHES)
+    out = {"config": cfg}
+
+    def tables(spec, device):
+        s = engine.state_from_spec(spec, device=device)
+        return anneal.schedule_tables(s.op_machine[0], s.op_dur[0], s.op_pos[0], device=device)
+
+    def sweep_counts():
+        n = max(anneal.SWEEP_STATS["sweeps"], 1)
+        return {"sweeps": anneal.SWEEP_STATS["sweeps"], "passes_per_sweep": anneal.SWEEP_STATS["passes"] / n,
+                "host_syncs_per_sweep": anneal.SWEEP_STATS["host_syncs"] / n}
+
+    # (a) the published optima, card against CPU against the optimum
+    golden = json.loads(GOLDEN.read_text())
+    optima = sorted(k for k, v in golden.items() if "optimum" in v)
+    check(len(optima) == 12, f"expected 12 published optima, got {optima}")
+    for name in optima:
+        spec = instances.get_instance(name)
+        order = torch.tensor([golden[name]["machine_order"]], dtype=torch.int32)
+        mk_c, st_c = anneal._sweep(tables(spec, dev), order.to(dev))
+        mk_h, st_h = anneal._sweep(tables(spec, "cpu"), order)
+        check(int(mk_c[0]) == int(mk_h[0]) == golden[name]["optimum"] and torch.equal(st_c.cpu(), st_h),
+              f"evaluate_orders {name}: card {int(mk_c[0])}, CPU {int(mk_h[0])}, optimum {golden[name]['optimum']}")
+    log(f"[17] evaluate_orders on the 12 published optima: card equal to the CPU and to the optimum, starts "
+        f"equal ({', '.join(optima)})")
+    out["optima"] = optima
+
+    # (b) random feasible ta41 orders: every evaluator output, card against CPU
+    spec = instances.get_instance("ta41")
+    state = vector.make_batch(spec, cfg["orders"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    final, ms, _ = vector.episode_makespans(gen, state, spec.num_jobs * spec.num_machines * 3)
+    check(bool((ms > 0).all()), "ta41: a random-legal episode did not end")
+    orders = anneal.orders_from_solutions(state.op_pos[0], final.solution)
+
+    def evaluator(t, o):
+        mk, starts = anneal._sweep(t, o)
+        tails = anneal._tails(anneal.reverse_tables(t), o)
+        dur_rank = anneal._dur_rank(t, o)
+        jp, js = anneal._neighbor_bounds(t, o, starts, tails, dur_rank)
+        return {"mk": mk, "starts": starts, "tails": tails,
+                "critical_pairs": anneal._critical_pairs_from(t, o, mk, starts, tails),
+                "neighbor_JPend": jp, "neighbor_JStail": js,
+                "swap_estimates": anneal._swap_estimates(t, o, starts, tails, dur_rank)}
+
+    t_c = tables(spec, dev)
+    card = evaluator(t_c, orders)
+    host = evaluator(tables(spec, "cpu"), orders.cpu())
+    errs = {k: int((card[k].cpu().long() - host[k].long()).abs().max()) for k in card}
+    check(not any(errs.values()), f"ta41 evaluator: card and CPU differ: {errs}")
+    check(bool((card["mk"].cpu() <= ms.cpu()).all()), "ta41: a DAG makespan exceeds its episode's makespan")
+    ev = []
+    anneal.reset_sweep_stats()
+    for _ in range(3):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        anneal.evaluate_orders(t_c, orders)
+        e1.record()
+        torch.cuda.synchronize()
+        ev.append(e0.elapsed_time(e1))
+    out["ta41_orders"] = {"lanes": cfg["orders"], "max_abs_err": errs, "evaluate_ms": ev, **sweep_counts(),
+                          "mean_makespan": float(card["mk"].double().mean())}
+    log(f"[17] ta41, {cfg['orders']} random feasible orders: sweep, tails, critical pairs, neighbor bounds and "
+        f"swap estimates equal on card and CPU; evaluate_orders {min(ev):.2f}-{max(ev):.2f} ms "
+        f"(CUDA events, {out['ta41_orders']['passes_per_sweep']:.0f} passes and "
+        f"{out['ta41_orders']['host_syncs_per_sweep']:.0f} host reads a sweep; {smi})")
+
+    # (c) solve on ta01: the rollout alone, then with anneal and tabu refinement
+    spec = instances.get_instance("ta01")
+    runs = {}
+    for tag, kw in (("rollout", {}), ("anneal", {"refine_iters": cfg["refine"]}),
+                    ("tabu", {"refine_iters": cfg["refine"], "refine_method": "tabu"})):
+        anneal.reset_sweep_stats()
+        res = solve.solve(spec, batch=cfg["batch"], sweeps=cfg["sweeps"], seed=SEED, device=dev, **kw)
+        counts = sweep_counts()
+        mk, _ = replay.replay_machine_order(spec, res.machine_order(), backend="native")
+        check(mk == res.makespan, f"solve ta01 {tag}: replays to {mk}, claims {res.makespan}")
+        check(res.episodes >= cfg["batch"] and res.solution.min() >= 0, f"solve ta01 {tag}: incomplete schedule")
+        row = {"makespan": res.makespan, "episodes": res.episodes, **res.timings}
+        if kw:
+            check(res.makespan <= runs["rollout"]["makespan"], f"solve ta01 {tag}: worse than the rollout alone")
+            row.update(counts, refine_ms_per_iter=res.timings["refine_s"] / cfg["refine"] * 1e3)
+        runs[tag] = row
+        log(f"[17] solve ta01 batch={cfg['batch']} sweeps={cfg['sweeps']} {tag}: makespan {res.makespan} "
+            f"(gap {100 * (res.makespan - 1231) / 1231:.2f}%), replayed; "
+            + ", ".join(f"{k} {v:.3f}" for k, v in res.timings.items())
+            + (f"; {row['refine_ms_per_iter']:.2f} ms a refine iteration, {row['passes_per_sweep']:.1f} passes and "
+               f"{row['host_syncs_per_sweep']:.1f} host reads a sweep" if kw else "") + f" ({smi})")
+    out["solve_ta01"] = runs
+
+    # (d) ta41 tabu, the three neighborhoods from the same seeds
+    spec = instances.get_instance("ta41")
+    state = vector.make_batch(spec, cfg["ta41_lanes"], device=dev)
+    best_mk, best_sol, _ = solve._solve_scan(state, torch.Generator(device=dev).manual_seed(SEED),
+                                             spec.num_jobs * spec.num_machines + 8, 0.7, 5)
+    all_orders = anneal.orders_from_solutions(state.op_pos[0], best_sol)
+    seeds = solve.top_k_distinct_orders(all_orders, anneal.evaluate_orders(t_c, all_orders), cfg["chains"])
+    seed_best = int(anneal.evaluate_orders(t_c, seeds).min())
+    tabu = {"seed_best": seed_best, "rollout_best": int(best_mk.min())}
+    for nb in ("sampled", "full", "guided"):
+        anneal.reset_sweep_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bo, bmk = anneal.tabu_search(t_c, seeds, SEED + 1, cfg["tabu_iters"], proposals=cfg["proposals"],
+                                     neighborhood=nb)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        lane = int(torch.argmin(bmk))
+        check(torch.equal(anneal.evaluate_orders(t_c, bo), bmk), f"ta41 tabu {nb}: best_mk is not exact")
+        certified, _ = replay.replay_machine_order(spec, bo[lane].tolist(), backend="native")
+        check(int(bmk[lane]) <= seed_best and certified >= int(bmk[lane]),
+              f"ta41 tabu {nb}: best {int(bmk[lane])}, seeds {seed_best}, replayed {certified}")
+        tabu[nb] = {"makespan": int(bmk[lane]), "replayed": certified, "s": dt,
+                    "ms_per_iter": dt / cfg["tabu_iters"] * 1e3, **sweep_counts()}
+        log(f"[17] ta41 tabu {nb} {cfg['chains']}x{cfg['proposals']}, {cfg['tabu_iters']} iterations: {seed_best} -> "
+            f"{int(bmk[lane])} (replayed {certified}, gap {100 * (certified - 2006) / 2006:.2f}%), "
+            f"{tabu[nb]['ms_per_iter']:.2f} ms an iteration, {tabu[nb]['passes_per_sweep']:.1f} passes and "
+            f"{tabu[nb]['host_syncs_per_sweep']:.1f} host reads a sweep ({smi})")
+    out["tabu_ta41"] = tabu
+    check(dict(fr.LAUNCHES) == launches_before, "the solver launched a rollout kernel")
+    log("[17] the solver launched no rollout kernel: the kernels line's counts are those of phases 1-16")
+    report["solver"] = out
 
 
 def finish(report, args, smi, kind, count) -> int:

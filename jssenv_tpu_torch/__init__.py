@@ -20,11 +20,26 @@ rollout written as hand-made CUDA kernels for NVIDIA Hopper
 * ``render.gantt``       — Gantt charts of a schedule;
 * ``utils``              — ``create_env``, ``assign_env_config``, ``RunSettings``;
 * ``models.policy``      — ``MaskedPolicyNet``, ``PerJobPolicyNet``, ``sample_action``;
-* ``checkpoint``         — the JAX package's npz checkpoints, and flax weights
-                           carried into the port's nets and back;
-* ``parallel.learner``   — the actor-learner (REINFORCE, PPO) and greedy or
-                           sampled evaluation, every env step in the driven
-                           kernel on the card.
+* ``checkpoint``         — the JAX package's npz checkpoints, flax weights
+                           carried into the port's nets and back, whole
+                           TrainStates, and sharded checkpoints over
+                           ``torch.distributed.checkpoint``;
+* ``parallel.learner``   — the actor-learner (REINFORCE, PPO; data and
+                           tensor parallel) and greedy or sampled
+                           evaluation, every env step in the driven kernel
+                           on the card;
+* ``parallel.mesh``      — dp x mp process meshes, sharded batches and
+                           rollouts;
+* ``parallel.multihost`` — joining the process group (NCCL, or gloo by name)
+                           and per-rank lanes of a global batch;
+* ``distill``            — teacher pairs from rules or schedules, and
+                           cross-entropy pretraining of a policy;
+* ``diagnostics``        — a profiler window, a throughput meter and state
+                           invariant checks;
+* ``anneal``             — order-space evaluation of machine orders, simulated
+                           annealing and tabu search;
+* ``solve``              — the schedule solver: noisy dispatching rollouts,
+                           refined by ``anneal`` and certified by replay.
 
 Entry points place state on the CUDA card unless ``device="cpu"`` is given;
 without a card they raise instead of falling back to the CPU.

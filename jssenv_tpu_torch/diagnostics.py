@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import contextlib
 import os
+import tempfile
 import time
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -26,12 +27,16 @@ from jssenv_tpu_torch.core.state import EnvState, to_numpy
 
 
 @contextlib.contextmanager
-def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+def trace(log_dir: Optional[str] = None) -> Iterator[torch.profiler.profile]:
     """Profile everything inside the block; on exit write the Chrome trace
-    to ``log_dir/trace.json``. The card's activity is traced where
-    ``torch.cuda.is_available()``."""
+    to ``log_dir/trace.json``; by default ``log_dir`` is
+    ``jssenv_tpu_trace`` in the temp directory (``/tmp/jssenv_tpu_trace``
+    unless ``TMPDIR`` names another, the JAX package's default). The card's
+    activity is traced where ``torch.cuda.is_available()``."""
     from torch.profiler import ProfilerActivity, profile
 
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "jssenv_tpu_trace")
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)

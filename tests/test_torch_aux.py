@@ -15,6 +15,7 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -98,6 +99,17 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with tdg.trace(str(tmp_path / "t")):
         tv.vstep(s, tv.random_legal_actions(torch.Generator().manual_seed(0), s))
     events = json.loads((tmp_path / "t" / "trace.json").read_text())["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)
+
+
+def test_trace_defaults_to_the_temp_directory(tmp_path, monkeypatch):
+    """``trace()`` takes no argument, as the JAX package's does: its default
+    is ``jssenv_tpu_trace`` in the temp directory."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    s = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
+    with tdg.trace():
+        tv.vstep(s, tv.random_legal_actions(torch.Generator().manual_seed(0), s))
+    events = json.loads((tmp_path / "jssenv_tpu_trace" / "trace.json").read_text())["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
 
 

@@ -77,6 +77,14 @@ STREAMS = {
     "ragged": (lambda: _set([ji.get_instance("ta01"), ji.get_instance("ta41")]), 4, 40),
     "episodes": (lambda: _set([ji.random_instance(6, 5, (1, 9), seed=3)]), 16, 60),
     "B1024": (lambda: _set([ji.get_instance("ta01")]), 1024, 24),
+    # the other instance families of tests/test_parity_sweep.py:22-32
+    "ta11": (lambda: _set([ji.get_instance("ta11")]), 4, 40),
+    "ta21": (lambda: _set([ji.get_instance("ta21")]), 4, 40),
+    "ta31": (lambda: _set([ji.get_instance("ta31")]), 4, 40),
+    "ta51": (lambda: _set([ji.get_instance("ta51")]), 2, 40),
+    "ta61": (lambda: _set([ji.get_instance("ta61")]), 2, 40),
+    "dmu16": (lambda: _set([ji.get_instance("dmu16")]), 4, 40),
+    "dmu16-B1024": (lambda: _set([ji.get_instance("dmu16")]), 1024, 16),
 }
 
 

@@ -225,6 +225,54 @@ def test_driven_twin_matches_xla_engine_at_B1024(jx):
     _same_state(final, _np(jfinal, jax))
 
 
+# the other instance families of tests/test_parity_sweep.py:22-32: (B, T);
+# 1.25 J*M + 16 steps, past every lane's first episode end (random-legal
+# episodes with their no-ops take about 1.15 J*M), and one case at B=1024,
+# where a TPU miscompile once dropped bool scatters
+# (jssenv_tpu/core/engine.py:593-596)
+FAMILIES = {"ta11": (4, 391), "ta21": (4, 516), "ta31": (4, 578), "ta51": (2, 953), "ta61": (2, 1266),
+            "dmu16": (4, 766), "dmu16-B1024": (1024, 24)}
+
+
+@pytest.mark.parametrize("case", sorted(FAMILIES))
+def test_twins_match_xla_engine_on_families(jx, case):
+    """One (T, B) stream of random words: the JAX package's ``vstep`` with
+    auto-reset, sampling each action from the words by the kernels' rule,
+    against the free twin on the same words (lane stats) and the driven twin
+    on the actions JAX took (raw rewards, final state)."""
+    jax, jnp, jv = jx.jax, jx.jnp, jx.vector
+    B, T = FAMILIES[case]
+    name = case.split("-")[0]
+    bits = _bits(T, B, seed=len(case))
+
+    @jax.jit
+    def run(s, words):
+        def body(carry, w):
+            s, stats = carry
+            k31 = jax.lax.shift_right_logical(w, 1)
+            n = s.nb_legal + s.noop_legal.astype(jnp.int32)
+            k = k31 % jnp.maximum(n, 1)
+            chosen = s.legal & (jnp.cumsum(s.legal.astype(jnp.int32), axis=1) == (k + 1)[:, None])
+            job = jnp.sum(jnp.where(chosen, jnp.arange(s.legal.shape[1], dtype=jnp.int32), 0), axis=1)
+            a = jnp.where(k >= s.nb_legal, s.num_jobs, job)
+            s, tr, stats = jv.step_autoreset(s, a, stats)
+            return (s, stats), (a, tr.raw_reward)
+
+        return jax.lax.scan(body, (s, jv.RolloutStats.zero()), words)
+
+    (jfinal, jstats), (acts, raws) = run(jv.make_batch(jx.inst.get_instance(name), B), jnp.asarray(bits))
+    state = tv.make_batch(ti.get_instance(name), B, device="cpu")
+    final, raw = fr.rollout_driven(state, torch.from_numpy(np.asarray(acts)), T)
+    np.testing.assert_array_equal(raw.numpy(), np.asarray(raws))
+    _same_state(final, _np(jfinal, jax))
+    got = fr.rollout_free(state, T, bits=torch.from_numpy(bits))
+    assert int(got["identity_violations"]) == 0
+    for k in ("episodes", "total_makespan", "min_makespan", "steps"):
+        assert int(got[k]) == int(getattr(jstats, k)), k
+    assert float(got["total_return"]) == pytest.approx(float(jstats.total_return), rel=1e-5)
+    assert B == 1024 or int(got["episodes"]) >= B
+
+
 # ---------------------------------------------------------------------------
 # random words and sampling
 # ---------------------------------------------------------------------------
