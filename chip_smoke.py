@@ -100,15 +100,30 @@ Phases (any failure raises and the script exits non-zero):
    docs/BENCHMARKS.md's round-5 configuration (128 chains x 8 proposals)
    in the three neighborhoods, 200 iterations (cut from 50 000). Seconds a
    stage, ms a refine iteration, sweep passes and host reads a sweep, the
-   makespans; no rollout kernel is launched.
+   makespans; no rollout kernel is launched;
+18. the repo's entry points on the port, each a process of this checkout on
+   the card (``tools/*_torch.py``; any non-zero exit fails the run): the
+   bench at its defaults (ta01 B=16384, ragged ta41-ta50 B=10240, ta71
+   B=8192, each at T=8192: one JSON line of three records, engine "cuda",
+   int16 on ta01 and int32 on the others, every run's launches counted, 0
+   identity violations; its ta01 run at seed 1 equal to a direct
+   ``rollout_free`` at that seed); the solver-quality sweep on ta01 and
+   ta02 with 200 tabu iterations (each row's schedule, recorded as the
+   tool runs, replayed on the native engine to the row's makespan; gaps, ms
+   a refine iteration); the distillation tool's ``collect`` of ta41 and
+   ta42 (equal to the leading rows of ``models_data/distill_30x20_pairs.npz``,
+   in order) and its float32 ``eval`` of ``ta41_distill`` on ta41 (2658).
 
-``--quick`` runs phases 1-4 and 9-17 at small shapes (a first check of a new
+``--quick`` runs phases 1-4 and 9-18 at small shapes (a first check of a new
 build). ``--out`` writes every measured number as JSON. On an H100 the run
-takes about 8 minutes (``--quick`` about 3); ``--against`` adds about 3. The
+takes about 9 minutes (``--quick`` about 4); ``--against`` adds about 3. The
 last stdout lines are the ``nvidia-smi`` line, one ``{"kernels": [...]}``
 line and ``{"ok": true, "device": {...}}``; the driven kernel's
-``launches`` there sum phases 5, 12, 13, 14 (both ranks' too) and 15, and
-the free kernels' phases 5 and 14, each path counted from zero.
+``launches`` there sum phases 5, 12, 13, 14 (both ranks' too), 15 and 18,
+and the free kernels' phases 5, 14 and 18, each path counted from zero
+(phase 18's from its processes' own counts). The script exits 1 with its
+reason, before anything else, where the checkout around it is incomplete
+(``CHECKOUT``), e.g. when it is copied alone into an empty directory.
 """
 
 from __future__ import annotations
@@ -197,6 +212,9 @@ KERNELS = {
     "rollout_free_i16": ("rollout_free_kernel<int16>", "jssenv_tpu/core/pallas_rollout.py:653"),
 }
 SOURCE = "jssenv_tpu_torch/core/csrc/rollout.cu"
+# what the script runs or reads of the checkout around it
+CHECKOUT = ("jssenv_tpu_torch", SOURCE, "tools/bench_torch.py", "tools/solver_quality_torch.py",
+            "tools/distill_30x20_torch.py", "models_data", "tests/data/golden_solutions.json")
 
 
 def check(cond, msg: str) -> None:
@@ -241,6 +259,12 @@ def main() -> int:
     ap.add_argument("--rank-worker", nargs=4, metavar=("WORK", "RANK", "WORLD", "PORT"), default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
+    here = Path(__file__).resolve().parent
+    missing = [p for p in CHECKOUT if not (here / p).exists()]
+    if missing:
+        print(f"chip_smoke: {here} is not a checkout of the repo (no {', '.join(missing)}); run the script from "
+              "the root of a checkout", file=sys.stderr)
+        return 1
     if args.time_kernels:
         return time_kernels_of(args.time_kernels, args.out)
     if args.rank_worker:
@@ -453,7 +477,10 @@ def main() -> int:
         distill_phase(report, dev, quick=True)
         resume_phase(report, dev, call["final"])
         solver_phase(report, dev, quick=True, smi=smi)
-        kernels = [{"name": KERNELS[n][0], "launches": fr.LAUNCHES[n]} for n in KERNELS]
+        counts = dict(fr.LAUNCHES)
+        for key, n in tools_phase(report, dev, quick=True, smi=smi).items():
+            counts[key] += n
+        kernels = [{"name": KERNELS[n][0], "launches": counts[n]} for n in KERNELS]
         log(json.dumps({"kernels": kernels}))
         return finish(report, args, smi, kind, count)
 
@@ -710,11 +737,13 @@ def main() -> int:
     driven_by_path["distill"] = distill_phase(report, dev, quick=False)
     resume_phase(report, dev, call["final"])
     solver_phase(report, dev, quick=False, smi=smi)
+    tool_counts = tools_phase(report, dev, quick=False, smi=smi)
+    driven_by_path["tools"] = tool_counts["rollout_driven"]
     launches["rollout_driven"] = sum(driven_by_path.values())
     free_by_path = {}
     for key in KEY.values():
-        free_by_path[key] = {"main_path": launches[key], "sharded": par_launches[key]}
-        launches[key] += par_launches[key]
+        free_by_path[key] = {"main_path": launches[key], "sharded": par_launches[key], "tools": tool_counts[key]}
+        launches[key] += par_launches[key] + tool_counts[key]
         free_err[key] = max(free_err[key], par_errs[key])
     report["main_path"]["driven_launches_by_path"] = driven_by_path
 
@@ -1861,8 +1890,181 @@ def solver_phase(report: dict, dev, quick: bool, smi: str) -> None:
             f"{tabu[nb]['host_syncs_per_sweep']:.1f} host reads a sweep ({smi})")
     out["tabu_ta41"] = tabu
     check(dict(fr.LAUNCHES) == launches_before, "the solver launched a rollout kernel")
-    log("[17] the solver launched no rollout kernel: the kernels line's counts are those of phases 1-16")
+    log("[17] the solver launched no rollout kernel")
     report["solver"] = out
+
+
+# phase 18: the repo's entry points on the port, each a process of its own on
+# the card: (tool and arguments) full, quick. The bench runs at its defaults
+# (bench.py's three configurations at T=8192); the solver sweep at its
+# defaults but two instances and 200 iterations (cut from 12 000); the
+# distillation tool collects the first two teachers and evaluates the
+# shipped checkpoint at float32 on ta41
+TOOLS_DIR = Path(__file__).resolve().parent / "jssenv_tpu_torch" / "build" / "tools"
+TOOL_RUNS = {
+    "bench": (["tools/bench_torch.py"], ["tools/bench_torch.py", "--batch", "1024", "--steps", "512", "--repeats", "1"]),
+    "solver_quality": (["tools/solver_quality_torch.py", "--instances", "ta01", "ta02", "--iters", "200"],
+                       ["tools/solver_quality_torch.py", "--instances", "ta01", "--iters", "16", "--batch", "64",
+                        "--sweeps", "1", "--chains", "16"]),
+    "collect": (["tools/distill_30x20_torch.py", "collect", "--instances", "ta41", "ta42"],
+                ["tools/distill_30x20_torch.py", "collect", "--instances", "ta41"]),
+    "eval": (["tools/distill_30x20_torch.py", "eval", "models_data/ta41_distill.npz", "--instances", "ta41",
+              "--dtype", "float32"],) * 2,
+}
+BENCH_CONFIGS = ("ta01", "ta41-ta50", "ta71")  # the bench's records, in order
+# runs a tool as __main__ with jssenv_tpu_torch.solve.solve recorded: each
+# result's instance, makespan and machine order go to the JSON file named by
+# the first argument when the tool exits
+RECORD_SOLVES = """
+import json, runpy, sys
+from jssenv_tpu_torch import solve
+real, seen = solve.solve, []
+def recording(spec, **kw):
+    res = real(spec, **kw)
+    seen.append({"instance": spec.name, "makespan": res.makespan, "machine_order": res.machine_order()})
+    return res
+solve.solve = recording
+out, sys.argv = sys.argv[1], sys.argv[2:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+finally:
+    with open(out, "w") as f:
+        json.dump(seen, f)
+"""
+
+
+def run_tool(argv, timeout: int = 600, prefix=()):
+    """One tool as a process of its own from the checkout's root; fails the
+    phase on a non-zero exit. Returns (stdout, stderr, host seconds) and
+    logs the tool's stderr."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *prefix, *argv], cwd=root, capture_output=True, text=True,
+                          timeout=timeout)
+    secs = time.perf_counter() - t0
+    for line in proc.stderr.strip().splitlines()[-40:]:
+        log(f"[18]   | {line}")
+    check(proc.returncode == 0, f"{' '.join(argv)} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc.stdout, proc.stderr, secs
+
+
+def tool_launches(stderr: str) -> dict:
+    """The ``kernel launches: {...}`` line a tool prints last on stderr."""
+    lines = [ln for ln in stderr.splitlines() if ln.startswith("kernel launches: ")]
+    check(len(lines) == 1, f"a tool printed {len(lines)} kernel-launch lines")
+    return json.loads(lines[0].removeprefix("kernel launches: "))
+
+
+def tools_phase(report: dict, dev, quick: bool, smi: str) -> dict:
+    """Phase 18: the three entry points of the repo ported in
+    ``tools/*_torch.py``, each run as a process on the card (module
+    docstring). Returns their kernel launches by ``LAUNCHES`` key."""
+    import numpy as np
+    import torch
+
+    from jssenv_tpu_torch import distill, instances, replay, vector
+    from jssenv_tpu_torch.core import fused_rollout as fr
+
+    pick = 1 if quick else 0
+    TOOLS_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    launches = {k: 0 for k in KERNELS}
+
+    # (a) the bench: one JSON line, three records, every run in the kernel
+    stdout, _, secs = run_tool(TOOL_RUNS["bench"][pick])
+    lines = stdout.splitlines()
+    check(len(lines) == 1, f"the bench printed {len(lines)} stdout lines")
+    rec = json.loads(lines[0])
+    records = [rec] + rec.get("extra", [])
+    names = [r["metric"].split("batched ")[1].split(",")[0] for r in records]
+    check(names == list(BENCH_CONFIGS), f"the bench's configurations: {names}")
+    name, _, limit = smi.rpartition(",")
+    for cfg, r in zip(names, records):
+        n = 1 + len(r["runs"])  # the warm-up and the repeats
+        key = "rollout_free_i16" if FULL_DTYPE[cfg] == "int16" else "rollout_free"
+        check(r["engine"] == "cuda" and r["backend"] == "cuda" and r["value_dtype"] == FULL_DTYPE[cfg],
+              f"bench {cfg}: engine {r['engine']}, backend {r['backend']}, dtype {r['value_dtype']}")
+        check(r["launches"] == {k: (n if k == key else 0) for k in KERNELS}, f"bench {cfg}: launches {r['launches']}")
+        # at --quick's 512 steps no ta71 episode (2000 operations) ends
+        check(all(run["identity_violations"] == 0 and (run["episodes"] > 0 or quick) for run in r["runs"]),
+              f"bench {cfg}: runs {r['runs']}")
+        check((r["gpu"], r["power_limit"]) == (name.strip(), limit.strip()), f"bench {cfg}: card {r['gpu']}")
+        launches[key] += n
+    # the bench's ta01 run at seed 1 against a direct rollout_free at that seed
+    run1 = rec["runs"][0]
+    state = vector.make_batch(instances.get_instance("ta01"), rec["batch"], device=dev)
+    direct = {k: v.item() for k, v in fr.rollout_free(state, rec["steps"], seed=run1["seed"]).items()}
+    for key in ("episodes", "total_makespan", "min_makespan", "identity_violations"):
+        check(direct[key] == run1[key], f"bench ta01 seed {run1['seed']}: {key} {run1[key]}, direct {direct[key]}")
+    out["bench"] = {"records": records, "process_s": secs}
+    for cfg, r in zip(names, records):
+        host = [x["host_s"] * 1e3 for x in r["runs"]]
+        device = [x["device_ms"] for x in r["runs"]]
+        log(f"[18] bench {cfg} B={r['batch']} T={r['steps']} {r['value_dtype']}: {r['value']:.6g} env-steps/s "
+            f"(host clock {min(host):.2f}-{max(host):.2f} ms, CUDA events {min(device):.2f}-{max(device):.2f} ms "
+            f"a run; warm-up {r['warmup_s']} s, cold build {r['cold_build']}), {r['runs'][0]['episodes']} "
+            f"episodes at seed 1, 0 identity violations ({r['gpu']}, {r['power_limit']})")
+    log(f"[18] bench ta01 seed {run1['seed']}: {run1['episodes']} episodes, equal to a direct rollout_free "
+        f"(and its makespan sum and minimum); the process took {secs:.1f} s")
+
+    # (b) the solver sweep: every row's schedule replayed on the native engine
+    sq_out, solves = TOOLS_DIR / "solver_quality.json", TOOLS_DIR / "solves.json"
+    sq_out.unlink(missing_ok=True)
+    argv = TOOL_RUNS["solver_quality"][pick]
+    _, stderr, secs = run_tool([*argv, "--out", str(sq_out)], prefix=("-c", RECORD_SOLVES, str(solves)))
+    check(not any(tool_launches(stderr).values()), "the solver launched a rollout kernel")
+    sq = json.loads(sq_out.read_text())
+    seen = json.loads(solves.read_text())[1:]  # the first solve is the warm-up
+    iters = int(argv[argv.index("--iters") + 1])
+    check(len(seen) == len(sq["rows"]), f"{len(seen)} solves for {len(sq['rows'])} rows")
+    for row, res in zip(sq["rows"], seen):
+        spec = instances.get_instance(row["instance"])
+        mk, _ = replay.replay_machine_order(spec, res["machine_order"], backend="native")
+        check(res["instance"] == row["instance"] and mk == res["makespan"] == row["makespan_seed0"],
+              f"solver {row['instance']}: row {row['makespan_seed0']}, solve {res['makespan']}, replayed {mk}")
+        check(row["lower_bound"] == spec.lower_bound() <= row["makespan"] and "gap_pct" in row,
+              f"solver {row['instance']}: {row}")
+        row["refine_ms_per_iter"] = row["timings_seed0"]["refine_s"] / iters * 1e3
+        log(f"[18] solver_quality {row['instance']}: {row['makespan']} (replayed), gap {row['gap_pct']}% to the "
+            f"best known, {row['gap_vs_lb_pct']}% to the lower bound; {row['seconds_per_seed']['0']} s, "
+            f"{row['refine_ms_per_iter']:.2f} ms a refine iteration ({smi})")
+    out["solver_quality"] = dict(sq, process_s=secs)
+    log(f"[18] solver_quality: warm-up {sq['compile_s']} s, mean gap {sq['mean_gap']}%; the process took "
+        f"{secs:.1f} s")
+
+    # (c) the distillation tool: the collected teachers equal the shipped pairs
+    pairs_dir = TOOLS_DIR / "distill"
+    (pairs_dir / "distill_30x20_pairs.npz").unlink(missing_ok=True)
+    argv = TOOL_RUNS["collect"][pick]
+    _, stderr, secs = run_tool([*argv, "--out-dir", str(pairs_dir)])
+    check(not any(tool_launches(stderr).values()), "teacher collection launched a rollout kernel")
+    with np.load(pairs_dir / "distill_30x20_pairs.npz") as z:
+        got = {k: z[k] for k in distill.PAIR_KEYS}
+    names = argv[argv.index("--instances") + 1:]
+    n = len(got["action"])
+    check(n == sum(instances.get_instance(x).num_jobs * instances.get_instance(x).num_machines for x in names),
+          f"collect {names}: {n} pairs")
+    with np.load(MODELS / "distill_30x20_pairs.npz") as z:
+        shipped = {k: z[k][:n] for k in distill.PAIR_KEYS}
+    obs_err = float(np.abs(got["obs"] - shipped["obs"]).max())
+    check(obs_err <= 1e-6 and all(np.array_equal(got[k], shipped[k]) for k in ("mask", "valid", "action")),
+          f"collect {names}: pairs differ from the shipped rows (obs err {obs_err})")
+    out["collect"] = {"instances": names, "pairs": n, "obs_max_err": obs_err, "process_s": secs}
+    log(f"[18] collect {names} on the card: {n} pairs equal the shipped rows 0-{n - 1} in order (obs max err "
+        f"{obs_err:.3g}, the rest exact); the process took {secs:.1f} s")
+
+    # (d) the float32 greedy eval of the shipped ta41_distill: 2658
+    stdout, stderr, secs = run_tool(TOOL_RUNS["eval"][pick])
+    check(stdout.splitlines() == ["ta41: greedy 2658"], f"eval ta41_distill float32: {stdout!r}")
+    ev = tool_launches(stderr)
+    check(ev["rollout_driven"] > 0 and ev["rollout_driven"] == sum(ev.values()), f"eval launches {ev}")
+    launches["rollout_driven"] += ev["rollout_driven"]
+    out["eval"] = {"greedy_makespan": 2658, "launches": ev, "process_s": secs}
+    log(f"[18] eval ta41_distill float32: greedy 2658 (= the JAX package's), {ev['rollout_driven']} driven "
+        f"launches; the process took {secs:.1f} s")
+    out["launches"] = launches
+    report["tools"] = out
+    return launches
 
 
 def finish(report, args, smi, kind, count) -> int:

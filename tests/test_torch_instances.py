@@ -95,12 +95,18 @@ def _port_modules():
             "rules/dispatching.py", "envs/gym_env.py", "envs/vec_env.py", "render/gantt.py",
             "utils.py", "models/policy.py", "checkpoint.py", "parallel/learner.py", "parallel/mesh.py",
             "parallel/multihost.py", "distill.py", "diagnostics.py"} <= names
-    return files + [ROOT / "chip_smoke.py"]
+    tools = sorted((ROOT / "tools").glob("*_torch.py"))
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert {"bench_torch.py", "solver_quality_torch.py", "distill_30x20_torch.py"} <= {f.name for f in tools}
+    assert {"torch_dispatching_rules_example.py", "torch_solve_instance.py", "torch_train_policy.py"} <= {
+        f.name for f in examples}
+    return files + tools + examples + [ROOT / "chip_smoke.py"]
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports jax, flax, optax
-    or the JAX package — not even its framework-free modules."""
+    """No module of the port, none of its tools (``tools/*_torch.py``) and
+    examples (``examples/torch_*.py``), and not chip_smoke.py imports jax,
+    flax, optax or the JAX package — not even its framework-free modules."""
     banned = ("jax", "jaxlib", "flax", "optax", "jssenv_tpu")
     for path in _port_modules():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -154,3 +160,18 @@ def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):
     assert mod.main() != 0
     assert '"ok"' not in capsys.readouterr().out
     assert os.path.basename(mod.SOURCE) == "rollout.cu"
+
+
+def test_chip_smoke_alone_exits_1_with_its_reason(tmp_path):
+    """Copied alone into an empty directory, the smoke script exits 1 before
+    anything else, says which files of the checkout are missing, and prints
+    no result."""
+    import shutil
+    import subprocess
+    import sys
+
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True,
+                         timeout=60)
+    assert out.returncode == 1 and out.stdout == ""
+    assert "is not a checkout of the repo (no jssenv_tpu_torch, " in out.stderr
