@@ -6,10 +6,13 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power limit;
-2. build ``core/csrc/rollout.cu`` with nvcc and print its ``-Xptxas -v`` report
+2. build ``core/csrc/rollout.cu`` with nvcc, the general kernels and the
+   static build of every shape the run meets (``STATIC_SHAPES``), every nvcc
+   started together, and print each build's ``-Xptxas -v`` report
    (registers, stack, spills) and the launch geometry of each FULL config
    (``fused_rollout.launch_geometry``: a warp a lane, lanes a block, shared
-   bytes);
+   bytes). A batch whose every lane is unpadded launches the static build of
+   its shape, a padded one the general build (``fused_rollout.static_shape``);
 3. driven parity: the plain twin (``vector.step_autoreset``'s two calls,
    under ``random_legal_actions``) on the card records actions, raw rewards,
    episode ends and the final state; ``fused_rollout.rollout_driven``
@@ -18,24 +21,37 @@ Phases (any failure raises and the script exits non-zero):
    at the main paths' shapes, one step per launch for as many steps as the
    policy loop takes, across episode ends and open no-op gates: ta01
    B=16384 on the full state (the policy loop) and ta01 B=8192 on the light
-   state (``vector.strip_solution``, as the learner and serving run it);
+   state (``vector.strip_solution``, as the learner and serving run it). On
+   every unpadded batch the general build runs the same actions too and must
+   be bit-equal to the static one;
 4. free parity, bits mode: the same (T, B) bits through the kernel and the
    plain twin; per-lane integer stats equal, return within rel 1e-5, no
    reward-identity violations. Where a case's values fit int16, both
    instantiations of the free kernel (int32 and int16) are held against the
-   same twin;
+   same twin; each in its static and its general build, bit-equal lane by
+   lane;
 5. the main path at full width, launch counts zeroed just before: a
    policy-in-the-loop rollout (``random_legal_actions`` outside, the env step
    in the driven kernel) on ta01 with B=16384, and the free Philox rollout on
    ta01 B=16384, ragged ta01-ta10 B=10240, ragged ta41-ta50 B=10240 and ta71
-   B=8192. ``value_dtype`` must pick int16 on the first two (which launch the
-   int16 instantiation) and int32 on the last two;
-6. the plain twin on the same full-width inputs and seed: equal integer
-   stats; then the kernel in bits mode at full width, whose mean makespan must
-   be within 1% of the Philox run's; then, on the int16 batches, the int16
+   B=8192 (static builds), and on the padded batches of two shapes ta01+ta11
+   and ta01+ta41, B=10240, T=512 (general builds). ``value_dtype`` must pick
+   int16 on ta01, ta01-ta10 and ta01+ta11 (which launch the int16
+   instantiation) and int32 on the others. Also the policy loop on the padded
+   ta01+ta11 batch (B=8192, 300 steps; the general driven kernel, each lane's
+   reward identity at its episode ends, from the kernel's own ends);
+6. the plain twin on the same full-width inputs and seed: lane by lane equal
+   to the kernel in the build the batch takes and, on an unpadded batch, in
+   the general build too (every stat and the float32 return); then the
+   kernel in bits mode at full width, whose mean makespan must be within 1%
+   of the Philox run's; then, on the unpadded int16 batches, the int16
    kernel against the int32 one lane by lane on the same Philox seed;
-7. kernel times (CUDA events, after warm-up), the plain twins' times, the
-   least time the card could take, env-steps/s, int16 against int32; with
+7. kernel times (CUDA events, after warm-up, the card kept busy by a queued
+   spin while the host issues each launch, so that the events time the
+   kernel and not the launch call, whose host time is kept beside) on each
+   batch in turns, the general build against the static one (general, static, static, general;
+   on the int16 batches the int32 static build too), the plain twins' times,
+   the least time the card could take, env-steps/s; with
    ``--against ROOT``, the kernels of another checkout (e.g. the parent
    commit's, unpacked with ``git archive``) and this one's in turns (root,
    this, this, root), each turn a process of its own;
@@ -112,18 +128,29 @@ Phases (any failure raises and the script exits non-zero):
    tool runs, replayed on the native engine to the row's makespan; gaps, ms
    a refine iteration); the distillation tool's ``collect`` of ta41 and
    ta42 (equal to the leading rows of ``models_data/distill_30x20_pairs.npz``,
-   in order) and its float32 ``eval`` of ``ta41_distill`` on ta41 (2658).
+   in order) and its float32 ``eval`` of ``ta41_distill`` on ta41 (2658);
+   ``tools/bench_scaling_torch.py`` at its defaults (256 lanes a card, 128
+   steps; one row a card count up to the cards there are: on one card the
+   1-rank NCCL row), every env step one driven launch a rank; and
+   ``tools/gen_golden_torch.py`` on ta12 (no entry in the golden file; batch
+   1024, 2 sweeps, 200 refine iterations) into a copy of the golden file,
+   its entry replayed to its makespan on the card and on the native engine,
+   every other entry and the repo's file unchanged.
 
 ``--quick`` runs phases 1-4 and 9-18 at small shapes (a first check of a new
 build). ``--out`` writes every measured number as JSON. On an H100 the run
 takes about 9 minutes (``--quick`` about 4); ``--against`` adds about 3. The
 last stdout lines are the ``nvidia-smi`` line, one ``{"kernels": [...]}``
-line and ``{"ok": true, "device": {...}}``; the driven kernel's
-``launches`` there sum phases 5, 12, 13, 14 (both ranks' too), 15 and 18,
-and the free kernels' phases 5, 14 and 18, each path counted from zero
-(phase 18's from its processes' own counts). The script exits 1 with its
-reason, before anything else, where the checkout around it is incomplete
-(``CHECKOUT``), e.g. when it is copied alone into an empty directory.
+line and ``{"ok": true, "device": {...}}``. The kernels line has each
+kernel in each build (``KERNELS``: general and static), its time at the
+main shape of its kind (the general build's on the same unpadded batch as
+the static build's), and its ``launches``: the driven kernel's sum phases 5,
+12, 13, 14 (both ranks' too), 15 and 18, the free kernels' phases 5, 14 and
+18, each path counted from zero (phase 18's from its processes' own counts)
+and listed in ``launches_by_path``. Every build must have been launched on
+the main paths. The script exits 1 with its reason, before anything else,
+where the checkout around it is incomplete (``CHECKOUT``), e.g. when it is
+copied alone into an empty directory.
 """
 
 from __future__ import annotations
@@ -141,6 +168,10 @@ from pathlib import Path
 # an FMA as two operations).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+# cycles of torch.cuda._sleep queued ahead of each timed launch (about 0.5 ms
+# at 1.98 GHz, far above the host's launch call): the card is still busy when
+# the launch is issued, so the events around it time the kernel alone
+QUEUE_CYCLES = 1_000_000
 
 SEED = 20261016
 # (config, B, T) of each phase; see the module docstring
@@ -155,11 +186,24 @@ QUICK_DRIVEN_CASES = (("ta01", 256, 300, {}), ("ta01", 256, 300, {"light": True}
                       ("ta71", 64, 64, {}))
 FREE_CASES = (("ta01", 1024, 512), ("ta41-ta50", 1280, 768))
 QUICK_FREE_CASES = (("ta01", 256, 300), ("rand6x5", 128, 128))
-FULL = (("ta01", 16384, 1024), ("ta01-ta10", 10240, 1024), ("ta41-ta50", 10240, 1024), ("ta71", 8192, 3072))
+FULL = (("ta01", 16384, 1024), ("ta01-ta10", 10240, 1024), ("ta41-ta50", 10240, 1024), ("ta71", 8192, 3072),
+        ("ta01+ta11", 10240, 512), ("ta01+ta41", 10240, 512))
 # the free kernel's storage dtype each FULL batch must select (value_dtype)
-FULL_DTYPE = {"ta01": "int16", "ta01-ta10": "int16", "ta41-ta50": "int32", "ta71": "int32"}
+FULL_DTYPE = {"ta01": "int16", "ta01-ta10": "int16", "ta41-ta50": "int32", "ta71": "int32", "ta01+ta11": "int16",
+              "ta01+ta41": "int32"}
+# the FULL batches with padded lanes (two shapes in one batch): they run the
+# general kernels; every other batch is unpadded and runs the static build of
+# its shape (fused_rollout.static_shape)
+PADDED = ("ta01+ta11", "ta01+ta41")
 MAIN_B = 16384  # ta01 lanes of the policy-in-the-loop main path
 LOOP_STEPS = 256  # its steps, one driven launch each
+# the policy loop on a padded batch (the general driven kernel), long enough
+# for ta01's random-policy episodes (about 260 steps) to end
+PAD_LOOP = ("ta01+ta11", 8192, 300)
+# the static shapes (J, M) the run meets: ta01 and ta01-ta10, ta41-ta50
+# (and ta41, ta42, ta45), ta71, the 6x5 random instance; built in phase 2
+# with the general kernels, every nvcc started together
+STATIC_SHAPES = ((15, 15), (30, 20), (100, 20), (6, 5))
 LEARNER_B = 8192  # ta01 lanes of the learner's light env state (phase 13)
 RULE_SET, RULE_LANES, QUICK_RULE_LANES, RULE_MAX_STEPS = "ta01-ta10", 10240, 70, 4096
 EXPLORE = (0.0, 0.1)
@@ -205,16 +249,34 @@ TRAIN_QUICK = (
     ("perjob", "ta41", 64, 2, {"arch": "perjob", "hidden": (128, 128), "features": "rich", "unroll_steps": 8}),
 )
 
-# LAUNCHES key -> (kernel, the TPU kernel it replaces)
+# LAUNCHES key -> (kernel, the TPU kernel it replaces); a "_static" key is
+# the static build (the counterpart of the JAX kernels' static_lane variant,
+# pallas_rollout.py _static_lane :1018, _fresh_static :503)
 KERNELS = {
     "rollout_driven": ("rollout_driven_kernel", "jssenv_tpu/core/pallas_rollout.py:598"),
+    "rollout_driven_static": ("rollout_driven_kernel<static J,M>", "jssenv_tpu/core/pallas_rollout.py:598"),
     "rollout_free": ("rollout_free_kernel", "jssenv_tpu/core/pallas_rollout.py:653"),
+    "rollout_free_static": ("rollout_free_kernel<static J,M>", "jssenv_tpu/core/pallas_rollout.py:653"),
     "rollout_free_i16": ("rollout_free_kernel<int16>", "jssenv_tpu/core/pallas_rollout.py:653"),
+    "rollout_free_i16_static": ("rollout_free_kernel<int16, static J,M>", "jssenv_tpu/core/pallas_rollout.py:653"),
 }
+DRIVEN_KEYS = ("rollout_driven", "rollout_driven_static")
 SOURCE = "jssenv_tpu_torch/core/csrc/rollout.cu"
 # what the script runs or reads of the checkout around it
 CHECKOUT = ("jssenv_tpu_torch", SOURCE, "tools/bench_torch.py", "tools/solver_quality_torch.py",
-            "tools/distill_30x20_torch.py", "models_data", "tests/data/golden_solutions.json")
+            "tools/distill_30x20_torch.py", "tools/bench_scaling_torch.py", "tools/gen_golden_torch.py",
+            "models_data", "tests/data/golden_solutions.json")
+
+
+def driven(counts) -> int:
+    """The driven kernel's launches in ``counts``, both builds."""
+    return sum(counts.get(k, 0) for k in DRIVEN_KEYS)
+
+
+def free_key(vdt, static) -> str:
+    """The LAUNCHES key of the free kernel in storage dtype ``vdt`` (a torch
+    dtype or its name), static build or not."""
+    return ("rollout_free_i16" if "int16" in str(vdt) else "rollout_free") + ("_static" if static else "")
 
 
 def check(cond, msg: str) -> None:
@@ -295,11 +357,21 @@ def main() -> int:
     report["device"] = {"kind": kind, "count": count, "nvidia_smi": smi}
 
     # ---- 2. build ----------------------------------------------------------
+    # the general kernels and the static build of every shape the run meets,
+    # every nvcc started together; a failed build raises with its output
     t0 = time.perf_counter()
-    fr._lib()
+    fr.build_kernels([None, *STATIC_SHAPES])
     report["build_s"] = time.perf_counter() - t0
-    log(f"[2] built {SOURCE} in {report['build_s']:.1f}s\n{_build.ptxas_report('rollout')}")
-    report["ptxas"] = _build.ptxas_report("rollout")
+    report["ptxas"] = {"general" if sh is None else f"static {sh[0]}x{sh[1]}": _build.ptxas_report("rollout", sh)
+                       for sh in (None, *STATIC_SHAPES)}
+    log(f"[2] built {SOURCE}, general and static {list(STATIC_SHAPES)}, in {report['build_s']:.1f}s")
+    for tag, rep_ in report["ptxas"].items():
+        log(f"[2] {tag}:\n{rep_}")
+    kerr = {k: 0.0 for k in KERNELS}  # max |kernel - twin| (or - the other build) by LAUNCHES key
+
+    def variant(state) -> str:
+        """The LAUNCHES suffix of a launch on ``state``."""
+        return "_static" if fr.static_shape(state) else ""
 
     def make(name, B, **pad):
         return vector.make_batch(source(instances, name), B, device=dev, **pad)
@@ -344,7 +416,6 @@ def main() -> int:
     # ---- 3. driven parity --------------------------------------------------
     driven_cases = QUICK_DRIVEN_CASES if args.quick else DRIVEN_CASES
     report["driven_parity"] = []
-    driven_err = 0
     recorded = {}  # the first case's inputs, episodes and allocations, timed in phase 7
     for i, (name, B, T, pad) in enumerate(driven_cases):
         state = make(name, B, **{k: v for k, v in pad.items() if k != "light"})
@@ -369,9 +440,15 @@ def main() -> int:
         check(err == 0, f"driven {name}: rewards or ends differ")
         fin_plain, rew_plain = fr.rollout_driven(state, torch.stack(acts), T)  # the launch without ends
         check(max(max_err(rew_plain, rew), state_err(fin_plain, fin)) == 0, f"driven {name}: ends changed the run")
-        driven_err = max(driven_err, err)
+        key = "rollout_driven" + variant(state)
+        kerr[key] = max(kerr[key], err)
+        if key.endswith("_static"):  # the general build on the same batch, bit-equal
+            g = fr._driven_kernel(state, torch.stack(acts), T, fr._solution_mode(state), True, general=True)
+            torch.cuda.synchronize()
+            check(max(max_err(g[1], rew), max_err(g[2], k_ends), state_err(g[0], fin)) == 0,
+                  f"driven {name}: the static and general kernels differ")
         episodes = int((ends > 0).sum())
-        row = {"config": name, "pad": pad, "B": B, "T": T, "episodes": episodes,
+        row = {"config": name, "pad": pad, "B": B, "T": T, "episodes": episodes, "kernel": key,
                "max_abs_err": err, "kernel_call_ms": kern.ms(), "plain_step_ms": plain.ms()}
         report["driven_parity"].append(row)
         log(f"[3] driven parity (rewards, ends, state) {row}")
@@ -394,14 +471,19 @@ def main() -> int:
             episodes = torch.zeros((), dtype=torch.int64, device=dev)
             noop_steps = torch.zeros((), dtype=torch.int64, device=dev)
             plain = Events()
+            check(variant(s_k) == "_static", f"driven ta01 B={B}: not the static build")
             for t in range(T):
                 a = vector.random_legal_actions(gen, s_p)
                 s_in = s_p
                 with plain:
                     s_p, r_p, e_p = fr.rollout_driven_reference(s_p, a[None], 1, return_ends=True)
+                # the general build on the same state and actions, then the static one
+                g = fr._driven_kernel(s_k, a[None].contiguous(), 1, not light, True, general=True)
                 s_k, rew, e_k = fr.rollout_driven(s_k, a[None], 1, return_ends=True)
                 err = max(max_err(rew, r_p), max_err(e_k, e_p), state_err(s_k, s_p))
                 check(err == 0, f"driven B={B} light={light}: rewards or ends differ")
+                check(max(max_err(g[1], rew), max_err(g[2], e_k), state_err(g[0], s_k)) == 0,
+                      f"driven B={B} light={light}: the static and general kernels differ")
                 check(s_k.solution.shape[1] == (0 if light else s_k.jobs_pad),
                       f"driven B={B} light={light}: solution rows {s_k.solution.shape[1]}")
                 noop_steps += s_p.noop_legal.sum()
@@ -435,17 +517,34 @@ def main() -> int:
 
     KEY = {torch.int32: "rollout_free", torch.int16: "rollout_free_i16"}
 
-    def free_kernel(state, T, vdt, seed=0, bits=None):
+    def free_kernel(state, T, vdt, seed=0, bits=None, general=False, lane_offset=0):
         """Per-lane stats of one launch of the free kernel's ``vdt``
-        instantiation; checks that it launched."""
-        before = fr.LAUNCHES[KEY[vdt]]
-        out = fr._free_kernel(state, T, seed, bits, vdt)
-        check(fr.LAUNCHES[KEY[vdt]] == before + 1, f"{KEY[vdt]} did not launch")
+        instantiation, in the build the batch takes (or the general one);
+        checks that it launched, under its key."""
+        key = KEY[vdt] + ("" if general else variant(state))
+        before = dict(fr.LAUNCHES)
+        out = fr._free_kernel(state, T, seed, bits, vdt, lane_offset=lane_offset, general=general)
+        check(fr.LAUNCHES[key] == before[key] + 1 and sum(fr.LAUNCHES.values()) == sum(before.values()) + 1,
+              f"{key} did not launch")
         return out
+
+    def same_lanes(a, b, tag):
+        """Per-lane stats equal bit for bit, the float32 return too."""
+        bad = [f for f in a if not torch.equal(a[f], b[f])]
+        check(not bad, f"{tag}: per-lane {bad} differ")
+
+    def free_both(state, T, vdt, tag, seed=0, bits=None, lane_offset=0):
+        """The free kernel in the build the batch takes and, where that is
+        the static one, the general one on the same batch: bit-equal.
+        Returns the first's per-lane stats."""
+        k = free_kernel(state, T, vdt, seed, bits, lane_offset=lane_offset)
+        if variant(state):
+            same_lanes(k, free_kernel(state, T, vdt, seed, bits, general=True, lane_offset=lane_offset),
+                       f"{tag}: the static and general kernels")
+        return k
 
     free_cases = QUICK_FREE_CASES if args.quick else FREE_CASES
     report["free_parity"] = []
-    free_err = {key: 0.0 for key in KEY.values()}  # max |kernel - twin| of a lane's return
     for i, (name, B, T) in enumerate(free_cases):
         state = make(name, B)
         bits = rand_bits(T, B, SEED + 100 + i)
@@ -453,21 +552,25 @@ def main() -> int:
         row = {"config": name, "B": B, "T": T, "episodes": int(r["episodes"].sum()),
                "value_dtype": str(fr.value_dtype(state))}
         for vdt in (torch.int32, torch.int16) if fr.value_dtype(state) == torch.int16 else (torch.int32,):
-            ret_err, rel = compare_free(free_kernel(state, T, vdt, bits=bits), r, f"free bits {KEY[vdt]} {name}")
-            free_err[KEY[vdt]] = max(free_err[KEY[vdt]], ret_err)
-            row[KEY[vdt]] = {"ret_max_abs_err": ret_err, "total_return_rel_err": rel}
+            key = KEY[vdt] + variant(state)
+            k = free_both(state, T, vdt, f"free bits {key} {name}", bits=bits)
+            ret_err, rel = compare_free(k, r, f"free bits {key} {name}")
+            same_lanes(k, r, f"free bits {key} {name}: kernel and twin")
+            kerr[key] = max(kerr[key], ret_err)
+            row[key] = {"ret_max_abs_err": ret_err, "total_return_rel_err": rel}
         check(row["episodes"] > 0, f"free bits {name}: no episode ended")
         report["free_parity"].append(row)
-        log(f"[4] free parity (bits) {row}")
-    check(any("rollout_free_i16" in r for r in report["free_parity"]), "no bits-mode case ran the int16 kernel")
+        log(f"[4] free parity (bits; static and general builds bit-equal) {row}")
+    check(any("rollout_free_i16_static" in r for r in report["free_parity"]), "no bits-mode case ran the int16 kernel")
 
     if args.quick:
         # the Philox words of the kernel and of the twin, in both instantiations
         state = make("rand6x5", 128)
         ref = fr.free_lane_stats_reference(state, 128, seed=SEED)
         for vdt in KEY:
-            compare_free(free_kernel(state, 128, vdt, seed=SEED), ref, f"free philox {KEY[vdt]}")
-        log("[4] free parity (philox, int32 and int16) ok")
+            compare_free(free_both(state, 128, vdt, f"free philox {KEY[vdt]}", seed=SEED), ref,
+                         f"free philox {KEY[vdt]}")
+        log("[4] free parity (philox, int32 and int16, static and general) ok")
         rule_phase(report, dev, QUICK_RULE_LANES, profile=False)
         replay_phase(report, dev, quick=True)
         wrapper_phase(report, dev)
@@ -511,6 +614,26 @@ def main() -> int:
     loop_eps, loop_bad = int(loop_eps), int(loop_bad)
     check(loop_eps > 0 and loop_bad == 0, f"policy loop: {loop_eps} episodes, {loop_bad} bad makespans")
     report["policy_loop"] = {"config": "ta01", "B": loop_B, "T": LOOP_STEPS, "episodes": loop_eps}
+    # the same loop on a padded batch of two shapes (the general driven
+    # kernel): each lane's reward identity at its episode ends, from the
+    # kernel's own ends
+    name, B, T = PAD_LOOP
+    s = make(name, B)
+    check(variant(s) == "", f"policy loop {name}: not a padded batch")
+    ep_raw = torch.zeros(B, dtype=torch.int64, device=dev)
+    pad_eps = torch.zeros((), dtype=torch.int64, device=dev)
+    pad_bad = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(T):
+        a = vector.random_legal_actions(gen, s)
+        s, rew, ends = fr.rollout_driven(s, a[None], 1, return_ends=True)
+        ep_raw += rew[0]
+        done = ends[0] > 0
+        pad_eps += done.sum()
+        pad_bad += (done & (ep_raw != 2 * s.sum_op - s.num_machines * ends[0])).sum()
+        ep_raw = torch.where(done, 0, ep_raw)
+    check(int(pad_eps) > 0 and int(pad_bad) == 0,
+          f"policy loop {name}: {int(pad_eps)} episodes, {int(pad_bad)} reward-identity violations")
+    report["policy_loop_padded"] = {"config": name, "B": B, "T": T, "episodes": int(pad_eps)}
 
     def free_run(name, B, T):
         state = make(name, B)
@@ -533,29 +656,37 @@ def main() -> int:
     launches = dict(fr.LAUNCHES)
     report["main_path"] = {"launches": launches, "seconds": time.perf_counter() - t_main,
                            "free": free_main}
-    log(f"[5] main path launches {launches}; value_dtype {FULL_DTYPE}")
-    n16 = sum(v == "int16" for v in FULL_DTYPE.values())
-    check(launches == {"rollout_driven": LOOP_STEPS, "rollout_free": len(FULL) - n16, "rollout_free_i16": n16},
-          f"the main path's launches: {launches}")
-    I16_FULL = [(name, B, T) for name, B, T in FULL if FULL_DTYPE[name] == "int16"]
+    log(f"[5] main path launches {launches}; value_dtype {FULL_DTYPE}; padded {PADDED}")
+    want = dict.fromkeys(fr.LAUNCHES, 0)
+    want["rollout_driven_static"] += LOOP_STEPS
+    want["rollout_driven"] += PAD_LOOP[2]
+    for name, _, _ in FULL:
+        want[free_key(FULL_DTYPE[name], name not in PADDED)] += 1
+    check(launches == want and all(launches.values()), f"the main path's launches: {launches}, expected {want}")
+    I16_FULL = [(name, B, T) for name, B, T in FULL if FULL_DTYPE[name] == "int16" and name not in PADDED]
 
     # ---- 6. plain twin at full width; bits mode at full width --------------
     plain_free_ms = {}
-    free_full_err = {}
     for name, B, T in FULL:
         state = make(name, B)
         plain = Events()
         with plain:
-            r = fr.rollout_free_reference(state, T, seed=SEED)
+            r_lanes = fr.free_lane_stats_reference(state, T, seed=SEED)
         plain_free_ms[name] = plain.ms()
-        r = {k: v.item() for k, v in r.items()}
+        # the kernel lane by lane, in the build the batch takes and, where
+        # that is the static one, the general one: bit-equal to the twin
+        vdt = getattr(torch, FULL_DTYPE[name])
+        kkey = KEY[vdt] + variant(state)
+        check((kkey == KEY[vdt]) == (name in PADDED), f"{name}: {kkey}, padded {PADDED}")
+        same_lanes(free_both(state, T, vdt, f"{kkey} {name}", seed=SEED), r_lanes, f"{kkey} {name}: kernel and twin")
+        r = {k: v.item() for k, v in fr._reduce_stats(r_lanes, T, B).items()}
         k = free_main[name]
         for key in ("episodes", "total_makespan", "min_makespan", "steps", "identity_violations"):
             check(k[key] == r[key], f"{name}: {key} kernel {k[key]} plain {r[key]}")
         abs_err = abs(k["total_return"] - r["total_return"])
         rel = abs_err / max(1.0, abs(r["total_return"]))
         check(rel <= 1e-5, f"{name}: total_return rel err {rel}")
-        free_full_err[name] = abs_err
+        kerr[kkey] = max(kerr[kkey], abs_err)
         bits = rand_bits(T, B, SEED + 200)
         kb = {k_: v.item() for k_, v in fr.rollout_free(state, T, bits=bits).items()}
         check(kb["identity_violations"] == 0 and kb["episodes"] > 0, f"{name} bits: {kb}")
@@ -563,7 +694,7 @@ def main() -> int:
         drift = abs(k["mean_makespan"] - mean_bits) / mean_bits
         check(drift <= 0.01, f"{name}: philox mean makespan {k['mean_makespan']} vs bits {mean_bits}")
         free_main[name].update(plain_ms=plain_free_ms[name], total_return_rel_err=rel,
-                               bits_mean_makespan=mean_bits, philox_vs_bits=drift)
+                               bits_mean_makespan=mean_bits, philox_vs_bits=drift, kernel=kkey)
         log(f"[6] {name}: twin equal (return rel err {rel:.2e}), bits-mode mean makespan "
             f"{mean_bits:.2f} vs philox {k['mean_makespan']:.2f} ({drift:.2e}), plain {plain_free_ms[name]:.0f} ms")
 
@@ -572,63 +703,92 @@ def main() -> int:
         state = make(name, B)
         k16 = free_kernel(state, T, torch.int16, seed=SEED)
         k32 = free_kernel(state, T, torch.int32, seed=SEED)
-        errs = {key: max_err(k16[key], k32[key]) for key in ("episodes", "mk_sum", "mk_min", "viol")}
-        check(not any(errs.values()), f"int16 vs int32 {name}: per-lane stats differ {errs}")
+        diff = {key: max_err(k16[key], k32[key]) for key in ("episodes", "mk_sum", "mk_min", "viol")}
+        check(not any(diff.values()), f"int16 vs int32 {name}: per-lane stats differ {diff}")
         check(torch.equal(k16["ret"], k32["ret"]), f"int16 vs int32 {name}: returns differ")
         red = {key: v.item() for key, v in fr._reduce_stats(k16, T, B).items()}
         for key in ("episodes", "total_makespan", "min_makespan", "identity_violations"):
             check(red[key] == free_main[name][key], f"int16 {name}: {key} differs from the main path's run")
         check(red["identity_violations"] == 0, f"int16 {name}: reward-identity violations")
-        free_main[name]["int16_vs_int32_max_abs_err"] = max(errs.values())
+        free_main[name]["int16_vs_int32_max_abs_err"] = max(diff.values())
         log(f"[6] int16 vs int32 {name} B={B} T={T}: per-lane stats equal "
             f"({int(k16['episodes'].sum())} episodes, 0 identity violations)")
 
     # ---- 7. kernel times and bounds ----------------------------------------
+    # each row in turns on one batch (CUDA events; the launch_timer calls in
+    # the order given, then reversed): the general build and the static one
+    # of the batch's shape, and on an int16 batch the int32 static build too.
+    # A padded batch has the general build only.
     timings = {}
+
+    def in_turns(kernel, state, T, variants, **kw):
+        """{(vdt, general): [row, row]}: launch_timer of each variant, in
+        turns (v1, v2, ..., v2, v1)."""
+        out = {}
+        for vdt, general in list(variants) + list(reversed(variants)):
+            out.setdefault((vdt, general), []).append(
+                launch_timer(fr, dev, kernel, state, T, vdt=vdt, general=general, **kw))
+        return out
+
+    def turn_row(turns, main, **extra):
+        """Variant ``main``'s row (ms and host_ms: the means of its turns),
+        with the general build's times on the same batch (``general_ms``,
+        ``general_host_ms``) where it ran."""
+        ms = [t["ms"] for t in turns[main]]
+        host = sum(t["host_ms"] for t in turns[main]) / len(ms)
+        row = dict(turns[main][0], ms=sum(ms) / len(ms), ms_turns=ms, host_ms=host, **extra)
+        g = (main[0], True)
+        if g != main and g in turns:
+            gms = [t["ms"] for t in turns[g]]
+            row.update(general_ms=sum(gms) / len(gms), general_ms_turns=gms,
+                       general_host_ms=sum(t["host_ms"] for t in turns[g]) / len(gms))
+            row["static_to_general"] = row["ms"] / row["general_ms"]
+        return row
+
     # the driven kernel on inputs of the parity runs: the last step of the
     # main-shape run, and the first driven case
+    driven_turns = [(None, True), (None, False)]
     state, acts, resets, job_steps = recorded["main"]
-    timings["rollout_driven"] = dict(
-        launch_timer(fr, dev, "rollout_driven", state, 1, actions=acts, resets=resets, job_steps=job_steps),
-        shape=f"ta01 B={MAIN_B} T=1 (step {LOOP_STEPS} of a policy loop)", resets=resets,
-        plain_ms=report["driven_main_shape"]["plain_step_ms"])
+    turns = in_turns("rollout_driven", state, 1, driven_turns, actions=acts, resets=resets, job_steps=job_steps)
+    timings["rollout_driven"] = turn_row(turns, (None, False), resets=resets,
+                                         shape=f"ta01 B={MAIN_B} T=1 (step {LOOP_STEPS} of a policy loop)",
+                                         plain_ms=report["driven_main_shape"]["plain_step_ms"])
     name, B, T, _ = DRIVEN_CASES[0]
     state, acts, resets, job_steps = recorded["T512"]
-    timings["rollout_driven_T512"] = dict(
-        launch_timer(fr, dev, "rollout_driven", state, T, actions=acts, resets=resets, job_steps=job_steps),
-        shape=f"{name} B={B} T={T}", resets=resets,
-        plain_ms=report["driven_parity"][0]["plain_step_ms"] * T)
+    turns = in_turns("rollout_driven", state, T, driven_turns, actions=acts, resets=resets, job_steps=job_steps)
+    timings["rollout_driven_T512"] = turn_row(turns, (None, False), resets=resets, shape=f"{name} B={B} T={T}",
+                                              plain_ms=report["driven_parity"][0]["plain_step_ms"] * T)
     for name, B, T in FULL:
         state = make(name, B)
-        if FULL_DTYPE[name] == "int32":
-            row = dict(launch_timer(fr, dev, "rollout_free", state, T, repeats=3),
-                       shape=f"{name} B={B} T={T}", plain_ms=plain_free_ms[name])
-            row["env_steps_per_s"] = B * T / (row["ms"] / 1e3)
-            timings[f"rollout_free {name}"] = row
-            log(f"[7] rollout_free {name}: {row['ms']:.2f} ms, {row['env_steps_per_s']:.4g} env-steps/s "
-                f"({smi}); bound {row['bound_ms']:.4f} ms by {row['bound_by']}; plain {row['plain_ms']:.0f} ms")
-            continue
-        # the int16 kernel, and the int32 one on the same batch, in turns
-        # (int32, int16, int16, int32), two launches each turn
-        turns = {torch.int32: [], torch.int16: []}
-        for vdt in (torch.int32, torch.int16, torch.int16, torch.int32):
-            turns[vdt].append(launch_timer(fr, dev, "rollout_free", state, T, repeats=2, vdt=vdt))
-        ms32 = sum(t["ms"] for t in turns[torch.int32]) / 2
-        row = dict(turns[torch.int16][0], ms=sum(t["ms"] for t in turns[torch.int16]) / 2,
-                   ms_turns=[t["ms"] for t in turns[torch.int16]],
-                   int32_ms=ms32, int32_ms_turns=[t["ms"] for t in turns[torch.int32]],
-                   int32_bound_ms=turns[torch.int32][0]["bound_ms"], shape=f"{name} B={B} T={T}",
-                   plain_ms=plain_free_ms[name])
-        row["ratio_to_int32"] = row["ms"] / ms32
+        vdt = getattr(torch, FULL_DTYPE[name])
+        if name in PADDED:
+            variants, main = [(vdt, True)], (vdt, True)
+        elif vdt == torch.int16:
+            variants, main = [(torch.int32, False), (torch.int16, False), (torch.int16, True)], (vdt, False)
+        else:
+            variants, main = [(vdt, True), (vdt, False)], (vdt, False)
+        turns = in_turns("rollout_free", state, T, variants, repeats=2)
+        row = turn_row(turns, main, shape=f"{name} B={B} T={T}", plain_ms=plain_free_ms[name],
+                       build="general" if name in PADDED else "static")
         row["env_steps_per_s"] = B * T / (row["ms"] / 1e3)
-        timings[f"rollout_free_i16 {name}"] = row
-        log(f"[7] rollout_free_i16 {name}: {row['ms']:.2f} ms against int32 {ms32:.2f} ms "
-            f"(ratio {row['ratio_to_int32']:.3f}), {row['env_steps_per_s']:.4g} env-steps/s ({smi}); "
-            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} (int32 {row['int32_bound_ms']:.4f}); "
-            f"plain {row['plain_ms']:.0f} ms")
+        if (torch.int32, False) in turns and vdt == torch.int16:
+            ms32 = [t["ms"] for t in turns[torch.int32, False]]
+            row.update(int32_ms=sum(ms32) / 2, int32_ms_turns=ms32, int32_bound_ms=turns[torch.int32, False][0]["bound_ms"])
+            row["ratio_to_int32"] = row["ms"] / row["int32_ms"]
+        timings[f"{KEY[vdt]} {name}"] = row
+        log(f"[7] {KEY[vdt]} {name} ({row['build']} build): {row['ms']:.3f} ms"
+            + (f" against the general build's {row['general_ms']:.3f} ms (static/general "
+               f"{row['static_to_general']:.3f})" if "general_ms" in row else "")
+            + (f", int32 static {row['int32_ms']:.3f} ms (ratio {row['ratio_to_int32']:.3f})" if "int32_ms" in row
+               else "")
+            + f"; {row['env_steps_per_s']:.4g} env-steps/s ({smi}); bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}; plain {row['plain_ms']:.0f} ms")
     for key in ("rollout_driven", "rollout_driven_T512"):
-        log(f"[7] {key} {timings[key]['shape']}: {timings[key]['ms']:.3f} ms ({smi}); "
-            f"bound {timings[key]['bound_ms']:.5f} ms; plain {timings[key]['plain_ms']:.1f} ms")
+        row = timings[key]
+        log(f"[7] {key} {row['shape']}: static build {row['ms']:.4f} ms against the general build's "
+            f"{row['general_ms']:.4f} ms (static/general {row['static_to_general']:.3f}; turns {row['ms_turns']}, "
+            f"{row['general_ms_turns']}; host ms of the launch call {row['host_ms']:.4f} against "
+            f"{row['general_host_ms']:.4f}) ({smi}); bound {row['bound_ms']:.5f} ms; plain {row['plain_ms']:.1f} ms")
     report["timings"] = timings
     if args.against:
         report["turns"] = turns_against(args.against, smi)
@@ -701,84 +861,91 @@ def main() -> int:
     check(not any(fr.LAUNCHES.values()), f"rules, replay and wrappers launched a rollout kernel: {fr.LAUNCHES}")
 
     # ---- 12-13. serving and training: the policy nets on the driven kernel -
-    driven_by_path = {"policy_loop": launches["rollout_driven"],
-                      "serving": serving_phase(report, dev, quick=False)}
-    driven_by_path["training"], call = training_phase(report, dev, quick=False, profile=args.profile)
-    launches["rollout_driven"] = sum(driven_by_path.values())
-    report["main_path"]["driven_launches_by_path"] = driven_by_path
+    # launches by path, each a LAUNCHES dict counted from zero
+    by_path = {"main_path": launches, "serving": serving_phase(report, dev, quick=False)}
+    by_path["training"], call = training_phase(report, dev, quick=False, profile=args.profile)
     # the driven kernel at the learner's shape: the last env step of the
     # REINFORCE run (light state), its ends written; kernel and twin on the
-    # same inputs must agree in every state field, the rewards and the ends
+    # same inputs must agree in every state field, the rewards and the ends,
+    # and the general build with them
     st, acts = call["state"], call["actions"]
     check(st.solution.shape[1] == 0, "the learner's env state is not light")
+    check(variant(st) == "_static", "the learner's batch does not take the static build")
     twin = Events()
     for _ in range(2):
         with twin:
             ref = fr.rollout_driven_reference(st, acts, 1, return_ends=True)
     got = fr.rollout_driven(st, acts, 1, return_ends=True)
+    gen_ = fr._driven_kernel(st, acts, 1, False, True, general=True)
     torch.cuda.synchronize()
     err = max(state_err(got[0], ref[0]), max_err(got[1], ref[1]), max_err(got[2], ref[2]))
     check(err == 0 and got[0].solution.shape[1] == 0, "driven at the learner's shape: kernel and twin differ")
-    driven_err = max(driven_err, err)
-    log(f"[13] rollout_driven at the learner's shape: kernel equals its twin on the recorded step "
-        f"({int((ref[2] > 0).sum())} lanes end)")
-    timings["rollout_driven_learner"] = dict(
-        launch_timer(fr, dev, "rollout_driven", st, 1, actions=acts, resets=int(call["resets"].sum()),
-                     job_steps=int(call["jobs"].sum()), ends=True, repeats=20),
-        shape=f"ta01 B={st.batch_size} T=1 with ends (the learner's env step, light state)",
-        plain_ms=twin.ms(), launches=driven_by_path["training"])
+    check(max(state_err(gen_[0], got[0]), max_err(gen_[1], got[1]), max_err(gen_[2], got[2])) == 0,
+          "driven at the learner's shape: the static and general kernels differ")
+    kerr["rollout_driven_static"] = max(kerr["rollout_driven_static"], err)
+    log(f"[13] rollout_driven at the learner's shape: the static kernel equals its twin and the general kernel on "
+        f"the recorded step ({int((ref[2] > 0).sum())} lanes end)")
+    turns = in_turns("rollout_driven", st, 1, driven_turns, actions=acts, resets=int(call["resets"].sum()),
+                     job_steps=int(call["jobs"].sum()), ends=True, repeats=20)
+    timings["rollout_driven_learner"] = turn_row(
+        turns, (None, False), shape=f"ta01 B={st.batch_size} T=1 with ends (the learner's env step, light state)",
+        plain_ms=twin.ms(), launches=driven(by_path["training"]))
     row = timings["rollout_driven_learner"]
-    log(f"[13] rollout_driven at the learner's shape {row['shape']}: {row['ms']:.4f} ms ({smi}); bound "
-        f"{row['bound_ms']:.5f} ms by {row['bound_by']}; plain {row['plain_ms']:.2f} ms")
+    log(f"[13] rollout_driven at the learner's shape {row['shape']}: static build {row['ms']:.4f} ms against the "
+        f"general build's {row['general_ms']:.4f} ms (static/general {row['static_to_general']:.3f}; turns "
+        f"{row['ms_turns']}, {row['general_ms_turns']}; host ms of the launch call {row['host_ms']:.4f} against "
+        f"{row['general_host_ms']:.4f}) ({smi}); "
+        f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}; plain {row['plain_ms']:.2f} ms")
 
     # ---- 14-16. data and tensor parallel, distillation, diagnostics and resume
-    par_launches, par_errs = parallel_phase(report, dev, quick=False)
-    driven_by_path["parallel"] = par_launches["rollout_driven"]
-    driven_by_path["distill"] = distill_phase(report, dev, quick=False)
+    by_path["parallel"], par_errs = parallel_phase(report, dev, quick=False)
+    by_path["distill"] = distill_phase(report, dev, quick=False)
     resume_phase(report, dev, call["final"])
     solver_phase(report, dev, quick=False, smi=smi)
-    tool_counts = tools_phase(report, dev, quick=False, smi=smi)
-    driven_by_path["tools"] = tool_counts["rollout_driven"]
-    launches["rollout_driven"] = sum(driven_by_path.values())
-    free_by_path = {}
-    for key in KEY.values():
-        free_by_path[key] = {"main_path": launches[key], "sharded": par_launches[key], "tools": tool_counts[key]}
-        launches[key] += par_launches[key] + tool_counts[key]
-        free_err[key] = max(free_err[key], par_errs[key])
-    report["main_path"]["driven_launches_by_path"] = driven_by_path
+    by_path["tools"] = tools_phase(report, dev, quick=False, smi=smi)
+    total = {k: sum(c.get(k, 0) for c in by_path.values()) for k in KERNELS}
+    for k in KERNELS:
+        kerr[k] = max(kerr[k], par_errs.get(k, 0.0))
+    check(all(total.values()), f"a kernel was not launched on the main paths: {total}")
+    report["main_path"]["launches_by_path"] = by_path
 
+    # each kernel's time at the main shape of its kind, the general build's
+    # on the same unpadded batch as the static build's
     main_rows = {"rollout_driven": timings["rollout_driven"], "rollout_free": timings["rollout_free ta41-ta50"],
                  "rollout_free_i16": timings["rollout_free_i16 ta01"]}
-    errs = {"rollout_driven": driven_err}
-    for vdt, key in KEY.items():
-        names = [n for n, _, _ in FULL if FULL_DTYPE[n] == str(vdt).removeprefix("torch.")]
-        errs[key] = max(free_err[key], *(free_full_err[n] for n in names))
-    kernels = [
-        {"name": KERNELS[n][0], "route": "cuda", "source": SOURCE, "replaces": KERNELS[n][1],
-         "launches": launches[n], "max_abs_err": errs[n], "ms": main_rows[n]["ms"],
-         "plain_ms": main_rows[n]["plain_ms"], "bound_ms": main_rows[n]["bound_ms"],
-         "bound_by": main_rows[n]["bound_by"], "library_ms": None, "shape": main_rows[n]["shape"]}
-        for n in KERNELS
-    ]
-    kernels[0]["launches_by_path"] = driven_by_path
-    kernels[1]["launches_by_path"] = free_by_path["rollout_free"]
-    kernels[2]["launches_by_path"] = free_by_path["rollout_free_i16"]
-    kernels[0]["learner_shape"] = {k: timings["rollout_driven_learner"][k]
-                                   for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+    kernels = []
+    for n in KERNELS:
+        base = n.removesuffix("_static")
+        row = main_rows[base]
+        general = n == base
+        kernels.append({
+            "name": KERNELS[n][0], "route": "cuda", "source": SOURCE, "replaces": KERNELS[n][1],
+            "launches": total[n], "max_abs_err": kerr[n], "ms": row["general_ms"] if general else row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "shape": row["shape"] + (" (general build)" if general else " (static build)"),
+            "launches_by_path": {p: c.get(n, 0) for p, c in by_path.items()}})
+        if base == "rollout_driven":
+            lr = timings["rollout_driven_learner"]
+            kernels[-1]["learner_shape"] = dict({k: lr[k] for k in ("shape", "plain_ms", "bound_ms", "bound_by")},
+                                                ms=lr["general_ms"] if general else lr["ms"])
     report["kernels"] = kernels
     log(json.dumps({"kernels": kernels}))
     return finish(report, args, smi, kind, count)
 
 
 def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, resets=0, job_steps=0,
-                 vdt=None, ends=False):
-    """Mean ms of one launch (CUDA events), each on a freshly restored state
-    buffer, and the launch's bound. ``fr``: the ``fused_rollout`` module
+                 vdt=None, ends=False, general=False):
+    """Mean ms of one launch (CUDA events, the card kept busy while the host
+    issues it: kernel time alone), each on a freshly restored state buffer,
+    the mean host ms of the launch call (``host_ms``), and the launch's
+    bound. ``fr``: the ``fused_rollout`` module
     whose kernels are timed (this checkout's or another's). ``resets`` and
     ``job_steps``: the episodes that end and the jobs allocated in the
     launch (they set the driven kernel's solution writes). ``vdt``: the free
     kernel's storage dtype (int32 by default). ``ends``: the driven kernel
-    also writes its (T, B) episode ends, as the learner's steps do."""
+    also writes its (T, B) episode ends, as the learner's steps do.
+    ``general``: the general build on an unpadded batch (else the build the
+    batch takes)."""
     import torch
 
     vdt = torch.int32 if vdt is None else vdt
@@ -787,23 +954,27 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
     buf = buf0.clone()
     tab, lanec = fr._lane_inputs(state)
     B = state.batch_size
+    force = {"_general": True} if general else {}  # an older checkout's launcher has one build
     if kernel == "rollout_driven":
         rewards = torch.empty((T, B), dtype=torch.int32, device=dev)
         out_ends = torch.empty_like(rewards) if ends else None
         extra = (out_ends,) if ends else ()  # an older checkout's launcher takes no ends
-        go = lambda: fr.launch_driven(state, buf, tab, lanec, actions, rewards, ws, *extra)  # noqa: E731
+        go = lambda: fr.launch_driven(state, buf, tab, lanec, actions, rewards, ws, *extra, **force)  # noqa: E731
     else:
         st = torch.empty((4, B), dtype=torch.int64, device=dev)
         ret = torch.empty((B,), dtype=torch.float32, device=dev)
-        go = lambda: fr.launch_free(state, buf, tab, lanec, bits, SEED, st, ret, T, vdt)  # noqa: E731
+        go = lambda: fr.launch_free(state, buf, tab, lanec, bits, SEED, st, ret, T, vdt, **force)  # noqa: E731
     buf.copy_(buf0)
     go()  # warm-up
-    total = 0.0
+    total = host = 0.0
     for _ in range(repeats):
         buf.copy_(buf0)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
         e0.record()
+        h0 = time.perf_counter()
         go()
+        host += time.perf_counter() - h0
         e1.record()
         torch.cuda.synchronize()
         total += e0.elapsed_time(e1)
@@ -825,7 +996,7 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
         ops_per = 5 * J + 2 * M + (0 if bits is not None else 100)
     nbytes, nops = state_bytes + 4 * words, T * B * ops_per
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
-    return {"ms": total / repeats, "bytes": nbytes, "int_ops": nops,
+    return {"ms": total / repeats, "host_ms": host / repeats * 1e3, "bytes": nbytes, "int_ops": nops,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -836,6 +1007,8 @@ def source(instances, name):
         return instances.get_instance_set([f"ta{i:02d}" for i in range(lo, hi + 1)])
     if name == "rand6x5":
         return instances.random_instance(6, 5, (1, 9), seed=3)
+    if "+" in name:  # a batch of two shapes, padded to the larger
+        return instances.get_instance_set(name.split("+"))
     return instances.get_instance(name)
 
 
@@ -846,7 +1019,10 @@ def time_kernels_of(root: str, out: str) -> int:
     on each FULL config in the config's value dtype and of its driven kernel
     at the main shape (ta01, B=MAIN_B, T=1, the last step of a
     LOOP_STEPS-step policy loop run on the plain path) and at the first
-    driven parity case's (ta01, B=1024, T=512 random-policy steps)."""
+    driven parity case's (ta01, B=1024, T=512 random-policy steps). A
+    checkout with a static build (this one) has each time of its general
+    build under the key an older checkout uses, and of its static build, on
+    an unpadded batch, under that key plus " static"."""
     root_path = Path(root).resolve()
     sys.path.insert(0, str(root_path))
     import torch
@@ -859,16 +1035,26 @@ def time_kernels_of(root: str, out: str) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    two_builds = hasattr(fr, "static_shape")
     t0 = time.perf_counter()
-    fr._lib()
+    if two_builds:
+        fr.build_kernels([None, *STATIC_SHAPES])
+    else:
+        fr._lib()
     res = {"root": str(root_path), "build_s": time.perf_counter() - t0, "ptxas": _build.ptxas_report("rollout")}
+
+    def timed(key, kernel, state, T, **kw):
+        res[key] = launch_timer(fr, dev, kernel, state, T, general=two_builds, **kw)["ms"]
+        if two_builds and fr.static_shape(state) is not None:
+            res[key + " static"] = launch_timer(fr, dev, kernel, state, T, **kw)["ms"]
+
     s = vector.make_batch(instances.get_instance("ta01"), MAIN_B, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     stats = vector.RolloutStats.zero(dev)
     for _ in range(LOOP_STEPS - 1):
         s, _, stats = vector.step_autoreset(s, vector.random_legal_actions(gen, s), stats)
     acts = vector.random_legal_actions(gen, s)[None].contiguous()
-    res["rollout_driven"] = launch_timer(fr, dev, "rollout_driven", s, 1, actions=acts, repeats=20)["ms"]
+    timed("rollout_driven", "rollout_driven", s, 1, actions=acts, repeats=20)
     # the first driven parity case's shape: T=512 steps of a random policy
     name, B, T, _ = DRIVEN_CASES[0]
     s0 = s = vector.make_batch(source(instances, name), B, device=dev)
@@ -876,12 +1062,11 @@ def time_kernels_of(root: str, out: str) -> int:
     for _ in range(T):
         acts.append(vector.random_legal_actions(gen, s))
         s, _, stats = vector.step_autoreset(s, acts[-1], stats)
-    res["rollout_driven_T512"] = launch_timer(fr, dev, "rollout_driven", s0, T, actions=torch.stack(acts).contiguous(),
-                                              repeats=5)["ms"]
+    timed("rollout_driven_T512", "rollout_driven", s0, T, actions=torch.stack(acts).contiguous(), repeats=5)
     for name, B, T in FULL:
         state = vector.make_batch(source(instances, name), B, device=dev)
         vdt = fr.value_dtype(state)
-        res[f"rollout_free {name}"] = launch_timer(fr, dev, "rollout_free", state, T, repeats=2, vdt=vdt)["ms"]
+        timed(f"rollout_free {name}", "rollout_free", state, T, repeats=2, vdt=vdt)
     Path(out).write_text(json.dumps(res))
     return 0
 
@@ -901,10 +1086,10 @@ def turns_against(root: str, smi: str) -> dict:
         turns.append((tag, json.loads(out.read_text())))
         log(f"[7b] turn {i} ({tag}, {r}): " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in turns[-1][1].items() if k.startswith("rollout")))
-    keys = [k for k in turns[0][1] if k.startswith("rollout")]
+    keys = [k for k in turns[1][1] if k.startswith("rollout")]  # the change's; " static": against the parent's one build
     rows = {}
     for k in keys:
-        p = [t[k] for tag, t in turns if tag == "parent"]
+        p = [t[k.removesuffix(" static")] for tag, t in turns if tag == "parent"]
         c = [t[k] for tag, t in turns if tag == "change"]
         rows[k] = {"parent_ms": p, "change_ms": c, "ratio": (sum(c) / 2) / (sum(p) / 2)}
         log(f"[7b] {k}: parent {p[0]:.4f}, {p[1]:.4f} ms; change {c[0]:.4f}, {c[1]:.4f} ms; "
@@ -1111,9 +1296,10 @@ class DrivenRecorder:
         self.fr.rollout_driven = self.orig
 
 
-def serving_phase(report: dict, dev, quick: bool) -> int:
+def serving_phase(report: dict, dev, quick: bool) -> dict:
     """Phase 12: greedy ``evaluate_policy`` of the shipped checkpoints on the
-    card, every env step in the driven kernel; returns its driven launches.
+    card, every env step in the driven kernel; returns its launches by
+    ``LAUNCHES`` key.
     bfloat16 against the JAX package's test bounds, float32 against its
     float32 makespans on the CPU; each greedy episode's reward identity
     checked from the kernel's own rewards and ends."""
@@ -1124,7 +1310,7 @@ def serving_phase(report: dict, dev, quick: bool) -> int:
     from jssenv_tpu_torch.parallel import learner
 
     runs = SERVING_QUICK if quick else SERVING
-    rows, launches = [], 0
+    rows, launches = [], dict.fromkeys(KERNELS, 0)
     for name, spec_name, dtype, lanes, want in runs:
         arch, hidden, features = CHECKPOINT_CONFIG[name]
         cfg = learner.LearnerConfig(arch=arch, hidden=hidden, features=features,
@@ -1139,10 +1325,12 @@ def serving_phase(report: dict, dev, quick: bool) -> int:
             res = learner.evaluate_policy(params, spec, cfg, stochastic_lanes=lanes, max_steps=4096, device=dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        n = fr.LAUNCHES["rollout_driven"]
-        check(n == res["steps"] and n == len(ends) and sum(fr.LAUNCHES.values()) == n,
+        n = driven(fr.LAUNCHES)
+        check(n == res["steps"] and n == len(ends) and fr.LAUNCHES["rollout_driven_static"] == n
+              and sum(fr.LAUNCHES.values()) == n,
               f"serve {name} {spec_name}: {fr.LAUNCHES} launches for {res['steps']} steps")
-        launches += n
+        for k, v in fr.LAUNCHES.items():
+            launches[k] += v
         mk = res["greedy_makespan"]
         raws, ends = torch.stack(raws).cpu(), torch.stack(ends).cpu()
         check(mk > 0 and bool((ends > 0).any()), f"serve {name} {spec_name}: no complete schedule ({mk})")
@@ -1173,8 +1361,8 @@ def training_phase(report: dict, dev, quick: bool, profile: bool):
     net on ta41 with rich features). Every loss finite, every parameter
     moved, ``unroll_steps`` driven launches an update, the reward identity
     on every lane that ends; ms an update, env-steps/s and the
-    rollout/learn split by CUDA events. Returns (driven launches, the
-    learner-shape driven launch recorded for timing)."""
+    rollout/learn split by CUDA events. Returns (launches by ``LAUNCHES``
+    key, the learner-shape driven launch recorded for timing)."""
     import dataclasses
 
     import torch
@@ -1183,7 +1371,7 @@ def training_phase(report: dict, dev, quick: bool, profile: bool):
     from jssenv_tpu_torch.core import fused_rollout as fr
     from jssenv_tpu_torch.parallel import learner
 
-    out, launches = {}, 0
+    out, launches = {}, dict.fromkeys(KERNELS, 0)
     last_call = {}
     runs = TRAIN_QUICK if quick else TRAIN
     for tag, spec_name, B, updates, extra in runs:
@@ -1232,11 +1420,12 @@ def training_phase(report: dict, dev, quick: bool, profile: bool):
                 metrics.append(m)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = fr.LAUNCHES["rollout_driven"]
-        check(n == updates * T and sum(fr.LAUNCHES.values()) == n,
+        n = driven(fr.LAUNCHES)
+        check(n == updates * T and fr.LAUNCHES["rollout_driven_static"] == n and sum(fr.LAUNCHES.values()) == n,
               f"train {tag}: {fr.LAUNCHES} launches for {updates} updates of {T} steps")
         check(calls[0] == n, f"train {tag}: the recorder saw {calls[0]} of {n} driven launches")
-        launches += n
+        for k, v in fr.LAUNCHES.items():
+            launches[k] += v
         losses = [float(m["loss"]) for m in metrics]
         check(all(map(lambda x: x == x and abs(x) != float("inf"), losses)), f"train {tag}: losses {losses}")
         moved = {k: float((v - p0[k]).abs().max()) for k, v in ts.model.state_dict().items()}
@@ -1464,9 +1653,10 @@ def parallel_phase(report: dict, dev, quick: bool):
     fr.reset_launch_counts()
     nccl = learner_run(dev, cfg, B, updates, mesh, snaps=(ru, updates))
     launches = dict(fr.LAUNCHES)
-    check(launches == {"rollout_driven": updates * T, "rollout_free": 0, "rollout_free_i16": 0},
+    check(launches == dict.fromkeys(KERNELS, 0) | {"rollout_driven_static": updates * T},
           f"1-rank NCCL learner launches {launches}")
-    path["rollout_driven"] += launches["rollout_driven"]
+    for k, v in launches.items():
+        path[k] += v
     check(torch.equal(nccl["actions"], plain["actions"]), "1-rank NCCL: actions differ from the plain step's")
     loss_rel = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(nccl["losses"], plain["losses"]))
     p_rel = params_err(nccl["params"][updates], plain["params"][updates])
@@ -1582,9 +1772,10 @@ def parallel_phase(report: dict, dev, quick: bool):
     out["ranks"] = rows
     for r in ranks:
         lr = json.loads(str(r["learner_launches"]))
-        check(lr["rollout_driven"] == ru * T * len(RANK_MESHES) * len(RANK_DTYPES),
-              f"rank worker learner launches {lr}")
-        path["rollout_driven"] += lr["rollout_driven"]
+        n = ru * T * len(RANK_MESHES) * len(RANK_DTYPES)
+        check(lr["rollout_driven_static"] == n and sum(lr.values()) == n, f"rank worker learner launches {lr}")
+        for k, v in lr.items():
+            path[k] += v
 
     name, Bf, Tf = P["free"]
     full = vector.make_batch(source(instances, name), Bf, device=dev)
@@ -1592,7 +1783,7 @@ def parallel_phase(report: dict, dev, quick: bool):
     rel = 0.0
     for r in ranks:
         fl = json.loads(str(r["free_launches"]))
-        key = "rollout_free" if fr.value_dtype(full) == torch.int32 else "rollout_free_i16"
+        key = free_key(fr.value_dtype(full), fr.static_shape(full) is not None)
         check(fl[key] == 1 and sum(fl.values()) == 1, f"sharded free rollout launches {fl}")
         path[key] += 1
         for k in ("episodes", "total_makespan", "min_makespan", "identity_violations", "steps"):
@@ -1616,14 +1807,16 @@ def parallel_phase(report: dict, dev, quick: bool):
         shard = vector.make_lanes(src, torch.arange(Bo // 2, Bo), dev)
         check(vdt == torch.int32 or fr.value_dtype(shard) == torch.int16, f"{name} does not fit int16")
         k = fr._free_kernel(shard, To, SEED, None, vdt, lane_offset=Bo // 2)
+        g = fr._free_kernel(shard, To, SEED, None, vdt, lane_offset=Bo // 2, general=True)
         w = fr._free_kernel(whole, To, SEED, None, vdt)
         t = fr.free_lane_stats_reference(shard, To, SEED, lane_offset=Bo // 2)
         for key_ in ("episodes", "mk_sum", "mk_min", "viol"):
             check(torch.equal(k[key_], t[key_]) and torch.equal(k[key_], w[key_][Bo // 2:]),
                   f"offset kernel {name} {vdt}: {key_} differs")
         check(torch.equal(k["ret"], w["ret"][Bo // 2:]), f"offset kernel {name} {vdt}: returns differ from the whole run's")
+        check(all(torch.equal(k[f], g[f]) for f in k), f"offset kernel {name} {vdt}: the static and general builds differ")
         ret_err = float((k["ret"] - t["ret"]).abs().max())
-        kk = "rollout_free" if vdt == torch.int32 else "rollout_free_i16"
+        kk = free_key(vdt, fr.static_shape(shard) is not None)
         errs[kk] = max(errs[kk], ret_err)
         out["offset"][f"{name} {vdt}"] = {"B": Bo, "T": To, "episodes": int(k["episodes"].sum()),
                                           "ret_max_abs_err": ret_err}
@@ -1635,7 +1828,7 @@ def parallel_phase(report: dict, dev, quick: bool):
     return path, errs
 
 
-def distill_phase(report: dict, dev, quick: bool) -> int:
+def distill_phase(report: dict, dev, quick: bool) -> dict:
     """Phase 15: tools/distill_30x20.py's configuration (perjob 128x128,
     rich, B=1024, unroll 640, loss_chunks 8): the four ta41 teachers
     collected on the card (each to its recorded makespan, together equal to
@@ -1695,9 +1888,10 @@ def distill_phase(report: dict, dev, quick: bool) -> int:
     torch.cuda.synchronize()
     ft_s = (time.perf_counter() - t0) / D["finetune"]
     fin = learner.evaluate_policy(ts.model.state_dict(), spec, cfg, max_steps=4096, device=dev)
-    n = fr.LAUNCHES["rollout_driven"]
+    n = driven(fr.LAUNCHES)
     check(n == D["finetune"] * cfg.unroll_steps + pre["steps"] + fin["steps"] and sum(fr.LAUNCHES.values()) == n,
           f"distillation launches {fr.LAUNCHES}")
+    counts = dict(fr.LAUNCHES)
     check(all(map(lambda h: h["loss"] == h["loss"], hist)) and pre["greedy_makespan"] > 0 and fin["greedy_makespan"] > 0,
           f"fine-tune {hist}, greedy {pre} {fin}")
     out.update(pairs=len(merged["action"]), obs_max_err=obs_err, ce=ce, epoch_s=epoch_s,
@@ -1708,7 +1902,7 @@ def distill_phase(report: dict, dev, quick: bool) -> int:
         f"{[f'{e:.3f}' for e in epoch_s]} s an epoch; greedy ta41 {pre['greedy_makespan']}; "
         f"{D['finetune']} fine-tune updates at B={D['lanes']} unroll {cfg.unroll_steps}, {ft_s:.2f} s an update; "
         f"greedy ta41 after them {fin['greedy_makespan']}; {n} driven launches")
-    return n
+    return counts
 
 
 def resume_phase(report: dict, dev, final: dict) -> None:
@@ -1910,7 +2104,25 @@ TOOL_RUNS = {
                 ["tools/distill_30x20_torch.py", "collect", "--instances", "ta41"]),
     "eval": (["tools/distill_30x20_torch.py", "eval", "models_data/ta41_distill.npz", "--instances", "ta41",
               "--dtype", "float32"],) * 2,
+    # the JAX tool's defaults (256 lanes a card, 128 steps); one card here
+    "scaling": (["tools/bench_scaling_torch.py", "256", "128"], ["tools/bench_scaling_torch.py", "64", "16"]),
+    # one instance without an entry (ta12, 20x15), the budget cut from
+    # batch 2048, 6 sweeps and 4000 refine iterations
+    "golden": (["tools/gen_golden_torch.py", "ta12", "--batch", "1024", "--sweeps", "2", "--refine", "200"],
+               ["tools/gen_golden_torch.py", "ta12", "--batch", "64", "--sweeps", "1", "--refine", "16"]),
 }
+SCALING_WARMUP = 8  # the scaling tool's warm-up steps (WARMUP_STEPS there)
+# runs tools/gen_golden_torch.py with its module-level DATA pointed at the
+# file named by the first argument
+GEN_GOLDEN = """
+import importlib.util, sys
+out, sys.argv = sys.argv[1], sys.argv[2:]
+spec = importlib.util.spec_from_file_location("gen_golden_torch", sys.argv[0])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+mod.DATA = out
+sys.exit(mod.main(sys.argv[1:]))
+"""
 BENCH_CONFIGS = ("ta01", "ta41-ta50", "ta71")  # the bench's records, in order
 # runs a tool as __main__ with jssenv_tpu_torch.solve.solve recorded: each
 # result's instance, makespan and machine order go to the JSON file named by
@@ -1956,7 +2168,7 @@ def tool_launches(stderr: str) -> dict:
 
 
 def tools_phase(report: dict, dev, quick: bool, smi: str) -> dict:
-    """Phase 18: the three entry points of the repo ported in
+    """Phase 18: the five entry points of the repo ported in
     ``tools/*_torch.py``, each run as a process on the card (module
     docstring). Returns their kernel launches by ``LAUNCHES`` key."""
     import numpy as np
@@ -1981,7 +2193,7 @@ def tools_phase(report: dict, dev, quick: bool, smi: str) -> dict:
     name, _, limit = smi.rpartition(",")
     for cfg, r in zip(names, records):
         n = 1 + len(r["runs"])  # the warm-up and the repeats
-        key = "rollout_free_i16" if FULL_DTYPE[cfg] == "int16" else "rollout_free"
+        key = free_key(FULL_DTYPE[cfg], True)  # every configuration of the bench is unpadded
         check(r["engine"] == "cuda" and r["backend"] == "cuda" and r["value_dtype"] == FULL_DTYPE[cfg],
               f"bench {cfg}: engine {r['engine']}, backend {r['backend']}, dtype {r['value_dtype']}")
         check(r["launches"] == {k: (n if k == key else 0) for k in KERNELS}, f"bench {cfg}: launches {r['launches']}")
@@ -2057,11 +2269,59 @@ def tools_phase(report: dict, dev, quick: bool, smi: str) -> dict:
     stdout, stderr, secs = run_tool(TOOL_RUNS["eval"][pick])
     check(stdout.splitlines() == ["ta41: greedy 2658"], f"eval ta41_distill float32: {stdout!r}")
     ev = tool_launches(stderr)
-    check(ev["rollout_driven"] > 0 and ev["rollout_driven"] == sum(ev.values()), f"eval launches {ev}")
-    launches["rollout_driven"] += ev["rollout_driven"]
+    check(ev["rollout_driven_static"] > 0 and ev["rollout_driven_static"] == sum(ev.values()), f"eval launches {ev}")
+    launches["rollout_driven_static"] += ev["rollout_driven_static"]
     out["eval"] = {"greedy_makespan": 2658, "launches": ev, "process_s": secs}
-    log(f"[18] eval ta41_distill float32: greedy 2658 (= the JAX package's), {ev['rollout_driven']} driven "
+    log(f"[18] eval ta41_distill float32: greedy 2658 (= the JAX package's), {ev['rollout_driven_static']} driven "
         f"launches; the process took {secs:.1f} s")
+
+    # (e) the weak-scaling tool: a row for each card count up to the cards
+    # there are (one card: the 1-rank NCCL row), each env step one driven
+    # launch a rank
+    argv = TOOL_RUNS["scaling"][pick]
+    stdout, stderr, secs = run_tool(argv)
+    lines = stdout.splitlines()
+    check(len(lines) == 1, f"the scaling tool printed {len(lines)} stdout lines")
+    rec = json.loads(lines[0])
+    lanes, steps = (int(x) for x in argv[1:3])
+    rows = rec["weak_scaling"]
+    check([r["devices"] for r in rows] == [n for n in (1, 2, 4, 8) if n <= torch.cuda.device_count()]
+          and all(r["batch"] == lanes * r["devices"] and r["steps_per_s"] > 0
+                  and set(r) == {"devices", "batch", "steps_per_s", "step_us", "episodes"} for r in rows),
+          f"scaling rows {rows}")
+    check((rec["gpu"], rec["power_limit"]) == (name.strip(), limit.strip()), f"scaling: card {rec['gpu']}")
+    sc = tool_launches(stderr)
+    n = sum(r["devices"] for r in rows) * (SCALING_WARMUP + 3 * steps)
+    check(sc["rollout_driven_static"] == n and sum(sc.values()) == n, f"scaling launches {sc}, expected {n}")
+    launches["rollout_driven_static"] += n
+    out["scaling"] = dict(rec, process_s=secs, launches=sc)
+    log(f"[18] bench_scaling_torch, one card: {rows[0]['steps_per_s']} env-steps/s at {lanes} lanes, "
+        f"{rows[0]['step_us']} us a vectorized step, {rows[0]['episodes']} episodes, {n} driven launches "
+        f"({rec['gpu']}, {rec['power_limit']}); the process took {secs:.1f} s")
+
+    # (f) the golden-file tool on one instance without an entry, into a copy
+    # of the golden file: its entry replayed to its makespan on the card and
+    # the native engine; every other entry and the repo's file untouched
+    data = TOOLS_DIR / "golden_solutions.json"
+    before = GOLDEN.read_text()
+    data.write_text(before)
+    argv = TOOL_RUNS["golden"][pick]
+    stdout, stderr, secs = run_tool(["-c", GEN_GOLDEN, str(data), *argv])
+    inst_name = argv[1]
+    check(GOLDEN.read_text() == before, "the repo's golden file changed")
+    after = json.loads(data.read_text())
+    entry = after.pop(inst_name)
+    check(json.dumps(after, indent=1, sort_keys=True) == before, "gen_golden changed another entry")
+    spec = instances.get_instance(inst_name)
+    mk_card, _ = replay.replay_machine_order(spec, entry["machine_order"], device=dev)
+    mk_native, _ = replay.replay_machine_order(spec, entry["machine_order"], backend="native")
+    check(entry["makespan"] == mk_card == mk_native and spec.lower_bound() <= mk_card,
+          f"gen_golden {inst_name}: entry {entry['makespan']}, replayed {mk_card} (card), {mk_native} (native)")
+    out["golden"] = {"instance": inst_name, "makespan": entry["makespan"], "source": entry["source"],
+                     "lower_bound": spec.lower_bound(), "stdout": stdout.strip(), "process_s": secs}
+    log(f"[18] gen_golden_torch {inst_name}: certified makespan {entry['makespan']} (lower bound "
+        f"{spec.lower_bound()}), replayed to it on the card and on the native engine; the repo's golden file "
+        f"unchanged; the process took {secs:.1f} s")
     out["launches"] = launches
     report["tools"] = out
     return launches

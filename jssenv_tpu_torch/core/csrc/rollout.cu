@@ -51,6 +51,19 @@
 // the kernels are held to 48 registers a thread (JSS_MIN_BLOCKS, 40 warps an
 // SM), which shared memory allows (a lane's state and scratch: 0.5 KB at
 // ta01 in int16, 4.4 KB at ta71).
+//
+// Two builds of this one source, as the JAX package compiles each kernel in
+// two variants (pallas_rollout.py _static_lane, :1018, passed as static_lane
+// to _driven_kernel / _free_kernel). The general build reads the padded
+// shape (J, M) from the launch and each lane's own (nj, nm) from its lane
+// constants, so padded and mixed-shape batches run. The static build
+// (-DJSS_STATIC_J=J -DJSS_STATIC_M=M, core/_build.py) serves a batch whose
+// every lane is unpadded (nj == J, nm == M): J, M, nj, nm, every row offset,
+// the strides and the slot counts ceil(J/32) and ceil(M/32) are compile-time
+// constants, the bound compares fold away and the reset is the counterpart of
+// _fresh_static (:503). The lanes' max_time_op and sum_op stay per-lane reads:
+// a same-shape batch may hold several instances. Both builds share every line
+// of the step math below; only the Bounds of a Group differ.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,9 +72,25 @@
 #define JSS_I32_MAX 2147483647
 #define JSS_WARP 32
 #define JSS_FULL 0xffffffffu
-#define JSS_MACHINE_SLOTS 2  // machines per thread: M <= 64
+#define JSS_MACHINE_SLOTS 2  // machines per thread in the general build: M <= 64
 #define JSS_MAX_THREADS 256  // a block's threads (fused_rollout._BLOCK_THREADS)
 #define JSS_MIN_BLOCKS 5     // blocks an SM (40 warps): at most 48 registers a thread
+
+// The static build's shape; 0 (the general build) reads the shape at run time.
+#ifndef JSS_STATIC_J
+#define JSS_STATIC_J 0
+#endif
+#ifndef JSS_STATIC_M
+#define JSS_STATIC_M 0
+#endif
+static_assert((JSS_STATIC_J > 0) == (JSS_STATIC_M > 0), "a static build fixes both J and M");
+static_assert(JSS_STATIC_J >= 0 && JSS_STATIC_M >= 0 && JSS_STATIC_M <= JSS_MAX_M, "bad static shape");
+
+// Each job j of this thread (j = r, r + 32, ... < J), slot by slot; a static
+// build's ceil(J/32) slots unroll. `continue` goes on to the next job.
+#define JSS_FOR_JOBS(g, j)                                                               \
+  _Pragma("unroll") for (int jss_slot_ = 0, j = (g).r; jss_slot_ < (g).job_slots();      \
+                         ++jss_slot_, j += JSS_WARP) if (j < (g).J)
 
 namespace {
 
@@ -73,11 +102,52 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
 // not read: check_no_op walks a job's ops in order instead.
 enum { T_OM = 0, T_OD = 1, T_CB = 3 };
 
+// The padded shape: compile-time constants in a static build (SJ, SM > 0),
+// launch arguments in the general build (Dims<0, 0>).
+template <int SJ, int SM>
+struct Dims {
+  static constexpr int J = SJ, M = SM;
+  __device__ Dims(int, int) {}
+};
+template <>
+struct Dims<0, 0> {
+  int J, M;
+  __device__ Dims(int J_, int M_) : J(J_), M(M_) {}
+};
+
+// The bounds the step math compares against: the shape and the lane's own
+// instance shape (nj, nm). A static build's lanes are unpadded: nj == J and
+// nm == M, and every compare with them folds (the general build reads them
+// per lane).
+template <int SJ, int SM>
+struct Bounds : Dims<SJ, SM> {
+  static constexpr int jm = SJ * SM, nj = SJ, nm = SM;
+  __device__ Bounds(int J_, int M_) : Dims<SJ, SM>(J_, M_) {}
+};
+template <>
+struct Bounds<0, 0> : Dims<0, 0> {
+  int jm, nj = 0, nm = 0;
+  __device__ Bounds(int J_, int M_) : Dims<0, 0>(J_, M_), jm(J_ * M_) {}
+};
+
+// A static build's lane strides, as fused_rollout.launch_geometry computes
+// them: state rows in V's, padded to 1 word modulo 32; scratch 2M words so
+// padded. The launch refuses a wrapper whose strides differ.
+__host__ __device__ constexpr int bank_pad(int words) { return words + ((1 - words) % 32 + 32) % 32; }
+template <typename V, int SJ, int SM>
+struct StaticStrides {
+  static constexpr int rows = 4 + 10 * SJ + 2 * SM;
+  static constexpr int state = bank_pad((rows * (int)sizeof(V) + 3) / 4) * 4 / (int)sizeof(V);
+  static constexpr int scratch = bank_pad(2 * SM);
+};
+
 // Row offsets of the fields in the (R, B) state buffer; the same order as
 // jssenv_tpu_torch.core.fused_rollout._ROWS.
-struct Layout {
-  int J, M;
-  __device__ Layout(int J_, int M_) : J(J_), M(M_) {}
+template <int SJ, int SM>
+struct Layout : Dims<SJ, SM> {
+  using Dims<SJ, SM>::J;
+  using Dims<SJ, SM>::M;
+  __device__ Layout(int J_, int M_) : Dims<SJ, SM>(J_, M_) {}
   __device__ int time() const { return 0; }
   __device__ int noop_legal() const { return 1; }
   __device__ int nb_legal() const { return 2; }
@@ -102,19 +172,31 @@ struct Layout {
 // as a V and promoted to int by every expression that uses it, and an int is
 // narrowed only where it is stored back: all arithmetic stays in 32-bit
 // registers, so no intermediate can wrap. Tables and lane constants are int32.
-template <typename V>
-struct Group {
+// SJ, SM: the static build's shape, 0 in the general build (Bounds: J, M, jm
+// = J * M, nj, nm).
+template <typename V, int SJ, int SM>
+struct Group : Bounds<SJ, SM> {
+  using Bounds<SJ, SM>::J;
+  using Bounds<SJ, SM>::M;
+  using Bounds<SJ, SM>::jm;
+  using Bounds<SJ, SM>::nj;
+  using Bounds<SJ, SM>::nm;
+  static constexpr bool kStatic = SJ > 0;
+  // machine slots a thread: ceil(M/32) in a static build (1 for M <= 32)
+  static constexpr int kMachineSlots = kStatic ? (SM + JSS_WARP - 1) / JSS_WARP : JSS_MACHINE_SLOTS;
+
   V* s;            // the lane's state rows in shared memory: row x at s[x]
   int* scr;        // 2M int32 words of shared scratch (segment min, first job;
                    // per-machine horizon)
   int* sol;        // solution rows in device memory (x at sol[x * B]) or null
   size_t B;
-  Layout L;
+  Layout<SJ, SM> L;
   const int* tabs; // (4, J, M) tables of this lane's instance (T_OM, ...)
-  int jm;          // J * M
-  int J, M, nj, nm, mo;
+  int mo;          // the lane's max_time_op
   int r;           // this thread's rank in the warp
 
+  __device__ Group(int J_, int M_) : Bounds<SJ, SM>(J_, M_), L(J_, M_) {}
+  __device__ int job_slots() const { return (J + JSS_WARP - 1) / JSS_WARP; }
   __device__ V& at(int row) { return s[row]; }
   __device__ V& row(int base, int x) { return s[base + x]; }
   __device__ int tab(int which, int j, int x) const {
@@ -140,7 +222,7 @@ __device__ int fast_forward(Grp& g) {
   int busy_min = JSS_I32_MAX, busy_max = -JSS_I32_MAX - 1;
   int ml_entry = 0;  // bit k: machine_legal of machine slot k on entry
 #pragma unroll
-  for (int k = 0; k < JSS_MACHINE_SLOTS; ++k) {
+  for (int k = 0; k < Grp::kMachineSlots; ++k) {
     const int m = g.machine(k);
     if (m >= M) continue;
     const int v = g.row(mbf, m);
@@ -173,7 +255,7 @@ __device__ int fast_forward(Grp& g) {
   };
 
   int t_stop = last_ev;
-  for (int j = g.r; j < g.J; j += JSS_WARP) {
+  JSS_FOR_JOBS(g, j) {
     int m_next, f_next, mj;
     bool cont;
     t_stop = min(t_stop, e_of(j, m_next, f_next, mj, cont));
@@ -185,7 +267,7 @@ __device__ int fast_forward(Grp& g) {
   // per-job update over [t0, T_stop]: no job reads another job's fields, and
   // the machine timers stay at their entry values until every e_j is read
   int d_legal = 0;
-  for (int j = g.r; j < g.J; j += JSS_WARP) {
+  JSS_FOR_JOBS(g, j) {
     int m_next, f_next, mj;
     bool cont;
     const int e = e_of(j, m_next, f_next, mj, cont);
@@ -223,7 +305,7 @@ __device__ int fast_forward(Grp& g) {
 
   int holes = 0, new_ml = 0;
 #pragma unroll
-  for (int k = 0; k < JSS_MACHINE_SLOTS; ++k) {
+  for (int k = 0; k < Grp::kMachineSlots; ++k) {
     const int m = g.machine(k);
     if (m >= M) continue;
     const int v = g.row(mbf, m);
@@ -250,7 +332,7 @@ __device__ void prioritization(Grp& g) {
   const int M = g.M, nm = g.nm;
   // only a legal job at its final op, on a legal machine, can be masked
   bool final_op = false;
-  for (int j = g.r; j < g.J; j += JSS_WARP) {
+  JSS_FOR_JOBS(g, j) {
     const int needed = g.row(g.L.needed(), j);
     final_op |= g.row(g.L.legal(), j) && needed >= 0 &&
                 g.row(g.L.ml(), clampi(needed, 0, M - 1)) && g.row(g.L.next_op(), j) == nm - 1;
@@ -258,10 +340,10 @@ __device__ void prioritization(Grp& g) {
   if (!g.any(final_op)) return;
   int* min_nf = g.scr;
 #pragma unroll
-  for (int k = 0; k < JSS_MACHINE_SLOTS; ++k)
+  for (int k = 0; k < Grp::kMachineSlots; ++k)
     if (g.machine(k) < M) min_nf[g.machine(k)] = JSS_I32_MAX;
   g.sync();
-  for (int j = g.r; j < g.J; j += JSS_WARP) {
+  JSS_FOR_JOBS(g, j) {
     const int needed = g.row(g.L.needed(), j);
     if (!g.row(g.L.legal(), j) || needed < 0) continue;
     const int m_of = clampi(needed, 0, M - 1);
@@ -274,7 +356,7 @@ __device__ void prioritization(Grp& g) {
   }
   g.sync();
   int kills = 0;
-  for (int j = g.r; j < g.J; j += JSS_WARP) {
+  JSS_FOR_JOBS(g, j) {
     const int needed = g.row(g.L.needed(), j);
     if (!g.row(g.L.legal(), j) || needed < 0) continue;
     const int m_of = clampi(needed, 0, M - 1);
@@ -296,7 +378,7 @@ __device__ int no_op_legal(Grp& g) {
   const int M = g.M, nm = g.nm, mbf = g.L.mbf();
   int busy_min = JSS_I32_MAX;
 #pragma unroll
-  for (int k = 0; k < JSS_MACHINE_SLOTS; ++k) {
+  for (int k = 0; k < Grp::kMachineSlots; ++k) {
     const int m = g.machine(k);
     if (m >= M) continue;
     const int v = g.row(mbf, m);
@@ -314,13 +396,13 @@ __device__ int no_op_legal(Grp& g) {
   int* first = g.scr;
   int* mh_min = g.scr + M;
 #pragma unroll
-  for (int k = 0; k < JSS_MACHINE_SLOTS; ++k) {
+  for (int k = 0; k < Grp::kMachineSlots; ++k) {
     const int m = g.machine(k);
     if (m < M) first[m] = mh_min[m] = JSS_I32_MAX;
   }
   g.sync();
   bool early = false;  // a legal job ends before the next event
-  for (int j = g.r; j < g.J; j += JSS_WARP) {
+  JSS_FOR_JOBS(g, j) {
     if (!g.row(g.L.legal(), j)) continue;
     const int m1 = clampi(g.row(g.L.needed(), j), 0, M - 1);
     const int end = t + g.tab(T_OD, j, clampi(g.row(g.L.next_op(), j), 0, M - 1));
@@ -331,9 +413,9 @@ __device__ int no_op_legal(Grp& g) {
   if (g.any(early)) return 0;
   g.sync();
   int max_h = t;
-  int mh[JSS_MACHINE_SLOTS];
+  int mh[Grp::kMachineSlots];
 #pragma unroll
-  for (int k = 0; k < JSS_MACHINE_SLOTS; ++k) {
+  for (int k = 0; k < Grp::kMachineSlots; ++k) {
     const int m = g.machine(k);
     mh[k] = 0;
     if (m >= M) continue;
@@ -355,7 +437,8 @@ __device__ int no_op_legal(Grp& g) {
   // each of its machines once). tn = base + cum_before grows along the walk,
   // so it stops at the first op that does not start before max_h.
   int* tn_min = first;
-  for (int j = g.r; j < min(g.nj, g.J); j += JSS_WARP) {
+  JSS_FOR_JOBS(g, j) {
+    if (j >= g.nj) break;  // padded jobs (never in a static build)
     if (g.row(g.L.legal(), j)) continue;
     const int jbf = g.row(g.L.jbf(), j);
     const int nxo = g.row(g.L.next_op(), j);
@@ -375,7 +458,7 @@ __device__ int no_op_legal(Grp& g) {
   g.sync();
   bool blocked = false;
 #pragma unroll
-  for (int k = 0; k < JSS_MACHINE_SLOTS; ++k) {
+  for (int k = 0; k < Grp::kMachineSlots; ++k) {
     const int m = g.machine(k);
     if (m < M && g.row(g.L.ml(), m) && !(tn_min[m] < mh[k])) blocked = true;
   }
@@ -406,7 +489,7 @@ __device__ int step(Grp& g, int action) {
     const int dur = g.tab(T_OD, a, op);
     raw = dur;
     int kills = 0;
-    for (int j = g.r; j < J; j += JSS_WARP) {
+    JSS_FOR_JOBS(g, j) {
       const int nd = g.row(g.L.needed(), j);
       if (g.row(g.L.legal(), j) && nd == needed_a) {
         g.row(g.L.legal(), j) = 0;
@@ -430,7 +513,7 @@ __device__ int step(Grp& g, int action) {
     }
   } else {
     // no-op: pin every legal job; its machine loses legality
-    for (int j = g.r; j < J; j += JSS_WARP) {
+    JSS_FOR_JOBS(g, j) {
       if (!g.row(g.L.legal(), j)) continue;
       g.row(g.L.noop_pin(), j) = 1;
       g.row(g.L.ml(), clampi(g.row(g.L.needed(), j), 0, M - 1)) = 0;
@@ -449,18 +532,19 @@ __device__ int step(Grp& g, int action) {
 }
 
 // engine._fresh_state for one lane: padded job rows start finished, padded
-// machines are never legal.
+// machines are never legal. In a static build every job is valid and the
+// compares fold: the counterpart of pallas_rollout._fresh_static.
 template <class Grp>
 __device__ void fresh(Grp& g) {
   const int J = g.J, M = g.M;
 #pragma unroll
-  for (int k = 0; k < JSS_MACHINE_SLOTS; ++k) {
+  for (int k = 0; k < Grp::kMachineSlots; ++k) {
     const int m = g.machine(k);
     if (m >= M) continue;
     g.row(g.L.ml(), m) = 0;
     g.row(g.L.mbf(), m) = 0;
   }
-  for (int j = g.r; j < J; j += JSS_WARP) {
+  JSS_FOR_JOBS(g, j) {
     const bool valid = j < g.nj;
     g.row(g.L.legal(), j) = valid;
     g.row(g.L.jbf(), j) = 0;
@@ -476,12 +560,14 @@ __device__ void fresh(Grp& g) {
   if (g.sol)
     for (int x = g.r; x < J * M; x += JSS_WARP) g.sol[(size_t)x * g.B] = -1;
   g.sync();
-  for (int j = g.r; j < g.nj && j < J; j += JSS_WARP)
+  JSS_FOR_JOBS(g, j) {
+    if (j >= g.nj) break;
     g.row(g.L.ml(), clampi(g.tab(T_OM, j, 0), 0, M - 1)) = 1;
+  }
   g.sync();
   int nb_ml = 0;
 #pragma unroll
-  for (int k = 0; k < JSS_MACHINE_SLOTS; ++k)
+  for (int k = 0; k < Grp::kMachineSlots; ++k)
     if (g.machine(k) < M && g.row(g.L.ml(), g.machine(k))) ++nb_ml;
   nb_ml = g.sum(nb_ml);
   if (g.leader()) {
@@ -503,6 +589,7 @@ __device__ int sample(Grp& g, uint32_t w) {
   const int k = (int)(w >> 1) % max(n, 1);
   if (k >= nb) return g.nj;
   int left = k;
+#pragma unroll
   for (int j0 = 0; j0 < g.J; j0 += JSS_WARP) {
     const bool lg = j0 + g.r < g.J && g.row(g.L.legal(), j0 + g.r);
     const unsigned bal = g.ballot(lg);
@@ -537,17 +624,34 @@ __device__ Place place() {
   return p;
 }
 
-template <typename V>
-__device__ Group<V> make_group(const Place& p, unsigned char* smem, int* sol, const int* tab,
-                               const int* lanec, int B, int J, int M, int stride, int scr_stride) {
-  Group<V> g{nullptr, nullptr, sol, (size_t)B, Layout(J, M), nullptr, J * M, J, M, 0, 0, 0, p.r};
+template <typename V, int SJ, int SM>
+__device__ Group<V, SJ, SM> make_group(const Place& p, unsigned char* smem, int* sol, const int* tab,
+                                       const int* lanec, int B, int J, int M, int stride,
+                                       int scr_stride) {
+  Group<V, SJ, SM> g(J, M);
+  g.sol = sol;
+  g.B = (size_t)B;
+  g.r = p.r;
   g.s = (V*)smem + (size_t)p.grp * stride;
   g.scr = (int*)(smem + (size_t)p.lanes * stride * sizeof(V)) + (size_t)p.grp * scr_stride;
-  g.tabs = tab + (size_t)lanec[C_INST * B + p.b] * 4 * J * M;
-  g.nj = lanec[C_NJ * B + p.b];
-  g.nm = lanec[C_NM * B + p.b];
+  g.tabs = tab + (size_t)lanec[C_INST * B + p.b] * 4 * g.jm;
+  if constexpr (!Group<V, SJ, SM>::kStatic) {
+    g.nj = lanec[C_NJ * B + p.b];
+    g.nm = lanec[C_NM * B + p.b];
+  }
   g.mo = lanec[C_MO * B + p.b];
   return g;
+}
+
+// A launch's lane strides (state in V's, scratch in int32 words): a static
+// build's are its compile-time ones, which the launch checked against the
+// wrapper's.
+template <typename V, int SJ, int SM>
+__device__ __forceinline__ void lane_strides(int& stride, int& scr_stride) {
+  if constexpr (SJ > 0) {
+    stride = StaticStrides<V, SJ, SM>::state;
+    scr_stride = StaticStrides<V, SJ, SM>::scratch;
+  }
 }
 
 // (R, B) device rows of the block's lanes <-> lane-major shared slices;
@@ -594,18 +698,21 @@ enum { S_EPISODES = 0, S_MK_SUM, S_MK_MIN, S_VIOL };
 // The per-step inputs (actions, random words) come 32 steps at a time: rank
 // r loads or draws step t + r, and step t takes rank t % 32's by a shuffle.
 // `ends` (T, B), where not null: the makespan of the episode a lane finished
-// at step t (its time, read before fresh() clears it), else 0.
+// at step t (its time, read before fresh() clears it), else 0. SJ, SM: the
+// static build's shape (0: the general build).
+template <int SJ, int SM>
 __global__ void __launch_bounds__(JSS_MAX_THREADS, JSS_MIN_BLOCKS) rollout_driven_kernel(
     int* state, const int* tab, const int* lanec, const int* actions, int* rewards, int* ends,
     int B, int J, int M, int T, int with_solution, int stride, int scr_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Place p = place();
-  const int R = Layout(J, M).light_rows();
+  lane_strides<int, SJ, SM>(stride, scr_stride);
+  const int R = Layout<SJ, SM>(J, M).light_rows();
   load_lanes((int*)smem, state, R, B, p, stride);
   __syncthreads();
   if (p.b < B) {
     int* sol = with_solution ? state + (size_t)R * B + p.b : nullptr;
-    Group<int> g = make_group<int>(p, smem, sol, tab, lanec, B, J, M, stride, scr_stride);
+    Group<int, SJ, SM> g = make_group<int, SJ, SM>(p, smem, sol, tab, lanec, B, J, M, stride, scr_stride);
     int a_mine = 0;
     for (int t = 0; t < T; ++t) {
       const int q = t & (JSS_WARP - 1);
@@ -628,19 +735,21 @@ __global__ void __launch_bounds__(JSS_MAX_THREADS, JSS_MIN_BLOCKS) rollout_drive
 // wrapper only when every stored value fits). The state is read, not written.
 // `lane_offset`: this batch's first lane in a larger batch split over ranks; the
 // Philox counter takes the global lane, so a shard draws the words that its
-// lanes draw in the whole batch (0 for an unsplit batch).
-template <typename V>
+// lanes draw in the whole batch (0 for an unsplit batch). The lane's sum_op
+// (`so`) and max_time_op are read per lane in both builds.
+template <typename V, int SJ, int SM>
 __global__ void __launch_bounds__(JSS_MAX_THREADS, JSS_MIN_BLOCKS) rollout_free_kernel(
     const V* state, const int* tab, const int* lanec, const uint32_t* bits,
     unsigned long long seed, long long* stats, float* ret_out, int B, int J, int M, int T,
     int lane_offset, int stride, int scr_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Place p = place();
+  lane_strides<V, SJ, SM>(stride, scr_stride);
   // the stats never read the schedule: the state is light (no solution rows)
-  load_lanes((V*)smem, state, Layout(J, M).light_rows(), B, p, stride);
+  load_lanes((V*)smem, state, Layout<SJ, SM>(J, M).light_rows(), B, p, stride);
   __syncthreads();
   if (p.b >= B) return;
-  Group<V> g = make_group<V>(p, smem, nullptr, tab, lanec, B, J, M, stride, scr_stride);
+  Group<V, SJ, SM> g = make_group<V, SJ, SM>(p, smem, nullptr, tab, lanec, B, J, M, stride, scr_stride);
   const int so = lanec[C_SO * B + p.b];
   const float mo_f = (float)g.mo;
   long long mk_sum = 0;
@@ -678,14 +787,18 @@ __global__ void __launch_bounds__(JSS_MAX_THREADS, JSS_MIN_BLOCKS) rollout_free_
 
 // The geometry comes from fused_rollout.launch_geometry: the lanes of a block
 // (a warp each), the state and scratch strides of a lane, the dynamic shared
-// bytes. Returns 0 or the CUDA error of the refused launch.
-template <typename K>
-static int launch_check(K kernel, int J, int M, int lanes, int stride, int scr_stride, int smem,
-                        int item) {
-  const int R = 4 + 10 * J + 2 * M;
+// bytes. Returns 0 or the CUDA error of the refused launch. A static build
+// takes only its own shape and strides (else cudaErrorInvalidValue).
+template <typename V, typename K>
+static int launch_check(K kernel, int J, int M, int lanes, int stride, int scr_stride, int smem) {
+  const int R = 4 + 10 * J + 2 * M, item = (int)sizeof(V);
   if (lanes < 1 || lanes * JSS_WARP > JSS_MAX_THREADS || M > JSS_MAX_M || stride < R ||
       (stride * item) % 4 || scr_stride < 2 * M ||
       (long long)lanes * ((long long)stride * item + 4LL * scr_stride) > smem)
+    return (int)cudaErrorInvalidValue;
+  using S = StaticStrides<V, JSS_STATIC_J, JSS_STATIC_M>;
+  if (JSS_STATIC_J > 0 && (J != JSS_STATIC_J || M != JSS_STATIC_M || stride != S::state ||
+                           scr_stride != S::scratch))
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -701,10 +814,10 @@ static int launch_free(void* state, const void* tab, const void* lanec, const vo
                        unsigned long long seed, void* stats, void* ret_out, int B, int J, int M,
                        int T, int lane_offset, int lanes, int stride, int scr_stride, int smem,
                        void* stream) {
-  const int err =
-      launch_check(rollout_free_kernel<V>, J, M, lanes, stride, scr_stride, smem, (int)sizeof(V));
+  auto kernel = rollout_free_kernel<V, JSS_STATIC_J, JSS_STATIC_M>;
+  const int err = launch_check<V>(kernel, J, M, lanes, stride, scr_stride, smem);
   if (err || B == 0) return err;
-  rollout_free_kernel<V><<<(B + lanes - 1) / lanes, lanes * JSS_WARP, smem, (cudaStream_t)stream>>>(
+  kernel<<<(B + lanes - 1) / lanes, lanes * JSS_WARP, smem, (cudaStream_t)stream>>>(
       (const V*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits, seed,
       (long long*)stats, (float*)ret_out, B, J, M, T, lane_offset, stride, scr_stride);
   return (int)cudaGetLastError();
@@ -712,15 +825,21 @@ static int launch_free(void* state, const void* tab, const void* lanec, const vo
 
 extern "C" {
 
+// The shape of a static build, (0, 0) for the general build: the wrapper
+// checks it against the batch it launches.
+int jss_static_j(void) { return JSS_STATIC_J; }
+int jss_static_m(void) { return JSS_STATIC_M; }
+
 // Each returns 0 when the kernel launched, else the CUDA error (a geometry
 // the card refuses: too many threads or too much shared memory).
 // `ends` may be null: no episode-end output.
 int jss_rollout_driven(void* state, const void* tab, const void* lanec, const void* actions,
                        void* rewards, void* ends, int B, int J, int M, int T, int with_solution,
                        int lanes, int stride, int scr_stride, int smem, void* stream) {
-  const int err = launch_check(rollout_driven_kernel, J, M, lanes, stride, scr_stride, smem, 4);
+  auto kernel = rollout_driven_kernel<JSS_STATIC_J, JSS_STATIC_M>;
+  const int err = launch_check<int32_t>(kernel, J, M, lanes, stride, scr_stride, smem);
   if (err || B == 0) return err;
-  rollout_driven_kernel<<<(B + lanes - 1) / lanes, lanes * JSS_WARP, smem, (cudaStream_t)stream>>>(
+  kernel<<<(B + lanes - 1) / lanes, lanes * JSS_WARP, smem, (cudaStream_t)stream>>>(
       (int*)state, (const int*)tab, (const int*)lanec, (const int*)actions, (int*)rewards,
       (int*)ends, B, J, M, T, with_solution, stride, scr_stride);
   return (int)cudaGetLastError();

@@ -20,6 +20,14 @@ On a CUDA state each launches its hand-written kernel
 (``rollout_driven_reference`` / ``rollout_free_reference``), built on
 ``core.engine`` and ``vector``. Nothing falls back from one to the other.
 
+Kernel variants: a batch whose every lane is unpadded (``static_shape``)
+launches the kernels' static build for its shape (J, M), compiled at the
+first use of that shape, in which every bound is a compile-time constant:
+the counterpart of the JAX package's ``_static_lane`` / ``_fresh_static``.
+Padded and mixed-shape batches launch the general build, as the JAX package
+keeps ``static_lane=None`` for them. The answer is computed once per batch,
+with the lane inputs (``_lane_inputs``), and costs a launch no host read.
+
 Random bits: with ``bits=None`` the free rollout draws one 32-bit Philox4x32-10
 word per (step, lane), keyed by ``seed`` with counter (t, lane_offset + lane);
 the twin computes the same words (``philox_bits``), so both modes compare
@@ -54,9 +62,15 @@ from jssenv_tpu_torch.core.state import I32_MAX, EnvState
 
 _I32 = torch.int32
 
-# Kernel launches per entry point: each wrapper adds one where it launches.
-# "rollout_free_i16" counts the free kernel's int16 instantiation.
-LAUNCHES: Dict[str, int] = {"rollout_driven": 0, "rollout_free": 0, "rollout_free_i16": 0}
+# Kernel launches per kernel: each wrapper adds one where it launches.
+# "rollout_free_i16" counts the free kernel's int16 instantiation; a
+# "_static" key the static build of that kernel (any shape), the others the
+# general build.
+LAUNCHES: Dict[str, int] = {
+    "rollout_driven": 0, "rollout_driven_static": 0,
+    "rollout_free": 0, "rollout_free_static": 0,
+    "rollout_free_i16": 0, "rollout_free_i16_static": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -144,29 +158,56 @@ def _from_lanes(buf: torch.Tensor, state: EnvState, with_solution: bool) -> EnvS
 _TABLES = ("op_machine", "op_dur", "op_pos", "cum_before")
 _LANE_FIELDS = _TABLES + ("num_jobs", "num_machines", "max_time_op", "sum_op")
 
-# (tab, lanec) of a batch, keyed by the identity and in-place version counter
-# of its static tensors: a rollout passes the same never-written tables on
-# every call (the JAX package caches its lane grouping the same way). The
-# entries hold the tensors, so an id is not reused while it is cached.
-# Inference-mode tensors keep no version counter and are keyed by id alone.
+# (tab, lanec, static shape) of a batch, keyed by the identity and in-place
+# version counter of its static tensors: a rollout passes the same
+# never-written tables on every call (the JAX package caches its lane
+# grouping and its ``_static_lane`` the same way). The entries hold the
+# tensors, so an id is not reused while it is cached. Inference-mode tensors
+# keep no version counter and are keyed by id alone.
 _LANE_CACHE: Dict[tuple, tuple] = {}
 _LANE_CACHE_SIZE = 8
+
+
+def _lane_entry(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tuple[int, int]]]:
+    fields = tuple(getattr(state, f) for f in _LANE_FIELDS)
+    key = tuple((id(t), -1 if t.is_inference() else t._version) for t in fields)
+    hit = _LANE_CACHE.get(key)
+    if hit is not None:
+        return hit[1]
+    out = _lane_inputs_uncached(state) + (_static_shape_uncached(state),)
+    if len(_LANE_CACHE) >= _LANE_CACHE_SIZE:
+        _LANE_CACHE.clear()
+    _LANE_CACHE[key] = (fields, out)
+    return out
 
 
 def _lane_inputs(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
     """(tab, lanec): the (n_inst, 4, J, M) int32 stack of distinct instance
     tables [op_machine, op_dur, op_pos, cum_before], and the (5, B) int32 lane
     constants [instance index, num_jobs, num_machines, max_time_op, sum_op]."""
-    fields = tuple(getattr(state, f) for f in _LANE_FIELDS)
-    key = tuple((id(t), -1 if t.is_inference() else t._version) for t in fields)
-    hit = _LANE_CACHE.get(key)
-    if hit is not None:
-        return hit[1]
-    out = _lane_inputs_uncached(state)
-    if len(_LANE_CACHE) >= _LANE_CACHE_SIZE:
-        _LANE_CACHE.clear()
-    _LANE_CACHE[key] = (fields, out)
-    return out
+    return _lane_entry(state)[:2]
+
+
+def static_shape(state: EnvState) -> Optional[Tuple[int, int]]:
+    """(J, M) when every lane of the batch is unpadded (``num_jobs ==
+    jobs_pad`` and ``num_machines == machines_pad``): the kernels then
+    launch their static build for that shape. None otherwise (padded or
+    mixed-shape lanes): the general build.
+
+    The port's form of the JAX package's ``_static_lane``
+    (``jssenv_tpu/core/pallas_rollout.py:1018``), which also asks for a
+    single instance (``n_groups == 1``) only because its grid streams one
+    instance's tables a group; here every lane indexes the deduplicated
+    table stack, so a batch of several instances of one shape (ta41-ta50,
+    all 30x20) is as static. Cached with the lane inputs: one host read per
+    batch, none per launch."""
+    return _lane_entry(state)[2]
+
+
+def _static_shape_uncached(state: EnvState) -> Optional[Tuple[int, int]]:
+    J, M = state.jobs_pad, state.machines_pad
+    unpadded = torch.stack([(state.num_jobs == J).all(), (state.num_machines == M).all()]).all()
+    return (J, M) if state.batch_size > 0 and bool(unpadded) else None
 
 
 def _fingerprint(flat: torch.Tensor) -> torch.Tensor:
@@ -253,9 +294,11 @@ def launch_geometry(J: int, M: int, vdt: torch.dtype = _I32) -> Geometry:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built ``csrc/rollout.cu`` with its C signatures declared."""
-    lib = _build.load("rollout")
+def _lib(shape: Optional[Tuple[int, int]] = None) -> ctypes.CDLL:
+    """The built ``csrc/rollout.cu`` with its C signatures declared: the
+    general build, or the static build of ``shape`` (J, M), built at its
+    first use (a failed build raises with the compiler's output)."""
+    lib = _build.load("rollout", shape)
     P, I = ctypes.c_void_p, ctypes.c_int
     geometry = [I, I, I, I]  # lanes, state stride, scratch stride, shared bytes
     lib.jss_rollout_driven.argtypes = [P, P, P, P, P, P, I, I, I, I, I, *geometry, P]
@@ -263,7 +306,38 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.jss_rollout_free, lib.jss_rollout_free_i16):
         fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, *geometry, P]
         fn.restype = I
+    for fn in (lib.jss_static_j, lib.jss_static_m):
+        fn.argtypes, fn.restype = [], I
+    built = (lib.jss_static_j(), lib.jss_static_m())
+    if built != (tuple(shape) if shape else (0, 0)):
+        raise RuntimeError(f"the rollout library for shape {shape} was built for {built}")
     return lib
+
+
+def build_kernels(shapes=(None,)) -> None:
+    """Build the general kernels (``None``) and the static builds of the
+    given (J, M) shapes that are not built yet, every nvcc process started
+    together, and load them."""
+    _build.build(["rollout"], [None if s is None else tuple(s) for s in shapes])
+    for s in shapes:
+        _lib(None if s is None else tuple(s))
+
+
+def _variant(state: EnvState, general: bool) -> Optional[Tuple[int, int]]:
+    """The build a launch on ``state`` takes: its static shape, or None (the
+    general build) for padded or mixed-shape lanes or when ``general``
+    forces it (the tests and the smoke run both builds on one batch)."""
+    return None if general else static_shape(state)
+
+
+def _tag(shape) -> str:
+    """The build's suffix in a kernel's name."""
+    return "" if shape is None else f"<static {shape[0]}x{shape[1]}>"
+
+
+def _key(shape) -> str:
+    """The build's suffix in its ``LAUNCHES`` key."""
+    return "" if shape is None else "_static"
 
 
 def _geometry_args(geo: Geometry):
@@ -287,36 +361,42 @@ def _check_kernel_inputs(state: EnvState, *tensors: torch.Tensor, dtype: torch.d
 
 
 def launch_driven(
-    state: EnvState, buf, tab, lanec, actions, rewards, with_solution: bool, ends=None
+    state: EnvState, buf, tab, lanec, actions, rewards, with_solution: bool, ends=None,
+    _general: bool = False,
 ) -> None:
     """One ``rollout_driven_kernel`` launch on prepared buffers (``buf`` is
     updated in place, ``rewards`` (T, B) and, unless None, ``ends`` (T, B)
-    written) on the current stream."""
+    written) on the current stream: the static build where every lane is
+    unpadded (``static_shape``), else the general one. ``_general`` forces
+    the general build, so that both can run on one batch."""
     _check_kernel_inputs(state, buf, tab, lanec, actions, rewards, *(() if ends is None else (ends,)))
     T, B = actions.shape
     if rewards.shape != (T, B) or (ends is not None and ends.shape != (T, B)):
         raise ValueError(f"rewards and ends must be (T, B)=({T}, {B})")
     geo = launch_geometry(state.jobs_pad, state.machines_pad)
+    shape = _variant(state, _general)
     with torch.cuda.device(state.device):
-        err = _lib().jss_rollout_driven(
+        err = _lib(shape).jss_rollout_driven(
             buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), actions.data_ptr(),
             rewards.data_ptr(), None if ends is None else ends.data_ptr(), B, state.jobs_pad,
             state.machines_pad, T, int(with_solution), *_geometry_args(geo),
             torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(err, "rollout_driven_kernel", geo)
-    LAUNCHES["rollout_driven"] += 1
+    _check_launch(err, "rollout_driven_kernel" + _tag(shape), geo)
+    LAUNCHES["rollout_driven" + _key(shape)] += 1
 
 
 def launch_free(
     state: EnvState, buf, tab, lanec, bits, seed: int, stats, ret, T: int, vdt: torch.dtype = _I32,
-    lane_offset: int = 0,
+    lane_offset: int = 0, _general: bool = False,
 ) -> None:
     """One ``rollout_free_kernel`` launch on a light ``buf`` (no solution
     rows), which it reads and does not write: per-lane stats (4, B) int64 and
     returns (B,) float32 written. ``vdt`` picks the instantiation (int32 or
     int16) and must be ``buf``'s dtype: a buffer is never converted here.
-    ``lane_offset``: the global index of lane 0 in the Philox counter."""
+    ``lane_offset``: the global index of lane 0 in the Philox counter. The
+    static build where every lane is unpadded, else the general one;
+    ``_general`` forces the general build."""
     if vdt not in (_I32, torch.int16):
         raise ValueError(f"the free kernel stores int32 or int16, not {vdt}")
     if buf.dtype != vdt:
@@ -326,8 +406,10 @@ def launch_free(
     if stats.dtype != torch.int64 or ret.dtype != torch.float32:
         raise ValueError("stats must be int64 and ret float32")
     i16 = vdt == torch.int16
-    fn = _lib().jss_rollout_free_i16 if i16 else _lib().jss_rollout_free
-    geo = launch_geometry(state.jobs_pad, state.machines_pad, vdt)
+    geo = launch_geometry(state.jobs_pad, state.machines_pad, vdt)  # refuses what cannot fit, before a build
+    shape = _variant(state, _general)
+    lib = _lib(shape)
+    fn = lib.jss_rollout_free_i16 if i16 else lib.jss_rollout_free
     with torch.cuda.device(state.device):
         err = fn(
             buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(),
@@ -336,8 +418,8 @@ def launch_free(
             state.machines_pad, T, int(lane_offset), *_geometry_args(geo),
             torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(err, "rollout_free_kernel<int16>" if i16 else "rollout_free_kernel", geo)
-    LAUNCHES["rollout_free_i16" if i16 else "rollout_free"] += 1
+    _check_launch(err, ("rollout_free_kernel<int16>" if i16 else "rollout_free_kernel") + _tag(shape), geo)
+    LAUNCHES[("rollout_free_i16" if i16 else "rollout_free") + _key(shape)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -390,12 +472,14 @@ def rollout_driven(state: EnvState, actions: torch.Tensor, num_steps: int, retur
     return _driven_kernel(state, actions, T, with_solution, return_ends)
 
 
-def _driven_kernel(state: EnvState, actions: torch.Tensor, T: int, with_solution: bool, with_ends: bool):
+def _driven_kernel(state: EnvState, actions: torch.Tensor, T: int, with_solution: bool, with_ends: bool,
+                   general: bool = False):
+    """One driven launch; ``general`` forces the general build."""
     buf = _to_lanes(state, with_solution)
     tab, lanec = _lane_inputs(state)
     rewards = torch.empty((T, state.batch_size), dtype=_I32, device=state.device)
     ends = torch.empty_like(rewards) if with_ends else None
-    launch_driven(state, buf, tab, lanec, actions, rewards, with_solution, ends)
+    launch_driven(state, buf, tab, lanec, actions, rewards, with_solution, ends, _general=general)
     out = (_from_lanes(buf, state, with_solution), rewards)
     return out + (ends,) if with_ends else out
 
@@ -526,17 +610,18 @@ def free_lane_stats(
 
 
 def _free_kernel(state: EnvState, T: int, seed: int, bits, vdt: Optional[torch.dtype] = None,
-                 lane_offset: int = 0):
+                 lane_offset: int = 0, general: bool = False):
     """One free-kernel launch in the storage dtype ``vdt`` (by default
     ``value_dtype``'s; an explicit int32 runs a batch that fits int16 in the
-    int32 instantiation, to hold the two against each other)."""
+    int32 instantiation, to hold the two against each other); ``general``
+    forces the general build on an unpadded batch."""
     B = state.batch_size
     vdt = value_dtype(state) if vdt is None else vdt
     buf = _to_lanes(state, with_solution=False, vdt=vdt)
     tab, lanec = _lane_inputs(state)
     stats = torch.empty((4, B), dtype=torch.int64, device=state.device)
     ret = torch.empty((B,), dtype=torch.float32, device=state.device)
-    launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T, vdt, lane_offset)
+    launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T, vdt, lane_offset, _general=general)
     return {"episodes": stats[0], "mk_sum": stats[1], "mk_min": stats[2], "viol": stats[3], "ret": ret}
 
 

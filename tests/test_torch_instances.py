@@ -97,7 +97,8 @@ def _port_modules():
             "parallel/multihost.py", "distill.py", "diagnostics.py"} <= names
     tools = sorted((ROOT / "tools").glob("*_torch.py"))
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert {"bench_torch.py", "solver_quality_torch.py", "distill_30x20_torch.py"} <= {f.name for f in tools}
+    assert {"bench_torch.py", "solver_quality_torch.py", "distill_30x20_torch.py", "bench_scaling_torch.py",
+            "gen_golden_torch.py"} <= {f.name for f in tools}
     assert {"torch_dispatching_rules_example.py", "torch_solve_instance.py", "torch_train_policy.py"} <= {
         f.name for f in examples}
     return files + tools + examples + [ROOT / "chip_smoke.py"]

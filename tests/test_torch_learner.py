@@ -278,7 +278,8 @@ def test_learner_steps_envs_in_the_driven_kernel_on_card(cuda_dev, algo):
     for _ in range(3):
         ts, m = step(ts)
         assert np.isfinite(float(m["loss"]))
-    assert fr.LAUNCHES == {"rollout_driven": 3 * cfg.unroll_steps, "rollout_free": 0, "rollout_free_i16": 0}
+    # the 6x5 batch is unpadded: the driven kernel's static build
+    assert fr.LAUNCHES == dict.fromkeys(fr.LAUNCHES, 0) | {"rollout_driven_static": 3 * cfg.unroll_steps}
     assert ts.env_state.device.type == "cuda" and ts.env_state.solution.shape[1] == 0
 
     long_cfg = dataclasses.replace(cfg, unroll_steps=64)  # long enough for 6x5 episodes to end
@@ -299,14 +300,14 @@ def test_fused_step_autoreset_on_card_equals_vector(cuda_dev):
     s_v = s_f = tv.make_batch(ti.random_instance(6, 5, (1, 9), seed=3), 1024, device=cuda_dev)
     st_v = st_f = tv.RolloutStats.zero(cuda_dev)
     g = torch.Generator(device=cuda_dev).manual_seed(0)
-    before = fr.LAUNCHES["rollout_driven"]
+    before = fr.LAUNCHES["rollout_driven_static"]  # an unpadded batch: the static build
     for _ in range(40):
         a = tv.random_legal_actions(g, s_v)
         s_v, tr_v, st_v = tv.step_autoreset(s_v, a, st_v)
         s_f, tr_f, st_f = fr.step_autoreset(s_f, a, st_f)
         assert all(torch.equal(getattr(tr_f, k), getattr(tr_v, k)) for k in ("reward", "raw_reward", "done"))
         assert all(torch.equal(getattr(s_f, k), getattr(s_v, k)) for k in ts_mod.FIELD_NAMES)
-    assert fr.LAUNCHES["rollout_driven"] == before + 40
+    assert fr.LAUNCHES["rollout_driven_static"] == before + 40
     for f in dataclasses.fields(tv.RolloutStats):
         assert torch.equal(getattr(st_f, f.name), getattr(st_v, f.name)), f.name
     assert int(st_v.episodes) > 0

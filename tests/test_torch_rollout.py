@@ -505,15 +505,23 @@ CARD_CASES = {
 }
 
 
+def _launch_key(kernel, state):
+    """The ``LAUNCHES`` key a launch on ``state`` counts under: the static
+    build where every lane is unpadded, else the general one."""
+    return kernel + ("_static" if fr.static_shape(state) else "")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CARD_CASES))
 def test_driven_kernel_matches_twin_on_card(cuda_dev, case):
     src, B, T, pad = CARD_CASES[case]
     state = tv.make_batch(src(), B, device=cuda_dev, **pad)
     acts = _port_actions(state, T, seed=1)
-    before = fr.LAUNCHES["rollout_driven"]
+    key = _launch_key("rollout_driven", state)
+    assert (key == "rollout_driven") == (case in ("padded", "ragged", "2x2"))
+    before = fr.LAUNCHES[key]
     final, raw = fr.rollout_driven(state, acts, T)
-    assert fr.LAUNCHES["rollout_driven"] == before + 1
+    assert fr.LAUNCHES[key] == before + 1
     ref, ref_raw = fr.rollout_driven_reference(state, acts, T)
     torch.cuda.synchronize()
     assert torch.equal(raw, ref_raw)
@@ -533,10 +541,11 @@ def test_driven_kernel_ends_match_twin_on_card(cuda_dev, case):
     state = tv.make_batch(src(), B, device=cuda_dev, **pad)
     acts = _port_actions(state, T, seed=4)
     ref, ref_raw, ref_ends = fr.rollout_driven_reference(state, acts, T, return_ends=True)
+    key = _launch_key("rollout_driven", state)
     for s in (state, tv.strip_solution(state)):
-        before = fr.LAUNCHES["rollout_driven"]
+        before = fr.LAUNCHES[key]
         final, raw, ends = fr.rollout_driven(s, acts, T, return_ends=True)
-        assert fr.LAUNCHES["rollout_driven"] == before + 1
+        assert fr.LAUNCHES[key] == before + 1
         torch.cuda.synchronize()
         assert torch.equal(ends, ref_ends) and torch.equal(raw, ref_raw)
         for k in ts.FIELD_NAMES:
@@ -556,6 +565,7 @@ def test_free_kernel_matches_twin_on_card(cuda_dev, case, mode):
     # instantiation
     key = "rollout_free_i16" if fr.value_dtype(state) == torch.int16 else "rollout_free"
     assert (key == "rollout_free") == (case == "ragged")
+    key = _launch_key(key, state)
     before = dict(fr.LAUNCHES)
     k = fr.free_lane_stats(state, T, seed=11, bits=bits)
     assert fr.LAUNCHES[key] == before[key] + 1 and sum(fr.LAUNCHES.values()) == sum(before.values()) + 1
@@ -584,8 +594,9 @@ def test_int16_kernel_matches_int32_kernel_on_card(cuda_dev, case, mode):
     before = dict(fr.LAUNCHES)
     k16 = fr.free_lane_stats(state, T, seed=11, bits=bits)
     k32 = fr._free_kernel(state, T, 11, bits, torch.int32)
-    assert fr.LAUNCHES["rollout_free_i16"] == before["rollout_free_i16"] + 1
-    assert fr.LAUNCHES["rollout_free"] == before["rollout_free"] + 1
+    key16, key32 = _launch_key("rollout_free_i16", state), _launch_key("rollout_free", state)
+    assert fr.LAUNCHES[key16] == before[key16] + 1
+    assert fr.LAUNCHES[key32] == before[key32] + 1
     r = fr.free_lane_stats_reference(state, T, seed=11, bits=bits)
     for k in k16:
         assert torch.equal(k16[k], k32[k]) and torch.equal(k16[k], r[k]), k

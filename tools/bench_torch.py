@@ -16,8 +16,9 @@ divides it by the reference env's single-core throughput (BASELINE.md).
 
 Each config runs ``fused_rollout.rollout_free`` (the free kernel of
 ``core/csrc/rollout.cu`` on a CUDA state, in the storage dtype
-``value_dtype`` picks; its plain twin on a CPU state): a warm-up at the full
-step count (seed 0, which also builds the kernel with nvcc on first use;
+``value_dtype`` picks, in its static build for the batch's shape where every
+lane is unpadded; its plain twin on a CPU state): a warm-up at the full step
+count (seed 0, which also builds the kernel with nvcc on first use;
 ``cold_build`` says whether it did), then ``--repeats`` runs at seeds 1, 2,
 ..., each from the same freshly reset batch, built before the clock starts.
 ``runs`` holds each repeat's integer stats (the port's int64 counters), its
@@ -142,7 +143,9 @@ def run_config(instance_spec: str, batch: int, steps: int, repeats: int, device)
                  "identity_violations": viol}
         return stats, dt, dev_ms
 
-    cold = on_card and not _build.library_path("rollout").exists()
+    # the build the batch launches: the static one of its shape where every
+    # lane is unpadded (all three configurations), else the general one
+    cold = on_card and not _build.library_path("rollout", fused_rollout.static_shape(state)).exists()
     fused_rollout.reset_launch_counts()
     # the warm-up runs the full step count, as bench.py:149-156
     t0 = time.perf_counter()
