@@ -7,12 +7,17 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power limit;
 2. build ``core/csrc/rollout.cu`` with nvcc, the general kernels and the
-   static build of every shape the run meets (``STATIC_SHAPES``), every nvcc
-   started together, and print each build's ``-Xptxas -v`` report
-   (registers, stack, spills) and the launch geometry of each FULL config
-   (``fused_rollout.launch_geometry``: a warp a lane, lanes a block, shared
-   bytes). A batch whose every lane is unpadded launches the static build of
-   its shape, a padded one the general build (``fused_rollout.static_shape``);
+   static build of every shape the run meets (``STATIC_SHAPES``), and
+   ``core/csrc/free_static.cu`` (the free kernel's static build) for each of
+   those shapes, with the instrumented static free kernels of both sources
+   (``-DJSS_PASS_CLOCKS``, read in phase 7c), every nvcc started together,
+   and print each build's ``-Xptxas -v`` report (registers, stack, spills),
+   the launch geometry of each FULL config (``fused_rollout.launch_geometry``:
+   a warp a lane, lanes a block, shared bytes) and, for the new kernel at
+   each unpadded FULL config, its resident warps an SM and waves. A batch
+   whose every lane is unpadded launches the static build of its shape, a
+   padded one the general build (``fused_rollout.static_shape``,
+   ``free_build``);
 3. driven parity: the plain twin (``vector.step_autoreset``'s two calls,
    under ``random_legal_actions``) on the card records actions, raw rewards,
    episode ends and the final state; ``fused_rollout.rollout_driven``
@@ -42,9 +47,11 @@ Phases (any failure raises and the script exits non-zero):
    reward identity at its episode ends, from the kernel's own ends);
 6. the plain twin on the same full-width inputs and seed: lane by lane equal
    to the kernel in the build the batch takes and, on an unpadded batch, in
-   the general build too (every stat and the float32 return); then the
-   kernel in bits mode at full width, whose mean makespan must be within 1%
-   of the Philox run's; then, on the unpadded int16 batches, the int16
+   the general build too (every stat and the float32 return), and on an
+   unpadded batch lanes [B/2, B) alone with lane_offset B/2 equal to the
+   whole run's; then the kernel in bits mode at full width, in both builds
+   lane by lane against the twin on the same bits, its mean makespan within
+   1% of the Philox run's; then, on the unpadded int16 batches, the int16
    kernel against the int32 one lane by lane on the same Philox seed;
 7. kernel times (CUDA events, after warm-up, the card kept busy by a queued
    spin while the host issues each launch, so that the events time the
@@ -55,6 +62,12 @@ Phases (any failure raises and the script exits non-zero):
    ``--against ROOT``, the kernels of another checkout (e.g. the parent
    commit's, unpacked with ``git archive``) and this one's in turns (root,
    this, this, root), each turn a process of its own;
+7c. where a step's cycles go in the static free kernel, in both designs
+   (rollout.cu's and free_static.cu's), on each unpadded FULL config:
+   the instrumented builds' clock64 per pass (the draw, the action's update,
+   fast_forward, prioritization, check_no_op, the reset), mean cycles a
+   lane-step, their stats equal to the plain kernel's (never timed or
+   counted);
 8. where a policy-loop step's time goes, stage by stage (host clock); with
    ``--profile`` also the device's busy share under ``torch.profiler``;
 9. the dispatching-rule sweep: all 7 rules on ragged ta01-ta10, 10240 lanes
@@ -156,6 +169,7 @@ copied alone into an empty directory.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -252,18 +266,26 @@ TRAIN_QUICK = (
 # LAUNCHES key -> (kernel, the TPU kernel it replaces); a "_static" key is
 # the static build (the counterpart of the JAX kernels' static_lane variant,
 # pallas_rollout.py _static_lane :1018, _fresh_static :503)
+SOURCE = "jssenv_tpu_torch/core/csrc/rollout.cu"
+FREE_SOURCE = "jssenv_tpu_torch/core/csrc/free_static.cu"  # the free kernel's static build
 KERNELS = {
-    "rollout_driven": ("rollout_driven_kernel", "jssenv_tpu/core/pallas_rollout.py:598"),
-    "rollout_driven_static": ("rollout_driven_kernel<static J,M>", "jssenv_tpu/core/pallas_rollout.py:598"),
-    "rollout_free": ("rollout_free_kernel", "jssenv_tpu/core/pallas_rollout.py:653"),
-    "rollout_free_static": ("rollout_free_kernel<static J,M>", "jssenv_tpu/core/pallas_rollout.py:653"),
-    "rollout_free_i16": ("rollout_free_kernel<int16>", "jssenv_tpu/core/pallas_rollout.py:653"),
-    "rollout_free_i16_static": ("rollout_free_kernel<int16, static J,M>", "jssenv_tpu/core/pallas_rollout.py:653"),
+    "rollout_driven": ("rollout_driven_kernel", "jssenv_tpu/core/pallas_rollout.py:598", SOURCE),
+    "rollout_driven_static": ("rollout_driven_kernel<static J,M>", "jssenv_tpu/core/pallas_rollout.py:598", SOURCE),
+    "rollout_free": ("rollout_free_kernel", "jssenv_tpu/core/pallas_rollout.py:653", SOURCE),
+    "rollout_free_static": ("free_static_kernel<int32_t> (static J,M)", "jssenv_tpu/core/pallas_rollout.py:653",
+                            FREE_SOURCE),
+    "rollout_free_i16": ("rollout_free_kernel<int16>", "jssenv_tpu/core/pallas_rollout.py:653", SOURCE),
+    "rollout_free_i16_static": ("free_static_kernel<int16_t> (static J,M)", "jssenv_tpu/core/pallas_rollout.py:653",
+                                FREE_SOURCE),
 }
 DRIVEN_KEYS = ("rollout_driven", "rollout_driven_static")
-SOURCE = "jssenv_tpu_torch/core/csrc/rollout.cu"
+# the passes of the instrumented free kernels (-DJSS_PASS_CLOCKS), in the
+# sources' order: the draw, the action's update, fast_forward,
+# prioritization, check_no_op, the episode's bookkeeping and reset
+PASS_NAMES = ("draw", "act", "fast_forward", "prioritization", "check_no_op", "reset")
+CLOCKS = ("JSS_PASS_CLOCKS",)
 # what the script runs or reads of the checkout around it
-CHECKOUT = ("jssenv_tpu_torch", SOURCE, "tools/bench_torch.py", "tools/solver_quality_torch.py",
+CHECKOUT = ("jssenv_tpu_torch", SOURCE, FREE_SOURCE, "tools/bench_torch.py", "tools/solver_quality_torch.py",
             "tools/distill_30x20_torch.py", "tools/bench_scaling_torch.py", "tools/gen_golden_torch.py",
             "models_data", "tests/data/golden_solutions.json")
 
@@ -357,21 +379,34 @@ def main() -> int:
     report["device"] = {"kind": kind, "count": count, "nvidia_smi": smi}
 
     # ---- 2. build ----------------------------------------------------------
-    # the general kernels and the static build of every shape the run meets,
-    # every nvcc started together; a failed build raises with its output
+    # the general kernels and the static builds of every shape the run meets
+    # (rollout.cu's driven kernel, free_static.cu), with the instrumented
+    # static free kernels of both sources (-DJSS_PASS_CLOCKS, libraries of
+    # their own, read in phase 7c only), every nvcc started together; a
+    # failed build raises with its output
     t0 = time.perf_counter()
+    clock_jobs = [] if args.quick else [(name, sh, CLOCKS) for sh in STATIC_SHAPES
+                                        for name in ("rollout", "free_static")]
+    jobs = fr.kernel_jobs([None, *STATIC_SHAPES]) + clock_jobs
+    _build.build_jobs(jobs)
     fr.build_kernels([None, *STATIC_SHAPES])
     report["build_s"] = time.perf_counter() - t0
-    report["ptxas"] = {"general" if sh is None else f"static {sh[0]}x{sh[1]}": _build.ptxas_report("rollout", sh)
-                       for sh in (None, *STATIC_SHAPES)}
-    log(f"[2] built {SOURCE}, general and static {list(STATIC_SHAPES)}, in {report['build_s']:.1f}s")
+    report["ptxas"] = {f"{job[0]} " + ("general" if job[1] is None else f"static {job[1][0]}x{job[1][1]}")
+                       + (" " + " ".join(job[2]) if len(job) > 2 else ""): _build.ptxas_report(*job) for job in jobs}
+    log(f"[2] built {SOURCE} (general and static) and {FREE_SOURCE} (static) for {list(STATIC_SHAPES)}"
+        f"{', and their instrumented static free kernels' if clock_jobs else ''}: {len(jobs)} nvcc processes "
+        f"started together, {report['build_s']:.1f}s")
     for tag, rep_ in report["ptxas"].items():
         log(f"[2] {tag}:\n{rep_}")
     kerr = {k: 0.0 for k in KERNELS}  # max |kernel - twin| (or - the other build) by LAUNCHES key
 
     def variant(state) -> str:
-        """The LAUNCHES suffix of a launch on ``state``."""
+        """The LAUNCHES suffix of a driven launch on ``state``."""
         return "_static" if fr.static_shape(state) else ""
+
+    def free_variant(state) -> str:
+        """The LAUNCHES suffix of a free launch on ``state``."""
+        return "_static" if fr.free_build(state) else ""
 
     def make(name, B, **pad):
         return vector.make_batch(source(instances, name), B, device=dev, **pad)
@@ -384,6 +419,29 @@ def main() -> int:
         geo = fr.launch_geometry(few.jobs_pad, few.machines_pad, getattr(torch, vdt))
         report["geometry"][f"{name} {vdt}"] = geo._asdict()
         log(f"[2] launch geometry {name} (J={few.jobs_pad}, M={few.machines_pad}) {vdt}: {geo}")
+    # the new kernel's registers, spills, resident warps and waves at each
+    # unpadded FULL config, in the config's value dtype
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    report["free_static_occupancy"] = {}
+    for name, B, _ in FULL:
+        if name in PADDED:
+            continue
+        few = make(name, 2)
+        shape, i16 = (few.jobs_pad, few.machines_pad), FULL_DTYPE[name] == "int16"
+        lib = fr._free_lib(shape)
+        lib.jss_free_static_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.jss_free_static_blocks_per_sm.restype = ctypes.c_int
+        blocks = lib.jss_free_static_blocks_per_sm(int(i16))
+        check(blocks >= 1, f"free_static {shape}: occupancy query failed ({blocks})")
+        geo = fr.free_static_geometry(B)
+        kernel = "int16_t" if i16 else "int32_t"
+        ptx = [ln for ln in report["ptxas"][f"free_static static {shape[0]}x{shape[1]}"].split("\n")
+               if ln.strip()]
+        row = {"shape": shape, "kernel": kernel, "blocks_per_sm": blocks, "warps_per_sm": blocks * geo.lanes,
+               "waves": geo.blocks / (blocks * sms), "ptxas": ptx}
+        report["free_static_occupancy"][name] = row
+        log(f"[2] free_static_kernel<{kernel}> {name} {shape} B={B}: {blocks} blocks of {geo.lanes} lanes an SM "
+            f"({blocks * geo.lanes} resident warps), {geo.blocks} blocks over {sms} SMs: {row['waves']:.3f} waves")
 
     def max_err(a, b) -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
@@ -521,7 +579,7 @@ def main() -> int:
         """Per-lane stats of one launch of the free kernel's ``vdt``
         instantiation, in the build the batch takes (or the general one);
         checks that it launched, under its key."""
-        key = KEY[vdt] + ("" if general else variant(state))
+        key = KEY[vdt] + ("" if general else free_variant(state))
         before = dict(fr.LAUNCHES)
         out = fr._free_kernel(state, T, seed, bits, vdt, lane_offset=lane_offset, general=general)
         check(fr.LAUNCHES[key] == before[key] + 1 and sum(fr.LAUNCHES.values()) == sum(before.values()) + 1,
@@ -538,7 +596,7 @@ def main() -> int:
         the static one, the general one on the same batch: bit-equal.
         Returns the first's per-lane stats."""
         k = free_kernel(state, T, vdt, seed, bits, lane_offset=lane_offset)
-        if variant(state):
+        if free_variant(state):
             same_lanes(k, free_kernel(state, T, vdt, seed, bits, general=True, lane_offset=lane_offset),
                        f"{tag}: the static and general kernels")
         return k
@@ -552,7 +610,7 @@ def main() -> int:
         row = {"config": name, "B": B, "T": T, "episodes": int(r["episodes"].sum()),
                "value_dtype": str(fr.value_dtype(state))}
         for vdt in (torch.int32, torch.int16) if fr.value_dtype(state) == torch.int16 else (torch.int32,):
-            key = KEY[vdt] + variant(state)
+            key = KEY[vdt] + free_variant(state)
             k = free_both(state, T, vdt, f"free bits {key} {name}", bits=bits)
             ret_err, rel = compare_free(k, r, f"free bits {key} {name}")
             same_lanes(k, r, f"free bits {key} {name}: kernel and twin")
@@ -676,9 +734,18 @@ def main() -> int:
         # the kernel lane by lane, in the build the batch takes and, where
         # that is the static one, the general one: bit-equal to the twin
         vdt = getattr(torch, FULL_DTYPE[name])
-        kkey = KEY[vdt] + variant(state)
+        kkey = KEY[vdt] + free_variant(state)
         check((kkey == KEY[vdt]) == (name in PADDED), f"{name}: {kkey}, padded {PADDED}")
-        same_lanes(free_both(state, T, vdt, f"{kkey} {name}", seed=SEED), r_lanes, f"{kkey} {name}: kernel and twin")
+        k_lanes = free_both(state, T, vdt, f"{kkey} {name}", seed=SEED)
+        same_lanes(k_lanes, r_lanes, f"{kkey} {name}: kernel and twin")
+        if name not in PADDED:
+            # lanes [B/2, B) alone, with their lane_offset: the whole run's
+            # lanes (so the twin's), in both builds
+            src = source(instances, name)
+            src = src if hasattr(src, "names") else instances.stack_instances([src])
+            half = vector.make_lanes(src, torch.arange(B // 2, B), dev)
+            k_half = free_both(half, T, vdt, f"{kkey} {name} offset", seed=SEED, lane_offset=B // 2)
+            same_lanes(k_half, {f: v[B // 2:] for f, v in k_lanes.items()}, f"{kkey} {name}: offset {B // 2}")
         r = {k: v.item() for k, v in fr._reduce_stats(r_lanes, T, B).items()}
         k = free_main[name]
         for key in ("episodes", "total_makespan", "min_makespan", "steps", "identity_violations"):
@@ -687,15 +754,20 @@ def main() -> int:
         rel = abs_err / max(1.0, abs(r["total_return"]))
         check(rel <= 1e-5, f"{name}: total_return rel err {rel}")
         kerr[kkey] = max(kerr[kkey], abs_err)
+        # bits mode: the kernel in both builds against the twin, lane by lane
         bits = rand_bits(T, B, SEED + 200)
-        kb = {k_: v.item() for k_, v in fr.rollout_free(state, T, bits=bits).items()}
+        kb_lanes = free_both(state, T, vdt, f"{kkey} {name} bits", bits=bits)
+        same_lanes(kb_lanes, fr.free_lane_stats_reference(state, T, bits=bits), f"{kkey} {name} bits: kernel and twin")
+        kb = {k_: v.item() for k_, v in fr._reduce_stats(kb_lanes, T, B).items()}
         check(kb["identity_violations"] == 0 and kb["episodes"] > 0, f"{name} bits: {kb}")
         mean_bits = kb["total_makespan"] / kb["episodes"]
         drift = abs(k["mean_makespan"] - mean_bits) / mean_bits
         check(drift <= 0.01, f"{name}: philox mean makespan {k['mean_makespan']} vs bits {mean_bits}")
         free_main[name].update(plain_ms=plain_free_ms[name], total_return_rel_err=rel,
                                bits_mean_makespan=mean_bits, philox_vs_bits=drift, kernel=kkey)
-        log(f"[6] {name}: twin equal (return rel err {rel:.2e}), bits-mode mean makespan "
+        log(f"[6] {name}: twin equal in Philox and bits mode, lane by lane in both builds"
+            + ("" if name in PADDED else f", and from lane_offset {B // 2}")
+            + f" (return rel err {rel:.2e}), bits-mode mean makespan "
             f"{mean_bits:.2f} vs philox {k['mean_makespan']:.2f} ({drift:.2e}), plain {plain_free_ms[name]:.0f} ms")
 
     # the int16 kernel against the int32 kernel, lane by lane, at full width
@@ -790,6 +862,28 @@ def main() -> int:
             f"{row['general_ms_turns']}; host ms of the launch call {row['host_ms']:.4f} against "
             f"{row['general_host_ms']:.4f}) ({smi}); bound {row['bound_ms']:.5f} ms; plain {row['plain_ms']:.1f} ms")
     report["timings"] = timings
+
+    # ---- 7c. where a step's cycles go: the instrumented static free kernels
+    # of both sources (the shared-memory design in rollout.cu, the register
+    # one in free_static.cu) on each unpadded FULL config, in its value dtype;
+    # their stats must equal the plain kernel's. Never timed, never counted.
+    report["pass_clocks"] = {}
+    for name, B, T in FULL:
+        if name in PADDED:
+            continue
+        state = make(name, B)
+        vdt = getattr(torch, FULL_DTYPE[name])
+        plain = fr._free_kernel(state, T, SEED, None, vdt)
+        row = {}
+        for which in ("rollout.cu", "free_static.cu"):
+            per, got = pass_clocks(fr, _build, dev, state, T, vdt, old=which == "rollout.cu")
+            same_lanes(got, plain, f"instrumented {which} {name}: stats")
+            total = sum(per.values())
+            row[which] = {"cycles_per_lane_step": per, "total": total}
+            log(f"[7c] {which} static free kernel, {name} B={B} T={T} {FULL_DTYPE[name]}: {total:.1f} cycles a "
+                "lane-step (" + ", ".join(f"{k} {v:.1f} ({v / total:.1%})" for k, v in per.items()) + f") ({smi})")
+        row["old_to_new"] = row["rollout.cu"]["total"] / row["free_static.cu"]["total"]
+        report["pass_clocks"][name] = row
     if args.against:
         report["turns"] = turns_against(args.against, smi)
 
@@ -919,7 +1013,7 @@ def main() -> int:
         row = main_rows[base]
         general = n == base
         kernels.append({
-            "name": KERNELS[n][0], "route": "cuda", "source": SOURCE, "replaces": KERNELS[n][1],
+            "name": KERNELS[n][0], "route": "cuda", "source": KERNELS[n][2], "replaces": KERNELS[n][1],
             "launches": total[n], "max_abs_err": kerr[n], "ms": row["general_ms"] if general else row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": row["shape"] + (" (general build)" if general else " (static build)"),
@@ -1000,6 +1094,45 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def pass_clocks(fr, _build, dev, state, T, vdt, old: bool):
+    """One launch of the instrumented static free kernel (``old``: the
+    shared-memory design, rollout.cu built with -DJSS_PASS_CLOCKS; else
+    free_static.cu's) on ``state`` in storage ``vdt``, Philox at SEED: the
+    mean cycles a lane-step of each pass (PASS_NAMES; clock64 deltas summed
+    per lane by the warp's rank 0) and the per-lane stats."""
+    import torch
+
+    J, M, B = state.jobs_pad, state.machines_pad, state.batch_size
+    i16 = int(vdt == torch.int16)
+    lib = _build.load("rollout" if old else "free_static", (J, M), CLOCKS)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.jss_pass_count.argtypes, lib.jss_pass_count.restype = [], I
+    check(lib.jss_pass_count() == len(PASS_NAMES), "the instrumented kernel's passes")
+    buf = fr._to_lanes(state, with_solution=False, vdt=vdt)
+    tab, lanec = fr._lane_inputs(state)
+    stats = torch.empty((4, B), dtype=torch.int64, device=dev)
+    ret = torch.empty((B,), dtype=torch.float32, device=dev)
+    clocks = torch.zeros((len(PASS_NAMES), B), dtype=torch.int64, device=dev)
+    head = [buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), None, SEED, stats.data_ptr(), ret.data_ptr(), B, J, M,
+            T, 0]
+    stream = torch.cuda.current_stream().cuda_stream
+    if old:
+        geo = fr.launch_geometry(J, M, vdt)
+        fn = lib.jss_rollout_free_clocks
+        fn.argtypes, fn.restype = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, I, I, I, I, P, P, I], I
+        err = fn(*head, geo.lanes, geo.state_stride, geo.scratch_stride, geo.shared_bytes, stream, clocks.data_ptr(),
+                 i16)
+    else:
+        fn = lib.jss_free_static_clocks
+        fn.argtypes, fn.restype = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, P, P, I], I
+        err = fn(*head, stream, clocks.data_ptr(), i16)
+    check(err == 0, f"instrumented {'rollout' if old else 'free_static'} ({J}, {M}): cudaError {err}")
+    torch.cuda.synchronize()
+    per = clocks.sum(dim=1).tolist()
+    return ({k: v / (B * T) for k, v in zip(PASS_NAMES, per)},
+            {"episodes": stats[0], "mk_sum": stats[1], "mk_min": stats[2], "viol": stats[3], "ret": ret})
+
+
 def source(instances, name):
     """The instance or instance set of a config name."""
     if name in ("ta41-ta50", "ta01-ta10"):
@@ -1042,6 +1175,9 @@ def time_kernels_of(root: str, out: str) -> int:
     else:
         fr._lib()
     res = {"root": str(root_path), "build_s": time.perf_counter() - t0, "ptxas": _build.ptxas_report("rollout")}
+    if hasattr(fr, "kernel_jobs"):  # a checkout with free_static.cu: one library per source and shape
+        res["ptxas"] = {" ".join(map(str, job)): _build.ptxas_report(*job)
+                        for job in fr.kernel_jobs([None, *STATIC_SHAPES])}
 
     def timed(key, kernel, state, T, **kw):
         res[key] = launch_timer(fr, dev, kernel, state, T, general=two_builds, **kw)["ms"]
@@ -1086,10 +1222,12 @@ def turns_against(root: str, smi: str) -> dict:
         turns.append((tag, json.loads(out.read_text())))
         log(f"[7b] turn {i} ({tag}, {r}): " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in turns[-1][1].items() if k.startswith("rollout")))
-    keys = [k for k in turns[1][1] if k.startswith("rollout")]  # the change's; " static": against the parent's one build
+    # the change's keys, each against the parent's same key; a " static" key
+    # against a one-build parent's only build
+    keys = [k for k in turns[1][1] if k.startswith("rollout")]
     rows = {}
     for k in keys:
-        p = [t[k.removesuffix(" static")] for tag, t in turns if tag == "parent"]
+        p = [t[k] if k in t else t[k.removesuffix(" static")] for tag, t in turns if tag == "parent"]
         c = [t[k] for tag, t in turns if tag == "change"]
         rows[k] = {"parent_ms": p, "change_ms": c, "ratio": (sum(c) / 2) / (sum(p) / 2)}
         log(f"[7b] {k}: parent {p[0]:.4f}, {p[1]:.4f} ms; change {c[0]:.4f}, {c[1]:.4f} ms; "

@@ -9,7 +9,10 @@ or imported at module import time.
 A source may also be built for one static shape ``(J, M)``: ``nvcc`` gets
 ``-DJSS_STATIC_J=J -DJSS_STATIC_M=M`` and the library is
 ``lib<name>_<J>x<M>_<hash>.so``, one for each shape met (``csrc/rollout.cu``'s
-static variant). ``shape=None`` is the general build.
+static variant, and ``csrc/free_static.cu``, which builds for a shape only).
+``shape=None`` is the general build. ``defines`` (``("JSS_PASS_CLOCKS",)``)
+build a variant of its own, named after them: the instrumented builds that
+count each pass's clocks.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
@@ -42,57 +45,71 @@ def _nvcc() -> str:
 
 
 Shape = Optional[Tuple[int, int]]
+Defines = Tuple[str, ...]
 
 
-def nvcc_flags(shape: Shape = None) -> Tuple[str, ...]:
-    """The flags of the general build, or of the static build of ``shape``."""
+def nvcc_flags(shape: Shape = None, defines: Defines = ()) -> Tuple[str, ...]:
+    """The flags of the general build, or of the static build of ``shape``,
+    with ``defines`` added."""
+    extra = tuple(f"-D{d}" for d in defines)
     if shape is None:
-        return NVCC_FLAGS
+        return NVCC_FLAGS + extra
     J, M = (int(x) for x in shape)
     if J < 1 or M < 1:
         raise ValueError(f"a static build needs a positive shape, got {shape}")
-    return NVCC_FLAGS + (f"-DJSS_STATIC_J={J}", f"-DJSS_STATIC_M={M}")
+    return NVCC_FLAGS + (f"-DJSS_STATIC_J={J}", f"-DJSS_STATIC_M={M}") + extra
 
 
-def library_path(name: str, shape: Shape = None) -> Path:
+def library_path(name: str, shape: Shape = None, defines: Defines = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(nvcc_flags(shape)).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(nvcc_flags(shape, defines)).encode()).hexdigest()[:16]
     tag = name if shape is None else f"{name}_{shape[0]}x{shape[1]}"
+    tag += "".join("_" + d.lower().removeprefix("jss_").replace("=", "") for d in defines)
     return BUILD_DIR / f"lib{tag}_{digest}.so"
 
 
-def build(names: Sequence[str], shapes: Sequence[Shape] = (None,)) -> Dict[Tuple[str, Shape], Path]:
-    """Compile every named source for every shape (``None``: the general
-    build) that is not built yet, all nvcc processes started together;
-    returns (name, shape) -> library path. Raises with the compiler's output
-    if a build fails. Each process writes its own temporary file and renames
-    it into place, so several processes may build one library at once."""
+Job = Tuple  # (name, shape) or (name, shape, defines)
+
+
+def build_jobs(jobs: Iterable[Job]) -> Dict[Job, Path]:
+    """Compile every (source name, shape[, defines]) that is not built yet,
+    all nvcc processes started together; returns job -> library path.
+    Raises with the compiler's output if a build fails. Each process writes
+    its own temporary file and renames it into place, so several processes
+    may build one library at once."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {(n, s): library_path(n, s) for n in names for s in dict.fromkeys(shapes)}
+    out = {job: library_path(*job) for job in dict.fromkeys(jobs)}
     procs = {}
-    for (n, s), lib in out.items():
+    for job, lib in out.items():
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *nvcc_flags(s), "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n, s] = (tmp, subprocess.Popen(
+        cmd = [_nvcc(), *nvcc_flags(*job[1:]), "-o", str(tmp), str(CSRC / f"{job[0]}.cu")]
+        procs[job] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
-    for key, (tmp, proc) in procs.items():
+    for job, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            what = "" if key[1] is None else f" for the static shape {key[1]}"
-            raise RuntimeError(f"nvcc failed on csrc/{key[0]}.cu{what}:\n{log}")
-        out[key].with_suffix(".log").write_text(log)
-        os.replace(tmp, out[key])
+            what = "" if job[1] is None else f" for the static shape {job[1]}"
+            what += f" with {' '.join(job[2])}" if len(job) > 2 and job[2] else ""
+            raise RuntimeError(f"nvcc failed on csrc/{job[0]}.cu{what}:\n{log}")
+        out[job].with_suffix(".log").write_text(log)
+        os.replace(tmp, out[job])
     return out
 
 
-def ptxas_report(name: str, shape: Shape = None) -> str:
+def build(names: Sequence[str], shapes: Sequence[Shape] = (None,)) -> Dict[Tuple[str, Shape], Path]:
+    """Every named source for every shape (``None``: the general build), as
+    ``build_jobs``; returns (name, shape) -> library path."""
+    return build_jobs((n, s) for n in names for s in shapes)
+
+
+def ptxas_report(name: str, shape: Shape = None, defines: Defines = ()) -> str:
     """The ``-Xptxas -v`` lines (registers, shared memory, spills) of the
     last build of ``name`` for ``shape``, or "" if it was built by another
     process."""
-    log = library_path(name, shape).with_suffix(".log")
+    log = library_path(name, shape, defines).with_suffix(".log")
     if not log.exists():
         return ""
     return "\n".join(
@@ -102,7 +119,8 @@ def ptxas_report(name: str, shape: Shape = None) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str, shape: Shape = None) -> ctypes.CDLL:
+def load(name: str, shape: Shape = None, defines: Defines = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` for ``shape``, built first if
     needed."""
-    return ctypes.CDLL(str(build([name], [shape])[name, shape]))
+    job = (name, shape, tuple(defines)) if defines else (name, shape)
+    return ctypes.CDLL(str(build_jobs([job])[job]))

@@ -43,27 +43,35 @@
 // J*M/32 per thread per reset. The instance tables, one (n_inst, 4, J, M)
 // int32 stack indexed per lane, are read through the read-only path.
 //
-// What bounds it on this card: not bytes or operations, which stay two
-// orders of magnitude below the card's rates (PERF.md), but the instructions
-// and latency of each step's chain of group passes: about twenty syncs and
-// reductions a step between dependent shared-memory and table loads, nearly
-// the same for any J up to 32. The warps resident on an SM hide part of it:
-// the kernels are held to 48 registers a thread (JSS_MIN_BLOCKS, 40 warps an
-// SM), which shared memory allows (a lane's state and scratch: 0.5 KB at
-// ta01 in int16, 4.4 KB at ta71).
+// What bounds it (NVIDIA H100 80GB HBM3 at 700 W; PERF.md): not bytes or
+// operations (the general free kernel takes 59-86x its operations bound),
+// but the instructions each step issues: every pass reads and writes its rows in
+// shared memory, closes with warp reductions or shared atomicMins, and runs
+// its single updates on rank 0 while the warp waits. An instrumented static
+// build of the free kernel (-DJSS_PASS_CLOCKS, chip_smoke.py phase 7c)
+// counts 6915 cycles of a warp's clock a lane-step at ta01 B=16384 (40
+// warps an SM): check_no_op 45%, fast_forward 22%, the action's update 10%,
+// the draw 10%, prioritization 8%, the reset 5%; at ta71, four job slots a
+// thread, 14382 cycles, check_no_op 52% and fast_forward 28%. The kernels
+// are held to 48 registers a thread (JSS_MIN_BLOCKS, 40 warps an SM), which
+// shared memory allows (a lane's state and scratch: 0.5 KB at ta01 in
+// int16, 4.4 KB at ta71).
 //
 // Two builds of this one source, as the JAX package compiles each kernel in
 // two variants (pallas_rollout.py _static_lane, :1018, passed as static_lane
-// to _driven_kernel / _free_kernel). The general build reads the padded
-// shape (J, M) from the launch and each lane's own (nj, nm) from its lane
-// constants, so padded and mixed-shape batches run. The static build
-// (-DJSS_STATIC_J=J -DJSS_STATIC_M=M, core/_build.py) serves a batch whose
-// every lane is unpadded (nj == J, nm == M): J, M, nj, nm, every row offset,
-// the strides and the slot counts ceil(J/32) and ceil(M/32) are compile-time
-// constants, the bound compares fold away and the reset is the counterpart of
-// _fresh_static (:503). The lanes' max_time_op and sum_op stay per-lane reads:
-// a same-shape batch may hold several instances. Both builds share every line
-// of the step math below; only the Bounds of a Group differ.
+// to _driven_kernel / _free_kernel). The general build (both kernels) reads
+// the padded shape (J, M) from the launch and each lane's own (nj, nm) from
+// its lane constants, so padded and mixed-shape batches run. The static
+// build (-DJSS_STATIC_J=J -DJSS_STATIC_M=M, core/_build.py) serves a batch
+// whose every lane is unpadded (nj == J, nm == M) with the driven kernel: J,
+// M, nj, nm, every row offset, the strides and the slot counts ceil(J/32) and
+// ceil(M/32) are compile-time constants, the bound compares fold away and the
+// reset is the counterpart of _fresh_static (:503). The lanes' max_time_op
+// and sum_op stay per-lane reads: a same-shape batch may hold several
+// instances. Both builds share every line of the step math below; only the
+// Bounds of a Group differ. The free kernel's static build is free_static.cu
+// (its state in registers); here it is compiled for a static shape only
+// with -DJSS_PASS_CLOCKS, as the instrumented baseline of that design.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,6 +101,39 @@ static_assert(JSS_STATIC_J >= 0 && JSS_STATIC_M >= 0 && JSS_STATIC_M <= JSS_MAX_
                          ++jss_slot_, j += JSS_WARP) if (j < (g).J)
 
 namespace {
+
+#ifdef JSS_PASS_CLOCKS
+// -DJSS_PASS_CLOCKS (with a static shape) builds an instrumented free kernel
+// in a library of its own, never on the main path: clock64() at each pass
+// boundary, the cycles since the last one summed per lane into the pass that
+// ran them (jss_rollout_free_clocks; free_static.cu has the same passes).
+enum { PASS_DRAW = 0, PASS_ACT, PASS_FF, PASS_PRIO, PASS_NOOP, PASS_RESET, PASSES };
+struct PassClock {
+  long long acc[PASSES], last;
+  int cur;
+  __device__ void start() {
+#pragma unroll
+    for (int i = 0; i < PASSES; ++i) acc[i] = 0;
+    cur = PASS_DRAW;
+    last = clock64();
+  }
+  __device__ void to(int p) {
+    const long long now = clock64();
+#pragma unroll
+    for (int i = 0; i < PASSES; ++i)
+      if (i == cur) acc[i] += now - last;
+    cur = p;
+    last = now;
+  }
+};
+__device__ long long* jss_pass_clocks;  // (PASSES, B) int64, set by jss_rollout_free_clocks
+#define JSS_PASS(g, p) \
+  do {                 \
+    if ((g).clk) (g).clk->to(p); \
+  } while (0)
+#else
+#define JSS_PASS(g, p) ((void)0)
+#endif
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
@@ -194,6 +235,9 @@ struct Group : Bounds<SJ, SM> {
   const int* tabs; // (4, J, M) tables of this lane's instance (T_OM, ...)
   int mo;          // the lane's max_time_op
   int r;           // this thread's rank in the warp
+#ifdef JSS_PASS_CLOCKS
+  PassClock* clk = nullptr;  // the free kernel's pass clocks (null: not counted)
+#endif
 
   __device__ Group(int J_, int M_) : Bounds<SJ, SM>(J_, M_), L(J_, M_) {}
   __device__ int job_slots() const { return (J + JSS_WARP - 1) / JSS_WARP; }
@@ -479,6 +523,7 @@ __device__ void check_no_op(Grp& g) {
 template <class Grp>
 __device__ int step(Grp& g, int action) {
   const int J = g.J, M = g.M;
+  JSS_PASS(g, PASS_ACT);
   g.sync();  // every thread has read the state the action was drawn from
   int raw = 0;
   if (action < g.nj) {
@@ -525,8 +570,11 @@ __device__ int step(Grp& g, int action) {
     }
   }
   g.sync();
+  JSS_PASS(g, PASS_FF);
   raw -= fast_forward(g);
+  JSS_PASS(g, PASS_PRIO);
   prioritization(g);
+  JSS_PASS(g, PASS_NOOP);
   check_no_op(g);
   return raw;
 }
@@ -756,12 +804,19 @@ __global__ void __launch_bounds__(JSS_MAX_THREADS, JSS_MIN_BLOCKS) rollout_free_
   int episodes = 0, viol = 0, mk_min = JSS_I32_MAX, ep_raw = 0;
   float ret = 0.f;
   uint32_t w_mine = 0;
+#ifdef JSS_PASS_CLOCKS
+  PassClock clk;
+  g.clk = &clk;
+  clk.start();
+#endif
   for (int t = 0; t < T; ++t) {
+    JSS_PASS(g, PASS_DRAW);
     const int q = t & (JSS_WARP - 1);
     if (q == 0 && t + g.r < T)
       w_mine = bits ? bits[(size_t)(t + g.r) * B + p.b]
                     : philox_word(seed, t + g.r, (uint32_t)(lane_offset + p.b));
     const int raw = step(g, sample(g, __shfl_sync(JSS_FULL, w_mine, q)));
+    JSS_PASS(g, PASS_RESET);
     ep_raw += raw;
     ret += (float)raw / mo_f;
     if (g.at(g.L.nb_legal()) == 0) {
@@ -774,6 +829,11 @@ __global__ void __launch_bounds__(JSS_MAX_THREADS, JSS_MIN_BLOCKS) rollout_free_
       fresh(g);
     }
   }
+#ifdef JSS_PASS_CLOCKS
+  clk.to(PASS_DRAW);
+  if (g.leader())
+    for (int i = 0; i < PASSES; ++i) jss_pass_clocks[(size_t)i * B + p.b] = clk.acc[i];
+#endif
   if (g.leader()) {
     stats[S_EPISODES * (size_t)B + p.b] = episodes;
     stats[S_MK_SUM * (size_t)B + p.b] = mk_sum;
@@ -809,6 +869,9 @@ static int launch_check(K kernel, int J, int M, int lanes, int stride, int scr_s
   return 0;
 }
 
+// The free kernel: in the general build, and in a static build only when
+// instrumented (free_static.cu is the static free kernel).
+#if JSS_STATIC_J == 0 || defined(JSS_PASS_CLOCKS)
 template <typename V>
 static int launch_free(void* state, const void* tab, const void* lanec, const void* bits,
                        unsigned long long seed, void* stats, void* ret_out, int B, int J, int M,
@@ -822,6 +885,7 @@ static int launch_free(void* state, const void* tab, const void* lanec, const vo
       (long long*)stats, (float*)ret_out, B, J, M, T, lane_offset, stride, scr_stride);
   return (int)cudaGetLastError();
 }
+#endif
 
 extern "C" {
 
@@ -845,6 +909,7 @@ int jss_rollout_driven(void* state, const void* tab, const void* lanec, const vo
   return (int)cudaGetLastError();
 }
 
+#if JSS_STATIC_J == 0
 int jss_rollout_free(void* state, const void* tab, const void* lanec, const void* bits,
                      unsigned long long seed, void* stats, void* ret_out, int B, int J, int M,
                      int T, int lane_offset, int lanes, int stride, int scr_stride, int smem,
@@ -861,5 +926,27 @@ int jss_rollout_free_i16(void* state, const void* tab, const void* lanec, const 
   return launch_free<int16_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J, M, T,
                               lane_offset, lanes, stride, scr_stride, smem, stream);
 }
+#endif
+
+#ifdef JSS_PASS_CLOCKS
+// The instrumented free kernel (int16 storage where `i16`), the cycles of
+// each pass summed per lane into `clocks` ((PASSES, B) int64): the draw, the
+// action's update, fast_forward, prioritization, check_no_op, the episode's
+// bookkeeping and reset.
+int jss_rollout_free_clocks(void* state, const void* tab, const void* lanec, const void* bits,
+                            unsigned long long seed, void* stats, void* ret_out, int B, int J, int M,
+                            int T, int lane_offset, int lanes, int stride, int scr_stride, int smem,
+                            void* stream, void* clocks, int i16) {
+  long long* p = (long long*)clocks;
+  const cudaError_t err = cudaMemcpyToSymbolAsync(jss_pass_clocks, &p, sizeof(p), 0,
+                                                  cudaMemcpyHostToDevice, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return i16 ? launch_free<int16_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J, M, T,
+                                    lane_offset, lanes, stride, scr_stride, smem, stream)
+             : launch_free<int32_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J, M, T,
+                                    lane_offset, lanes, stride, scr_stride, smem, stream);
+}
+int jss_pass_count(void) { return PASSES; }
+#endif
 
 }  // extern "C"

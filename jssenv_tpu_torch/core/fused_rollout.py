@@ -24,9 +24,13 @@ Kernel variants: a batch whose every lane is unpadded (``static_shape``)
 launches the kernels' static build for its shape (J, M), compiled at the
 first use of that shape, in which every bound is a compile-time constant:
 the counterpart of the JAX package's ``_static_lane`` / ``_fresh_static``.
-Padded and mixed-shape batches launch the general build, as the JAX package
-keeps ``static_lane=None`` for them. The answer is computed once per batch,
-with the lane inputs (``_lane_inputs``), and costs a launch no host read.
+For the driven kernel that is ``csrc/rollout.cu`` built for the shape; for
+the free kernel it is ``csrc/free_static.cu`` (a lane's state in registers,
+its boolean rows as warp-wide bitmasks), within that source's limits
+(``FREE_STATIC_MAX_J``, ``FREE_STATIC_MAX_M``; ``free_build``). Padded and
+mixed-shape batches launch the general build, as the JAX package keeps
+``static_lane=None`` for them. The answer is computed once per batch, with
+the lane inputs (``_lane_inputs``), and costs a launch no host read.
 
 Random bits: with ``bits=None`` the free rollout draws one 32-bit Philox4x32-10
 word per (step, lane), keyed by ``seed`` with counter (t, lane_offset + lane);
@@ -44,8 +48,10 @@ int16) buffer (``_to_lanes`` / ``_from_lanes``, rows in ``_ROWS`` order), the st
 to one (n_inst, 4, J, M) int32 stack of the batch's distinct instances with a
 per-lane instance index, so ragged batches need no lane grouping. The stack
 is built once per batch and cached (``_lane_inputs``). ``launch_geometry``
-sizes the launch: a warp per lane, each block's lanes with their state in
-shared memory.
+sizes the launch of ``csrc/rollout.cu``: a warp per lane, each block's lanes
+with their state in shared memory; ``free_static_geometry`` that of
+``csrc/free_static.cu``: a warp per lane, ``FREE_STATIC_LANES`` lanes a
+block, the state in registers.
 """
 
 from __future__ import annotations
@@ -64,8 +70,8 @@ _I32 = torch.int32
 
 # Kernel launches per kernel: each wrapper adds one where it launches.
 # "rollout_free_i16" counts the free kernel's int16 instantiation; a
-# "_static" key the static build of that kernel (any shape), the others the
-# general build.
+# "_static" key the static build of that kernel (any shape: for the free
+# kernel, csrc/free_static.cu), the others the general build.
 LAUNCHES: Dict[str, int] = {
     "rollout_driven": 0, "rollout_driven_static": 0,
     "rollout_free": 0, "rollout_free_static": 0,
@@ -192,7 +198,11 @@ def static_shape(state: EnvState) -> Optional[Tuple[int, int]]:
     """(J, M) when every lane of the batch is unpadded (``num_jobs ==
     jobs_pad`` and ``num_machines == machines_pad``): the kernels then
     launch their static build for that shape. None otherwise (padded or
-    mixed-shape lanes): the general build.
+    mixed-shape lanes): the general build. The free kernel's static build
+    (``csrc/free_static.cu``) holds at most ``FREE_STATIC_MAX_J`` jobs and
+    ``FREE_STATIC_MAX_M`` machines: an unpadded batch of a larger shape runs
+    the free kernel's general build (``free_build``), the driven kernel's
+    static one still.
 
     The port's form of the JAX package's ``_static_lane``
     (``jssenv_tpu/core/pallas_rollout.py:1018``), which also asks for a
@@ -293,34 +303,94 @@ def launch_geometry(J: int, M: int, vdt: torch.dtype = _I32) -> Geometry:
     return Geometry(_WARP, lanes, lanes * _WARP, state_words * 4 // item, scratch, lanes * lane_bytes)
 
 
+# The free kernel's static build (csrc/free_static.cu): a warp a lane with
+# its state in registers, FREE_STATIC_LANES lanes a block, no shared memory;
+# ceil(J/32) job slots and ceil(M/32) machine words a thread, at most 4 and 2.
+FREE_STATIC_LANES = 4  # kLanes in the source; its library's jss_free_static_lanes()
+FREE_STATIC_MAX_J = 128
+FREE_STATIC_MAX_M = 64
+
+
+class FreeStaticGeometry(NamedTuple):
+    lanes: int  # lanes (warps) a block
+    threads: int  # threads a block
+    blocks: int  # blocks of the grid
+    shared_bytes: int  # none: the state lives in registers
+
+
+def free_static_geometry(B: int) -> FreeStaticGeometry:
+    """The launch of ``csrc/free_static.cu`` on B lanes."""
+    lanes = FREE_STATIC_LANES
+    return FreeStaticGeometry(lanes, lanes * _WARP, -(-B // lanes), 0)
+
+
+def free_static_fits(shape: Optional[Tuple[int, int]]) -> bool:
+    """Whether the free kernel's static build takes the static ``shape``."""
+    return shape is not None and shape[0] <= FREE_STATIC_MAX_J and shape[1] <= FREE_STATIC_MAX_M
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(shape: Optional[Tuple[int, int]] = None) -> ctypes.CDLL:
     """The built ``csrc/rollout.cu`` with its C signatures declared: the
-    general build, or the static build of ``shape`` (J, M), built at its
-    first use (a failed build raises with the compiler's output)."""
+    general build (both kernels), or the static build of ``shape`` (J, M:
+    the driven kernel), built at its first use (a failed build raises with
+    the compiler's output)."""
     lib = _build.load("rollout", shape)
     P, I = ctypes.c_void_p, ctypes.c_int
     geometry = [I, I, I, I]  # lanes, state stride, scratch stride, shared bytes
     lib.jss_rollout_driven.argtypes = [P, P, P, P, P, P, I, I, I, I, I, *geometry, P]
     lib.jss_rollout_driven.restype = I
-    for fn in (lib.jss_rollout_free, lib.jss_rollout_free_i16):
-        fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, *geometry, P]
-        fn.restype = I
+    if shape is None:
+        for fn in (lib.jss_rollout_free, lib.jss_rollout_free_i16):
+            fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, *geometry, P]
+            fn.restype = I
+    _check_built(lib, "rollout", shape)
+    return lib
+
+
+def _check_built(lib: ctypes.CDLL, name: str, shape) -> None:
     for fn in (lib.jss_static_j, lib.jss_static_m):
-        fn.argtypes, fn.restype = [], I
+        fn.argtypes, fn.restype = [], ctypes.c_int
     built = (lib.jss_static_j(), lib.jss_static_m())
     if built != (tuple(shape) if shape else (0, 0)):
-        raise RuntimeError(f"the rollout library for shape {shape} was built for {built}")
+        raise RuntimeError(f"the {name} library for shape {shape} was built for {built}")
+
+
+@functools.lru_cache(maxsize=None)
+def _free_lib(shape: Tuple[int, int]) -> ctypes.CDLL:
+    """The built ``csrc/free_static.cu`` for ``shape`` with its C signatures
+    declared, built at its first use."""
+    lib = _build.load("free_static", shape)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.jss_free_static, lib.jss_free_static_i16):
+        fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, P]
+        fn.restype = I
+    lib.jss_free_static_lanes.argtypes, lib.jss_free_static_lanes.restype = [], I
+    _check_built(lib, "free_static", shape)
+    if lib.jss_free_static_lanes() != FREE_STATIC_LANES:
+        raise RuntimeError(f"the free_static library holds {lib.jss_free_static_lanes()} lanes a block, "
+                           f"not {FREE_STATIC_LANES}")
     return lib
+
+
+def kernel_jobs(shapes=(None,)):
+    """The (source, shape) builds that launches on the given shapes
+    (``None``: the general kernels) need."""
+    shapes = [None if s is None else tuple(s) for s in shapes]
+    return [("rollout", s) for s in shapes] + [("free_static", s) for s in shapes if free_static_fits(s)]
 
 
 def build_kernels(shapes=(None,)) -> None:
     """Build the general kernels (``None``) and the static builds of the
     given (J, M) shapes that are not built yet, every nvcc process started
     together, and load them."""
-    _build.build(["rollout"], [None if s is None else tuple(s) for s in shapes])
-    for s in shapes:
-        _lib(None if s is None else tuple(s))
+    jobs = kernel_jobs(shapes)
+    _build.build_jobs(jobs)
+    for name, s in jobs:
+        if name == "rollout":
+            _lib(s)
+        else:
+            _free_lib(s)
 
 
 def _variant(state: EnvState, general: bool) -> Optional[Tuple[int, int]]:
@@ -328,6 +398,19 @@ def _variant(state: EnvState, general: bool) -> Optional[Tuple[int, int]]:
     general build) for padded or mixed-shape lanes or when ``general``
     forces it (the tests and the smoke run both builds on one batch)."""
     return None if general else static_shape(state)
+
+
+def free_build(state: EnvState, general: bool = False) -> Optional[Tuple[int, int]]:
+    """The build a free launch on ``state`` takes: the static shape where
+    ``csrc/free_static.cu`` takes it, else None (the general build)."""
+    shape = _variant(state, general)
+    return shape if free_static_fits(shape) else None
+
+
+def free_kernel_job(state: EnvState) -> Tuple[str, Optional[Tuple[int, int]]]:
+    """The (source, shape) build of the free kernel ``state`` launches."""
+    shape = free_build(state)
+    return ("rollout", None) if shape is None else ("free_static", shape)
 
 
 def _tag(shape) -> str:
@@ -344,7 +427,7 @@ def _geometry_args(geo: Geometry):
     return geo.lanes, geo.state_stride, geo.scratch_stride, geo.shared_bytes
 
 
-def _check_launch(err: int, name: str, geo: Geometry) -> None:
+def _check_launch(err: int, name: str, geo) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch refused or failed with cudaError {err} ({geo})")
 
@@ -390,13 +473,16 @@ def launch_free(
     state: EnvState, buf, tab, lanec, bits, seed: int, stats, ret, T: int, vdt: torch.dtype = _I32,
     lane_offset: int = 0, _general: bool = False,
 ) -> None:
-    """One ``rollout_free_kernel`` launch on a light ``buf`` (no solution
-    rows), which it reads and does not write: per-lane stats (4, B) int64 and
-    returns (B,) float32 written. ``vdt`` picks the instantiation (int32 or
-    int16) and must be ``buf``'s dtype: a buffer is never converted here.
-    ``lane_offset``: the global index of lane 0 in the Philox counter. The
-    static build where every lane is unpadded, else the general one;
-    ``_general`` forces the general build."""
+    """One free-kernel launch on a light ``buf`` (no solution rows), which
+    it reads and does not write: per-lane stats (4, B) int64 and returns
+    (B,) float32 written. ``vdt`` picks the instantiation (int32 or int16)
+    and must be ``buf``'s dtype: a buffer is never converted here.
+    ``lane_offset``: the global index of lane 0 in the Philox counter. An
+    unpadded batch (``static_shape``) of at most ``FREE_STATIC_MAX_J`` jobs
+    and ``FREE_STATIC_MAX_M`` machines launches ``free_static_kernel`` of
+    ``csrc/free_static.cu``, built for its shape (``free_build``); any other
+    batch launches ``rollout_free_kernel``, the general build of
+    ``csrc/rollout.cu``. ``_general`` forces the general build."""
     if vdt not in (_I32, torch.int16):
         raise ValueError(f"the free kernel stores int32 or int16, not {vdt}")
     if buf.dtype != vdt:
@@ -406,19 +492,23 @@ def launch_free(
     if stats.dtype != torch.int64 or ret.dtype != torch.float32:
         raise ValueError("stats must be int64 and ret float32")
     i16 = vdt == torch.int16
-    geo = launch_geometry(state.jobs_pad, state.machines_pad, vdt)  # refuses what cannot fit, before a build
-    shape = _variant(state, _general)
-    lib = _lib(shape)
-    fn = lib.jss_rollout_free_i16 if i16 else lib.jss_rollout_free
+    shape = free_build(state, _general)
+    args = (buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), None if bits is None else bits.data_ptr(),
+            seed & (2**64 - 1), stats.data_ptr(), ret.data_ptr(), state.batch_size, state.jobs_pad,
+            state.machines_pad, T, int(lane_offset))
+    if shape is None:
+        geo = launch_geometry(state.jobs_pad, state.machines_pad, vdt)  # refuses what cannot fit, before a build
+        lib = _lib(None)
+        fn = lib.jss_rollout_free_i16 if i16 else lib.jss_rollout_free
+        name, extra = "rollout_free_kernel", _geometry_args(geo)
+    else:
+        geo = free_static_geometry(state.batch_size)
+        lib = _free_lib(shape)
+        fn = lib.jss_free_static_i16 if i16 else lib.jss_free_static
+        name, extra = "free_static_kernel", ()
     with torch.cuda.device(state.device):
-        err = fn(
-            buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(),
-            None if bits is None else bits.data_ptr(), seed & (2**64 - 1),
-            stats.data_ptr(), ret.data_ptr(), state.batch_size, state.jobs_pad,
-            state.machines_pad, T, int(lane_offset), *_geometry_args(geo),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _check_launch(err, ("rollout_free_kernel<int16>" if i16 else "rollout_free_kernel") + _tag(shape), geo)
+        err = fn(*args, *extra, torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, name + ("<int16>" if i16 else "") + _tag(shape), geo)
     LAUNCHES[("rollout_free_i16" if i16 else "rollout_free") + _key(shape)] += 1
 
 

@@ -1,0 +1,322 @@
+"""The free kernel's static build (``csrc/free_static.cu``): its premise, its
+dispatch and, on a card, its results.
+
+* The premise: the free rollout's stats read none of ``op_end_at``,
+  ``idle_frozen``, ``idle_total_alloc`` and ``wait4`` (the kernel keeps
+  none of them), shown on the plain twin, which steps them.
+* The dispatch: which build each of ``chip_smoke.py``'s FULL configurations,
+  each of ``tools/bench_torch.py``'s and each shape at and past the limits
+  takes, the launch's arguments and geometry (a stand-in library records
+  the call), and the builds ``fused_rollout.build_kernels`` starts.
+* On a card only (``-m cuda``): the kernel against the twin and the general
+  build, int16 against int32, batches that do not fill a block, starts in
+  the middle of an episode (``driven_start``), a refused launch. Whether a
+  card is present is decided inside the fixture."""
+
+import contextlib
+import ctypes
+import importlib.util
+import subprocess
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from jssenv_tpu_torch import instances as ti
+from jssenv_tpu_torch import vector as tv
+from jssenv_tpu_torch.core import _build
+from jssenv_tpu_torch.core import fused_rollout as fr
+from jssenv_tpu_torch.core import state as ts
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+DEAD = ("op_end_at", "idle_frozen", "idle_total_alloc", "wait4")
+
+
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; run `pytest -m cuda tests/test_torch_*.py` on the card")
+    return torch.device("cuda")
+
+
+def _module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def driven_start(state, steps, seed):
+    """``state`` (on the CPU) after ``steps`` driven steps of uniform random
+    legal actions drawn from ``seed``, with auto-reset: lanes mid-episode,
+    with running jobs, busy machines, work done and, after enough steps,
+    no-op pins, which a fresh state has none of."""
+    g = torch.Generator().manual_seed(seed)
+    for _ in range(steps):
+        state, _ = fr.rollout_driven(state, tv.random_legal_actions(g, state)[None], 1)
+    return state
+
+
+def _scrambled(state, seed):
+    g = torch.Generator().manual_seed(seed)
+    return state.replace(**{f: torch.randint(-(2**15), 2**15, getattr(state, f).shape, dtype=torch.int32,
+                                             generator=g) for f in DEAD})
+
+
+# ---------------------------------------------------------------------------
+# the premise: the dead fields
+# ---------------------------------------------------------------------------
+
+# case -> (source, B, T, driven steps of the mid-episode start)
+PREMISE = {
+    "ta01": (lambda: ti.get_instance("ta01"), 4, 300, 150),
+    "ta41": (lambda: ti.get_instance("ta41"), 2, 150, 300),
+    "rand6x5": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 6, 200, 47),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREMISE))
+def test_free_stats_read_no_dead_field(case):
+    """The twin's stats, float32 return included, are the same from a start
+    state whose dead fields are scrambled, mid-episode and across resets."""
+    src, B, T, steps = PREMISE[case]
+    state = tv.make_batch(src(), B, device="cpu")
+    # steps in, so that the fields are live values, not zeros
+    mid = driven_start(state, steps, 1)
+    assert int((mid.job_busy_for > 0).sum()) > 0 and int(mid.noop_pin.sum()) > 0
+    for start in (state, mid):
+        want = fr.free_lane_stats_reference(start, T, seed=5, lane_offset=3)
+        got = fr.free_lane_stats_reference(_scrambled(start, 2), T, seed=5, lane_offset=3)
+        for f in want:
+            assert torch.equal(got[f], want[f]), f
+    assert case == "ta41" or int(want["episodes"].sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the dispatch
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    return _module(ROOT / "chip_smoke.py", "chip_smoke_for_tests")
+
+
+def test_every_full_config_takes_its_build(smoke):
+    """Every unpadded FULL config of the smoke runs the new kernel, each
+    padded one the general build, in the value dtype the smoke expects."""
+    for name, _, _ in smoke.FULL:
+        src = smoke.source(ti, name)
+        state = tv.make_batch(src, 2 * max(1, len(getattr(src, "names", [0]))), device="cpu")
+        want = None if name in smoke.PADDED else (state.jobs_pad, state.machines_pad)
+        assert fr.free_build(state) == want, name
+        assert fr.free_build(state, general=True) is None
+        assert str(fr.value_dtype(state)).removeprefix("torch.") == smoke.FULL_DTYPE[name], name
+        assert fr.free_kernel_job(state) == (("rollout", None) if want is None else ("free_static", want))
+    assert all(fr.free_static_fits(s) for s in smoke.STATIC_SHAPES)
+
+
+def test_every_bench_config_takes_the_new_kernel():
+    bench = _module(ROOT / "tools" / "bench_torch.py", "bench_torch_for_tests")
+    for spec in ["ta01"] + [s for s, _ in bench.EXTRA]:
+        names = bench.parse_instances(spec)
+        src = ti.get_instance(names[0]) if len(names) == 1 else ti.get_instance_set(names)
+        state = tv.make_batch(src, len(names), device="cpu")
+        assert fr.free_kernel_job(state) == ("free_static", (state.jobs_pad, state.machines_pad)), spec
+
+
+def test_every_repo_instance_fits_the_new_kernel():
+    shapes = {(ti.get_instance(n).num_jobs, ti.get_instance(n).num_machines) for n in ti.instance_names()}
+    assert len(shapes) > 5 and all(fr.free_static_fits(s) for s in shapes)
+
+
+@pytest.mark.parametrize("shape,fits", [((128, 64), True), ((1, 1), True), ((129, 5), False), ((6, 65), False),
+                                        ((100, 20), True), ((200, 20), False)])
+def test_shape_limits(shape, fits):
+    assert fr.free_static_fits(shape) == fits
+    jobs = fr.kernel_jobs([None, shape])
+    assert jobs == [("rollout", None), ("rollout", shape)] + ([("free_static", shape)] if fits else [])
+
+
+def test_a_static_batch_past_the_limits_runs_the_general_build():
+    state = tv.make_batch(ti.random_instance(130, 3, (1, 9), seed=1), 2, device="cpu")
+    assert fr.static_shape(state) == (130, 3) and fr.free_build(state) is None
+    assert fr.free_kernel_job(state) == ("rollout", None)
+
+
+@pytest.mark.parametrize("B", [1, 4, 5, 37, 16384])
+def test_free_static_geometry(B):
+    geo = fr.free_static_geometry(B)
+    assert geo.lanes == fr.FREE_STATIC_LANES == 4 and geo.threads == 128 and geo.shared_bytes == 0
+    assert (geo.blocks - 1) * geo.lanes < B <= geo.blocks * geo.lanes
+
+
+class _FakeLib:
+    """Records each entry point's call and returns ``rc``."""
+
+    def __init__(self, rc=0):
+        self.calls, self.rc = [], rc
+
+    def __getattr__(self, name):
+        if not name.startswith("jss_"):
+            raise AttributeError(name)
+        return lambda *a: self.calls.append((name, a)) or self.rc
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """``launch_free`` on CPU tensors with stand-in libraries: the checks for
+    a CUDA state and the stream are stubbed; nothing runs."""
+    libs = types.SimpleNamespace(free=_FakeLib(), general=_FakeLib())
+    monkeypatch.setattr(fr, "_check_kernel_inputs", lambda *a, **k: None)
+    monkeypatch.setattr(fr, "_free_lib", lambda shape: libs.free)
+    monkeypatch.setattr(fr, "_lib", lambda shape=None: libs.general)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=7))
+    return libs
+
+
+def _launch(state, vdt, general=False, lane_offset=0, T=9):
+    buf = fr._to_lanes(state, with_solution=False, vdt=vdt)
+    tab, lanec = fr._lane_inputs(state)
+    stats = torch.empty((4, state.batch_size), dtype=torch.int64)
+    ret = torch.empty((state.batch_size,), dtype=torch.float32)
+    fr.launch_free(state, buf, tab, lanec, None, 11, stats, ret, T, vdt, lane_offset, _general=general)
+
+
+@pytest.mark.parametrize("vdt", [torch.int32, torch.int16], ids=["int32", "int16"])
+def test_an_unpadded_launch_calls_the_new_kernel(fake_card, vdt):
+    state = tv.make_batch(ti.get_instance("ta01"), 37, device="cpu")
+    fr.reset_launch_counts()
+    _launch(state, vdt, lane_offset=64)
+    (name, args), = fake_card.free.calls
+    assert not fake_card.general.calls
+    assert name == ("jss_free_static_i16" if vdt == torch.int16 else "jss_free_static")
+    # state, tab, lanec, bits, seed, stats, ret, B, J, M, T, lane_offset, stream
+    assert args[3] is None and args[4] == 11 and args[7:] == (37, 15, 15, 9, 64, 7)
+    key = "rollout_free_i16_static" if vdt == torch.int16 else "rollout_free_static"
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), **{key: 1})
+
+
+def test_padded_and_forced_launches_call_the_general_build(fake_card):
+    padded = tv.make_batch(ti.get_instance_set(["ta01", "ta41"]), 4, device="cpu")
+    unpadded = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
+    fr.reset_launch_counts()
+    _launch(padded, torch.int32)
+    _launch(unpadded, torch.int32, general=True)
+    assert not fake_card.free.calls and [c[0] for c in fake_card.general.calls] == ["jss_rollout_free"] * 2
+    geo = fr.launch_geometry(30, 20)
+    assert fake_card.general.calls[0][1][12:] == (geo.lanes, geo.state_stride, geo.scratch_stride,
+                                                  geo.shared_bytes, 7)
+    assert fr.LAUNCHES["rollout_free"] == 2 and sum(fr.LAUNCHES.values()) == 2
+
+
+def test_a_refused_launch_raises_and_counts_nothing(fake_card):
+    fake_card.free.rc = 1  # cudaErrorInvalidValue
+    state = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
+    fr.reset_launch_counts()
+    with pytest.raises(RuntimeError, match=r"free_static_kernel<static 15x15>: CUDA launch refused or failed"):
+        _launch(state, torch.int32)
+    assert not any(fr.LAUNCHES.values())
+
+
+def test_the_kernels_build_together(tmp_path, monkeypatch):
+    """``build_kernels`` starts the rollout builds and the new kernel's
+    static builds in one batch of nvcc processes; an instrumented build is a
+    library of its own."""
+    started = []
+
+    class FakeNvcc:
+        def __init__(self, cmd, **kw):
+            started.append(cmd)
+            self.cmd, self.returncode = cmd, 0
+
+        def communicate(self, timeout=None):
+            assert len(started) == 4  # every process started before the first is waited for
+            Path(self.cmd[self.cmd.index("-o") + 1]).write_bytes(b"")
+            return "ptxas info    : Used 40 registers\n", None
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "/fake/nvcc")
+    monkeypatch.setattr(subprocess, "Popen", FakeNvcc)
+    monkeypatch.setattr(fr, "_lib", lambda shape=None: None)
+    monkeypatch.setattr(fr, "_free_lib", lambda shape: None)
+    fr.build_kernels([None, (15, 15), (200, 5)])
+    got = sorted((Path(c[-1]).name, tuple(x for x in c if x.startswith("-DJSS_STATIC"))) for c in started)
+    s15, s200 = ("-DJSS_STATIC_J=15", "-DJSS_STATIC_M=15"), ("-DJSS_STATIC_J=200", "-DJSS_STATIC_M=5")
+    assert got == sorted([("rollout.cu", ()), ("rollout.cu", s15), ("rollout.cu", s200), ("free_static.cu", s15)])
+    plain = _build.library_path("free_static", (15, 15))
+    clocks = _build.library_path("free_static", (15, 15), ("JSS_PASS_CLOCKS",))
+    assert plain != clocks and "_pass_clocks_" in clocks.name and plain.name.startswith("libfree_static_15x15_")
+    assert _build.nvcc_flags((15, 15), ("JSS_PASS_CLOCKS",))[-1] == "-DJSS_PASS_CLOCKS"
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+# case -> (source, B, T, driven steps of a mid-episode start or 0)
+CARD = {
+    "ta01-B1": (lambda: ti.get_instance("ta01"), 1, 300, 0),
+    "ta01-B5": (lambda: ti.get_instance("ta01"), 5, 300, 0),
+    "rand6x5-B38": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 38, 300, 0),
+    "rand40x3": (lambda: ti.random_instance(40, 3, (1, 9), seed=7), 9, 400, 0),
+    "rand3x40": (lambda: ti.random_instance(3, 40, (1, 9), seed=8), 9, 400, 0),
+    "rand128x2": (lambda: ti.random_instance(128, 2, (1, 9), seed=9), 6, 600, 0),
+    "ta01-mid": (lambda: ti.get_instance("ta01"), 8, 300, 150),
+    "ta41-mid": (lambda: ti.get_instance("ta41"), 6, 300, 450),
+    "rand6x5-mid": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 38, 300, 47),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bits", "philox"])
+@pytest.mark.parametrize("case", sorted(CARD))
+def test_new_kernel_matches_twin_and_general_on_card(cuda_dev, case, mode):
+    src, B, T, steps = CARD[case]
+    state = tv.make_batch(src(), B, device="cpu")
+    if steps:
+        state = driven_start(state, steps, 0)
+        assert int(state.noop_pin.sum()) > 0 and int(state.work_done.sum()) > 0
+    state = ts.from_numpy(ts.to_numpy(state), device=cuda_dev)
+    assert fr.free_kernel_job(state)[0] == "free_static"
+    bits = None
+    if mode == "bits":
+        bits = torch.from_numpy(np.random.default_rng(4).integers(-(2**31), 2**31, size=(T, B)).astype(np.int32))
+        bits = bits.to(cuda_dev)
+    ref = fr.free_lane_stats_reference(state, T, 21, bits, lane_offset=B + 3)
+    runs = []
+    for vdt in (torch.int32, torch.int16) if fr.value_dtype(state) == torch.int16 else (torch.int32,):
+        for general in (False, True):
+            runs.append(fr._free_kernel(state, T, 21, bits, vdt, lane_offset=B + 3, general=general))
+    torch.cuda.synchronize()
+    for got in runs:
+        for f in ref:
+            assert torch.equal(got[f], ref[f]), f
+    # a mid-episode start's first episode misses the rewards before it
+    assert int(ref["episodes"].sum()) > 0 and (steps or int(ref["viol"].sum()) == 0)
+
+
+@pytest.mark.cuda
+def test_new_kernel_reports_its_occupancy_on_card(cuda_dev):
+    lib = fr._free_lib((15, 15))
+    fn = lib.jss_free_static_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    assert all(fn(i16) >= 1 for i16 in (0, 1))
+
+
+@pytest.mark.cuda
+def test_new_kernel_refuses_another_shape_on_card(cuda_dev, monkeypatch):
+    """A library built for another shape refuses the batch before anything
+    runs; the wrapper raises and counts nothing."""
+    state = tv.make_batch(ti.get_instance("ta01"), 8, device=cuda_dev)
+    other = fr._free_lib((6, 5))
+    monkeypatch.setattr(fr, "_free_lib", lambda shape: other)
+    before = dict(fr.LAUNCHES)
+    with pytest.raises(RuntimeError, match="free_static_kernel<int16><static 15x15>: CUDA launch refused"):
+        fr.free_lane_stats(state, 4, seed=1)
+    assert fr.LAUNCHES == before

@@ -1,0 +1,431 @@
+"""The CUDA sources of the free rollout, run on the CPU through a shim.
+
+``csrc/free_static.cu`` (the free kernel's static build, one library per
+shape) and the general build of ``csrc/rollout.cu``'s free kernel are
+compiled as C++ (``g++ -std=c++20``) against ``SHIM`` below: every CUDA
+thread of a block is a fiber of one host thread, the blocks of a grid run
+one after another, and per warp a barrier of its 32 fibers around a 32-slot
+array stands for ``__syncwarp`` and every vote, shuffle and reduction; the
+dynamic shared memory is one static array. One host thread switching fibers
+at each collective needs one core and no scheduler, so the run takes as
+long beside other busy processes as alone. Only the
+device part of each source is compiled (up to ``// ---- host side``); the
+entry points below launch its kernels as the source's own do. The libraries
+go into a temporary directory.
+
+Each case runs in a process of this file (``python
+tests/test_torch_kernel_shim.py LIBDIR CASE``) with a time limit of its own,
+and holds each kernel's per-lane stats and float32 returns bit for bit
+against ``fused_rollout.free_lane_stats_reference``: int32 and int16 storage
+where the values fit, Philox words with a non-zero ``lane_offset`` and caller
+bits, from fresh states and from states a few hundred driven steps into an
+episode (``START``: running jobs, no-op pins, work done and busy machines,
+which a fresh state has none of)."""
+
+import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from jssenv_tpu_torch import instances as ti  # noqa: E402
+from jssenv_tpu_torch import vector as tv  # noqa: E402
+from jssenv_tpu_torch.core import fused_rollout as fr  # noqa: E402
+from test_torch_free_static import driven_start  # noqa: E402
+
+CSRC = ROOT / "jssenv_tpu_torch" / "core" / "csrc"
+
+SHIM = r"""
+// CPU stand-in for the CUDA device code of csrc/: every CUDA thread of a
+// block is a fiber (ucontext) of one host thread, switched cooperatively
+// at the warp's collectives, so the run needs one core and no scheduler.
+#pragma once
+#include <ucontext.h>
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdlib>
+#include <functional>
+#include <memory>
+#include <vector>
+using std::max;
+using std::min;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __shared__
+#define __constant__
+#define __launch_bounds__(...)
+#define __align__(n)
+struct dim3 { unsigned x = 1, y = 1, z = 1; };
+dim3 threadIdx, blockIdx, blockDim, gridDim;  // threadIdx: the running fiber's
+alignas(16) unsigned char smem[1 << 20];
+inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
+template <typename T> inline T __ldg(const T* p) { return *p; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int atomicMin(int* p, int v) {  // one host thread: no race
+  const int old = *p;
+  if (v < old) *p = v;
+  return old;
+}
+struct Fiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  bool done = false;
+};
+std::vector<Fiber> g_fibers;
+int g_cur;
+ucontext_t g_main;
+std::function<void()> g_body;
+// to the next fiber of the block that has not returned (none: the launch)
+static void switch_on() {
+  const int me = g_cur, n = (int)g_fibers.size();
+  for (int k = 1; k <= n; ++k) {
+    const int nx = (me + k) % n;
+    if (!g_fibers[nx].done) {
+      if (nx == me) return;
+      g_cur = nx;
+      threadIdx.x = nx;
+      swapcontext(&g_fibers[me].ctx, &g_fibers[nx].ctx);
+      threadIdx.x = me;  // resumed
+      return;
+    }
+  }
+  swapcontext(&g_fibers[me].ctx, &g_main);
+}
+static void fiber_entry() {
+  g_body();
+  g_fibers[g_cur].done = true;
+  switch_on();
+}
+// a barrier of `n` fibers: the last to arrive goes on, the others yield
+// until the phase moves
+struct Barrier {
+  int count = 0;
+  unsigned phase = 0;
+  void arrive_and_wait(int n) {
+    const unsigned ph = phase;
+    if (++count == n) {
+      count = 0;
+      ++phase;
+      return;
+    }
+    while (phase == ph) switch_on();
+  }
+};
+struct Warp {
+  Barrier bar;
+  int64_t slot[2][32];  // by phase parity: a collective reads one while the next writes the other
+};
+std::vector<Warp> g_warps;
+Barrier g_block;
+static Warp& warp(unsigned mask) {
+  if (mask != 0xffffffffu) std::abort();  // the sources sync whole warps only
+  return g_warps[threadIdx.x / 32];
+}
+inline void __syncwarp(unsigned m = 0xffffffffu) { warp(m).bar.arrive_and_wait(32); }
+inline void __syncthreads() { g_block.arrive_and_wait((int)blockDim.x); }
+template <typename F>
+static int64_t reduce(unsigned m, int64_t v, F f) {
+  Warp& w = warp(m);
+  int64_t* slot = w.slot[w.bar.phase & 1];
+  slot[threadIdx.x % 32] = v;
+  w.bar.arrive_and_wait(32);
+  int64_t acc = slot[0];
+  for (int i = 1; i < 32; ++i) acc = f(acc, slot[i]);
+  return acc;
+}
+inline int __reduce_add_sync(unsigned m, int v) {
+  return (int)reduce(m, v, [](int64_t a, int64_t b) { return (int64_t)(int)((uint32_t)a + (uint32_t)b); });
+}
+inline int __reduce_min_sync(unsigned m, int v) {
+  return (int)reduce(m, v, [](int64_t a, int64_t b) { return std::min(a, b); });
+}
+inline int __reduce_max_sync(unsigned m, int v) {
+  return (int)reduce(m, v, [](int64_t a, int64_t b) { return std::max(a, b); });
+}
+inline unsigned __reduce_or_sync(unsigned m, unsigned v) {
+  return (unsigned)reduce(m, (int64_t)v, [](int64_t a, int64_t b) { return a | b; });
+}
+inline bool __any_sync(unsigned m, bool p) { return reduce(m, p, [](int64_t a, int64_t b) { return a | b; }) != 0; }
+inline unsigned __ballot_sync(unsigned m, bool p) {
+  return (unsigned)reduce(m, (int64_t)p << (threadIdx.x % 32), [](int64_t a, int64_t b) { return a | b; });
+}
+template <typename T>
+inline T __shfl_sync(unsigned m, T v, int src, int width = 32) {
+  Warp& w = warp(m);
+  int64_t* slot = w.slot[w.bar.phase & 1];
+  slot[threadIdx.x % 32] = (int64_t)v;
+  w.bar.arrive_and_wait(32);
+  return (T)slot[src % width];
+}
+typedef void* cudaStream_t;
+inline void launch(int grid, int block, std::function<void()> body) {
+  constexpr size_t kStack = 1 << 16;
+  blockDim.x = block;
+  gridDim.x = grid;
+  g_body = std::move(body);
+  for (int bx = 0; bx < grid; ++bx) {
+    blockIdx.x = bx;
+    g_warps.assign(block / 32, Warp{});
+    g_block = Barrier{};
+    g_fibers.clear();
+    g_fibers.resize(block);
+    for (auto& f : g_fibers) {
+      f.stack.reset(new char[kStack]);
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = f.stack.get();
+      f.ctx.uc_stack.ss_size = kStack;
+      f.ctx.uc_link = nullptr;
+      makecontext(&f.ctx, fiber_entry, 0);
+    }
+    g_cur = 0;
+    threadIdx.x = 0;
+    swapcontext(&g_main, &g_fibers[0].ctx);
+  }
+}
+"""
+
+# The C entry points of each library, with the arguments of the source's own.
+STATIC_ENTRY = r"""
+extern "C" int shim_free(const void* state, const void* tab, const void* lanec, const void* bits,
+                         unsigned long long seed, void* stats, void* ret, int B, int T, int lane_offset,
+                         int i16) {
+  const int grid = (B + kLanes - 1) / kLanes;
+  if (i16)
+    launch(grid, kLanes * 32, [=] {
+      free_static_kernel<int16_t>((const int16_t*)state, (const int*)tab, (const int*)lanec,
+                                  (const uint32_t*)bits, seed, (long long*)stats, (float*)ret, B, T, lane_offset);
+    });
+  else
+    launch(grid, kLanes * 32, [=] {
+      free_static_kernel<int32_t>((const int32_t*)state, (const int*)tab, (const int*)lanec,
+                                  (const uint32_t*)bits, seed, (long long*)stats, (float*)ret, B, T, lane_offset);
+    });
+  return kLanes;
+}
+extern "C" int shim_mod_small(unsigned x, int d) { return mod_small(x, d); }
+"""
+
+GENERAL_ENTRY = r"""
+extern "C" int shim_free(const void* state, const void* tab, const void* lanec, const void* bits,
+                         unsigned long long seed, void* stats, void* ret, int B, int J, int M, int T,
+                         int lane_offset, int lanes, int stride, int scr_stride, int i16) {
+  const int grid = (B + lanes - 1) / lanes;
+  if (i16)
+    launch(grid, lanes * 32, [=] {
+      rollout_free_kernel<int16_t, 0, 0>((const int16_t*)state, (const int*)tab, (const int*)lanec,
+                                         (const uint32_t*)bits, seed, (long long*)stats, (float*)ret, B, J, M,
+                                         T, lane_offset, stride, scr_stride);
+    });
+  else
+    launch(grid, lanes * 32, [=] {
+      rollout_free_kernel<int32_t, 0, 0>((const int32_t*)state, (const int*)tab, (const int*)lanec,
+                                         (const uint32_t*)bits, seed, (long long*)stats, (float*)ret, B, J, M,
+                                         T, lane_offset, stride, scr_stride);
+    });
+  return 0;
+}
+"""
+
+# case -> (instance source, B, T, static shape or None (a padded batch: the
+# general build only), the runs: (build, storage type, random words)); Philox
+# words are drawn with lane_offset 5. Together the runs cover both builds in
+# int32 and int16, Philox and bits.
+I32, I16 = torch.int32, torch.int16
+CASES = {
+    "ta01": (lambda: ti.get_instance("ta01"), 8, 300, (15, 15),
+             (("static", I16, "philox"), ("static", I32, "bits"), ("general", I16, "bits"),
+              ("general", I32, "philox"))),
+    "rand6x5": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 8, 300, (6, 5),
+                (("static", I32, "philox"), ("static", I16, "bits"), ("general", I16, "philox"))),
+    "2x2": (lambda: ti.random_instance(2, 2, (1, 9), seed=5), 8, 60, (2, 2),
+            (("static", I16, "philox"), ("static", I32, "bits"), ("general", I32, "philox"))),
+    "ta41": (lambda: ti.get_instance("ta41"), 4, 200, (30, 20),
+             (("static", I32, "philox"), ("static", I32, "bits"), ("general", I32, "bits"))),
+    # two job slots a thread (J = 40); two machine words (M = 40)
+    "rand40x3": (lambda: ti.random_instance(40, 3, (1, 9), seed=7), 4, 300, (40, 3), (("static", I16, "philox"),)),
+    "rand3x40": (lambda: ti.random_instance(3, 40, (1, 9), seed=8), 4, 300, (3, 40), (("static", I16, "bits"),)),
+    # a ragged batch of two shapes, padded
+    "ta01+ta41": (lambda: ti.get_instance_set(["ta01", "ta41"]), 4, 300, None,
+                  (("general", I32, "philox"), ("general", I32, "bits"))),
+    # mid-episode starts (START)
+    "ta01-mid": (lambda: ti.get_instance("ta01"), 8, 300, (15, 15), (("static", I16, "philox"), ("static", I32, "bits"))),
+    "ta41-mid": (lambda: ti.get_instance("ta41"), 4, 300, (30, 20), (("static", I32, "philox"),)),
+    "rand6x5-mid": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 8, 300, (6, 5), (("static", I16, "bits"),)),
+}
+# case -> (driven steps, seed of the random legal actions) before the free
+# rollout starts: every lane mid-episode, with no-op pins in some
+START = {"ta01-mid": (150, 0), "ta41-mid": (450, 1), "rand6x5-mid": (47, 0)}
+TIME_LIMIT_S = 90  # a case's process; each takes 2-8 s alone
+LANE_OFFSET = 5
+
+
+def _source(name):
+    """(C++ text of the source's device part) of csrc/<name>.cu."""
+    text = (CSRC / f"{name}.cu").read_text()
+    device = text.split("// ---- host side")[0]
+    return device.replace("#include <cuda_runtime.h>", '#include "shim.h"')
+
+
+def build(libdir: Path) -> dict:
+    """Compile the general library and one static library per shape of
+    CASES, every g++ started together; returns {shape or None: path}."""
+    libdir.mkdir(parents=True, exist_ok=True)
+    (libdir / "shim.h").write_text(SHIM)
+    jobs = {None: ("rollout", GENERAL_ENTRY, [])}
+    for _, _, _, shape, _ in CASES.values():
+        if shape is not None:
+            jobs[shape] = ("free_static", STATIC_ENTRY, [f"-DJSS_STATIC_J={shape[0]}", f"-DJSS_STATIC_M={shape[1]}"])
+    procs, out = [], {}
+    for shape, (name, entry, defs) in jobs.items():
+        tag = "general" if shape is None else f"{shape[0]}x{shape[1]}"
+        cpp, lib = libdir / f"{name}_{tag}.cpp", libdir / f"lib{name}_{tag}.so"
+        cpp.write_text(_source(name) + entry)
+        cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", *defs, "-o", str(lib), str(cpp)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        out[shape] = lib
+    for cmd, p in procs:
+        log, _ = p.communicate(timeout=300)
+        assert p.returncode == 0, f"{' '.join(cmd)}\n{log}"
+    return out
+
+
+def _run_lib(lib, state, T, vdt, seed, bits, lane_offset, general):
+    """One launch of the shim library on the port's kernel inputs; per-lane
+    stats as ``fused_rollout._free_kernel`` returns them."""
+    B = state.batch_size
+    buf = fr._to_lanes(state, with_solution=False, vdt=vdt)
+    tab, lanec = fr._lane_inputs(state)
+    stats = torch.zeros((4, B), dtype=torch.int64)
+    ret = torch.zeros((B,), dtype=torch.float32)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    args = [buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), None if bits is None else bits.data_ptr(),
+            seed & (2**64 - 1), stats.data_ptr(), ret.data_ptr(), B]
+    i16 = int(vdt == torch.int16)
+    if general:
+        geo = fr.launch_geometry(state.jobs_pad, state.machines_pad, vdt)
+        args += [state.jobs_pad, state.machines_pad, T, lane_offset, geo.lanes, geo.state_stride,
+                 geo.scratch_stride, i16]
+    else:
+        args += [T, lane_offset, i16]
+    lib.shim_free.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P] + [I] * (len(args) - 7)
+    lib.shim_free.restype = I
+    lib.shim_free(*args)
+    return {"episodes": stats[0], "mk_sum": stats[1], "mk_min": stats[2], "viol": stats[3], "ret": ret}
+
+
+def _lib(libdir, general, shape):
+    tag = "rollout_general" if general else f"free_static_{shape[0]}x{shape[1]}"
+    return ctypes.CDLL(str(Path(libdir) / f"lib{tag}.so"))
+
+
+def run_case(libdir: str, case: str) -> None:
+    """The body of one case (a process of its own): each of its runs
+    against the twin on the same words."""
+    torch.set_num_threads(1)
+    src, B, T, shape, runs = CASES[case]
+    state = tv.make_batch(src(), B, device="cpu")
+    if case in START:
+        state = driven_start(state, *START[case])
+    assert fr.static_shape(state) == shape
+    bits = torch.from_numpy(np.random.default_rng(11).integers(-(2**31), 2**31, size=(T, B)).astype(np.int32))
+    words = {"philox": (97, None, LANE_OFFSET), "bits": (0, bits, 0)}
+    refs = {}
+    for build_, vdt, mode in runs:
+        assert vdt == torch.int32 or fr.value_dtype(state) == torch.int16, f"{case} does not fit int16"
+        if mode not in refs:
+            refs[mode] = fr.free_lane_stats_reference(state, T, *words[mode])
+            # a mid-episode start's first episode misses the rewards before it
+            assert case in START or int(refs[mode]["viol"].sum()) == 0
+        ref = refs[mode]
+        got = _run_lib(_lib(libdir, build_ == "general", shape), state, T, vdt, *words[mode], build_ == "general")
+        tag = f"{case} {build_} {vdt} {mode}"
+        for f in ref:
+            assert torch.equal(got[f], ref[f]), f"{tag}: {f} {got[f].tolist()} != {ref[f].tolist()}"
+        print(f"{tag}: equal to the twin ({int(ref['episodes'].sum())} episodes)")
+    assert sum(int(r["episodes"].sum()) for r in refs.values()) > 0 or case == "ta41", f"{case}: no episode ended"
+
+
+def run_dead_fields(libdir: str) -> None:
+    """A scrambled op_end_at, idle_frozen, idle_total_alloc and wait4 leave
+    the static kernel's stats as they were, from a fresh state and from one
+    mid-episode: it reads none of them."""
+    torch.set_num_threads(1)
+    fresh = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
+    lib = _lib(libdir, False, (15, 15))
+    for state in (fresh, driven_start(fresh, *START["ta01-mid"])):
+        want = _run_lib(lib, state, 120, torch.int32, 3, None, 0, general=False)
+        g = torch.Generator().manual_seed(1)
+        junk = {f: torch.randint(-999, 999, getattr(state, f).shape, dtype=torch.int32, generator=g)
+                for f in ("op_end_at", "idle_frozen", "idle_total_alloc", "wait4")}
+        got = _run_lib(lib, state.replace(**junk), 120, torch.int32, 3, None, 0, general=False)
+        assert all(torch.equal(got[f], want[f]) for f in want)
+        ref = fr.free_lane_stats_reference(state, 120, 3, None, 0)
+        assert all(torch.equal(want[f], ref[f]) for f in ref)
+
+
+def _in_process(libdir, case):
+    """Run ``case`` in a process of this file, under its time limit."""
+    try:
+        proc = subprocess.run([sys.executable, __file__, str(libdir), case], capture_output=True, text=True,
+                              timeout=TIME_LIMIT_S, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    except subprocess.TimeoutExpired as e:
+        pytest.fail(f"{case}: no result in {TIME_LIMIT_S} s (a hung warp collective?)\n{e.stdout}")
+    assert proc.returncode == 0, f"{case}:\n{proc.stdout}\n{proc.stderr}"
+
+
+@pytest.fixture(scope="module")
+def libdir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("kernel_shim")
+    build(d)
+    return d
+
+
+def test_shim_builds_one_library_per_shape(libdir):
+    names = sorted(p.name for p in libdir.glob("*.so"))
+    shapes = sorted({f"{c[3][0]}x{c[3][1]}" for c in CASES.values() if c[3]})
+    assert names == sorted(["librollout_general.so"] + [f"libfree_static_{s}.so" for s in shapes])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_source_matches_twin_on_cpu(libdir, case):
+    _in_process(libdir, case)
+
+
+def test_static_kernel_reads_no_dead_field_on_cpu(libdir):
+    _in_process(libdir, "dead-fields")
+
+
+def test_draw_modulo_without_division_on_cpu(libdir):
+    """free_static.cu's x mod d by a multiply-high (every divisor the draw
+    meets at J = 128, x < 2^31) equals the remainder."""
+    src = (CSRC / "free_static.cu").read_text().split("// ---- host side")[0]
+    cpp = libdir / "mod_small_128.cpp"
+    cpp.write_text(src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
+                   + 'extern "C" int shim_mod_small(unsigned x, int d) { return mod_small(x, d); }\n')
+    lib = libdir / "libmod_small_128.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-DJSS_STATIC_J=128",
+                    "-DJSS_STATIC_M=2", "-o", str(lib), str(cpp)], check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).shim_mod_small
+    fn.argtypes, fn.restype = [ctypes.c_uint, ctypes.c_int], ctypes.c_int
+    xs = np.concatenate([np.random.default_rng(0).integers(0, 2**31, 300), np.arange(64), 2**31 - 1 - np.arange(64),
+                         2**np.arange(31), 2**np.arange(1, 31) - 1])
+    bad = [(int(x), d) for d in range(1, 130) for x in xs if fn(int(x), d) != int(x) % d]
+    assert not bad, bad[:10]
+
+
+if __name__ == "__main__":
+    if sys.argv[2] == "dead-fields":
+        run_dead_fields(sys.argv[1])
+    else:
+        run_case(sys.argv[1], sys.argv[2])

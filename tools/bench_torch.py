@@ -145,7 +145,7 @@ def run_config(instance_spec: str, batch: int, steps: int, repeats: int, device)
 
     # the build the batch launches: the static one of its shape where every
     # lane is unpadded (all three configurations), else the general one
-    cold = on_card and not _build.library_path("rollout", fused_rollout.static_shape(state)).exists()
+    cold = on_card and not _build.library_path(*fused_rollout.free_kernel_job(state)).exists()
     fused_rollout.reset_launch_counts()
     # the warm-up runs the full step count, as bench.py:149-156
     t0 = time.perf_counter()
