@@ -6,18 +6,19 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power limit;
-2. build ``core/csrc/rollout.cu`` with nvcc, the general kernels and the
-   static build of every shape the run meets (``STATIC_SHAPES``), and
-   ``core/csrc/free_static.cu`` (the free kernel's static build) for each of
-   those shapes, with the instrumented static free kernels of both sources
+2. build with nvcc the general kernels of ``core/csrc/rollout.cu`` and,
+   for every shape the run meets (``STATIC_SHAPES``), the static builds of
+   ``core/csrc/driven_static.cu`` and ``core/csrc/free_static.cu`` (a lane's
+   state in registers, on ``core/csrc/static_lane.cuh``), with the
+   instrumented static free kernels of rollout.cu and free_static.cu
    (``-DJSS_PASS_CLOCKS``, read in phase 7c), every nvcc started together,
    and print each build's ``-Xptxas -v`` report (registers, stack, spills),
    the launch geometry of each FULL config (``fused_rollout.launch_geometry``:
-   a warp a lane, lanes a block, shared bytes) and, for the new kernel at
-   each unpadded FULL config, its resident warps an SM and waves. A batch
-   whose every lane is unpadded launches the static build of its shape, a
-   padded one the general build (``fused_rollout.static_shape``,
-   ``free_build``);
+   a warp a lane, lanes a block, shared bytes), and the resident warps an
+   SM and waves of the driven static build at each shape and of the free
+   one at each unpadded FULL config. A batch whose every lane is unpadded
+   launches the static builds of its shape, a padded one the general build
+   (``fused_rollout.static_shape``, ``driven_build``, ``free_build``);
 3. driven parity: the plain twin (``vector.step_autoreset``'s two calls,
    under ``random_legal_actions``) on the card records actions, raw rewards,
    episode ends and the final state; ``fused_rollout.rollout_driven``
@@ -28,7 +29,8 @@ Phases (any failure raises and the script exits non-zero):
    B=16384 on the full state (the policy loop) and ta01 B=8192 on the light
    state (``vector.strip_solution``, as the learner and serving run it). On
    every unpadded batch the general build runs the same actions too and must
-   be bit-equal to the static one;
+   be bit-equal to the static one; every launch leaves its input state
+   unchanged and writes masks of the bytes 0 and 1 only (``hold_driven``);
 4. free parity, bits mode: the same (T, B) bits through the kernel and the
    plain twin; per-lane integer stats equal, return within rel 1e-5, no
    reward-identity violations. Where a case's values fit int16, both
@@ -44,7 +46,9 @@ Phases (any failure raises and the script exits non-zero):
    int16 on ta01, ta01-ta10 and ta01+ta11 (which launch the int16
    instantiation) and int32 on the others. Also the policy loop on the padded
    ta01+ta11 batch (B=8192, 300 steps; the general driven kernel, each lane's
-   reward identity at its episode ends, from the kernel's own ends);
+   reward identity at its episode ends, from the kernel's own ends); every
+   ``LOOP_HOLD``-th step of both loops held against the twin and, on the
+   unpadded batch, the general build (``hold_driven``, uncounted);
 6. the plain twin on the same full-width inputs and seed: lane by lane equal
    to the kernel in the build the batch takes and, on an unpadded batch, in
    the general build too (every stat and the float32 return), and on an
@@ -61,15 +65,21 @@ Phases (any failure raises and the script exits non-zero):
    the least time the card could take, env-steps/s; with
    ``--against ROOT``, the kernels of another checkout (e.g. the parent
    commit's, unpacked with ``git archive``) and this one's in turns (root,
-   this, this, root), each turn a process of its own;
+   this, this, root), each turn a process of its own. The driven rows also
+   time the whole ``rollout_driven`` call (``call_timer``: the device time of
+   all it enqueues, its host call, the synchronised host clock), in turns
+   too; their bound counts the bytes of the state's fields each way at their
+   own dtypes, the tables, the actions, rewards and ends;
 7c. where a step's cycles go in the static free kernel, in both designs
    (rollout.cu's and free_static.cu's), on each unpadded FULL config:
    the instrumented builds' clock64 per pass (the draw, the action's update,
    fast_forward, prioritization, check_no_op, the reset), mean cycles a
    lane-step, their stats equal to the plain kernel's (never timed or
    counted);
-8. where a policy-loop step's time goes, stage by stage (host clock); with
-   ``--profile`` also the device's busy share under ``torch.profiler``;
+8. where a policy-loop step's time goes, stage by stage on the driven static
+   build (host clock: the draw, the lane inputs, the new state's
+   allocations, the input fields, the launch); with ``--profile`` also the
+   device's busy share under ``torch.profiler``;
 9. the dispatching-rule sweep: all 7 rules on ragged ta01-ta10, 10240 lanes
    per rule, through ``compare_rules_batched`` on the card, timed per rule.
    Each rule's episodes are also run with every chosen action checked
@@ -88,19 +98,24 @@ Phases (any failure raises and the script exits non-zero):
    step one driven launch: at bfloat16 under the JAX package's test bounds
    (``ta41_distill`` recorded only), at float32 equal to the JAX package's
    float32 makespans, one run with 63 sampled lanes; the reward identity of
-   each greedy episode from the kernel's rewards and ends;
+   each greedy episode from the kernel's rewards and ends; a few calls of
+   each run held against the twin and the general build (``SERVING_HOLDS``);
 13. training at full width: the JAX package's learner configuration (ta01,
    B=8192, unroll 32, 256x256 ``MaskedPolicyNet``, REINFORCE), then 2 PPO
    updates at that shape and 2 ``perjob`` updates on ta41 (B=1024, rich
    features): finite losses, every parameter moved, exactly ``unroll_steps``
-   driven launches an update, the reward identity on every lane that ends;
+   driven launches an update, the reward identity on every lane that ends,
+   every 8th call of the warm-up update held against the twin and the
+   general build;
    ms an update, env-steps/s, the rollout/learn split (CUDA events), the
    busy share with ``--profile``; then the driven kernel held against its
    twin on the learner's last recorded step (light state, every state
    field, rewards and ends equal) and timed there, ends written;
 14. data and tensor parallel on this card: (a) a 1-rank NCCL group, the
    learner configuration of phase 13 through ``make_train_step(config,
-   mesh)``, 4 updates against the plain step from the same seed (actions
+   mesh)``, 4 updates against the plain step from the same seed (every 8th
+   driven call of each run's first update, the ranks' too, held against the
+   twin and the general build; actions
    equal, loss and params within rel 1e-6, bit-equality reported), ms an
    update and the NCCL all-reduce's device time; (b) 2 ranks on this card
    over gloo (processes of this script, ``--rank-worker``), dp=2 then mp=2,
@@ -141,10 +156,13 @@ Phases (any failure raises and the script exits non-zero):
    tool runs, replayed on the native engine to the row's makespan; gaps, ms
    a refine iteration); the distillation tool's ``collect`` of ta41 and
    ta42 (equal to the leading rows of ``models_data/distill_30x20_pairs.npz``,
-   in order) and its float32 ``eval`` of ``ta41_distill`` on ta41 (2658);
+   in order) and its float32 ``eval`` of ``ta41_distill`` on ta41 (2658;
+   every ``EVAL_HOLD``-th driven call in its process held against the twin
+   and the general build, ``HOLD_DRIVEN``);
    ``tools/bench_scaling_torch.py`` at its defaults (256 lanes a card, 128
    steps; one row a card count up to the cards there are: on one card the
-   1-rank NCCL row), every env step one driven launch a rank; and
+   1-rank NCCL row), every env step one driven launch a rank, its batch
+   also stepped in this process with every 8th step held; and
    ``tools/gen_golden_torch.py`` on ta12 (no entry in the golden file; batch
    1024, 2 sweeps, 200 refine iterations) into a copy of the golden file,
    its entry replayed to its makespan on the card and on the native engine,
@@ -186,6 +204,9 @@ INT32_OPS_PER_S = 67e12 / 4
 # at 1.98 GHz, far above the host's launch call): the card is still busy when
 # the launch is issued, so the events around it time the kernel alone
 QUEUE_CYCLES = 1_000_000
+# the same ahead of a whole rollout_driven call (about 2 ms: longer than the
+# host's issue of the general path's layout copies and launch)
+CALL_QUEUE_CYCLES = 4_000_000
 
 SEED = 20261016
 # (config, B, T) of each phase; see the module docstring
@@ -211,6 +232,7 @@ FULL_DTYPE = {"ta01": "int16", "ta01-ta10": "int16", "ta41-ta50": "int32", "ta71
 PADDED = ("ta01+ta11", "ta01+ta41")
 MAIN_B = 16384  # ta01 lanes of the policy-in-the-loop main path
 LOOP_STEPS = 256  # its steps, one driven launch each
+LOOP_HOLD = 32  # every 32nd step of phase 5's policy loops held against the twin (and the general build)
 # the policy loop on a padded batch (the general driven kernel), long enough
 # for ta01's random-policy episodes (about 260 steps) to end
 PAD_LOOP = ("ta01+ta11", 8192, 300)
@@ -249,6 +271,9 @@ SERVING = (
     ("ta01_policy_rich", "ta01", "bfloat16", 63, 1400),
 )
 SERVING_QUICK = (("ta01_policy_rich", "ta01", "float32", 0, 1347), ("ta01_policy", "ta01", "bfloat16", 7, 1500))
+# a serving run's calls held against the twin and the general build: every
+# 8th of its first 32 (their time is in the run's host-clock seconds)
+SERVING_HOLDS = (8, 32)
 # phase 13: (tag, instance, B, updates, LearnerConfig fields); the first is the
 # JAX package's learner configuration (docs/BENCHMARKS.md: ta01, B=8192,
 # unroll 32, 256x256 MaskedPolicyNet, REINFORCE)
@@ -268,9 +293,12 @@ TRAIN_QUICK = (
 # pallas_rollout.py _static_lane :1018, _fresh_static :503)
 SOURCE = "jssenv_tpu_torch/core/csrc/rollout.cu"
 FREE_SOURCE = "jssenv_tpu_torch/core/csrc/free_static.cu"  # the free kernel's static build
+DRIVEN_SOURCE = "jssenv_tpu_torch/core/csrc/driven_static.cu"  # the driven kernel's static build
+LANE_HEADER = "jssenv_tpu_torch/core/csrc/static_lane.cuh"  # the step math of both static builds
 KERNELS = {
     "rollout_driven": ("rollout_driven_kernel", "jssenv_tpu/core/pallas_rollout.py:598", SOURCE),
-    "rollout_driven_static": ("rollout_driven_kernel<static J,M>", "jssenv_tpu/core/pallas_rollout.py:598", SOURCE),
+    "rollout_driven_static": ("driven_static_kernel (static J,M)", "jssenv_tpu/core/pallas_rollout.py:598",
+                              DRIVEN_SOURCE),
     "rollout_free": ("rollout_free_kernel", "jssenv_tpu/core/pallas_rollout.py:653", SOURCE),
     "rollout_free_static": ("free_static_kernel<int32_t> (static J,M)", "jssenv_tpu/core/pallas_rollout.py:653",
                             FREE_SOURCE),
@@ -285,7 +313,7 @@ DRIVEN_KEYS = ("rollout_driven", "rollout_driven_static")
 PASS_NAMES = ("draw", "act", "fast_forward", "prioritization", "check_no_op", "reset")
 CLOCKS = ("JSS_PASS_CLOCKS",)
 # what the script runs or reads of the checkout around it
-CHECKOUT = ("jssenv_tpu_torch", SOURCE, FREE_SOURCE, "tools/bench_torch.py", "tools/solver_quality_torch.py",
+CHECKOUT = ("jssenv_tpu_torch", SOURCE, FREE_SOURCE, DRIVEN_SOURCE, LANE_HEADER, "tools/bench_torch.py", "tools/solver_quality_torch.py",
             "tools/distill_30x20_torch.py", "tools/bench_scaling_torch.py", "tools/gen_golden_torch.py",
             "models_data", "tests/data/golden_solutions.json")
 
@@ -380,9 +408,9 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     # the general kernels and the static builds of every shape the run meets
-    # (rollout.cu's driven kernel, free_static.cu), with the instrumented
-    # static free kernels of both sources (-DJSS_PASS_CLOCKS, libraries of
-    # their own, read in phase 7c only), every nvcc started together; a
+    # (driven_static.cu, free_static.cu), with the instrumented static free
+    # kernels of rollout.cu and free_static.cu (-DJSS_PASS_CLOCKS, libraries
+    # of their own, read in phase 7c only), every nvcc started together; a
     # failed build raises with its output
     t0 = time.perf_counter()
     clock_jobs = [] if args.quick else [(name, sh, CLOCKS) for sh in STATIC_SHAPES
@@ -393,7 +421,7 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     report["ptxas"] = {f"{job[0]} " + ("general" if job[1] is None else f"static {job[1][0]}x{job[1][1]}")
                        + (" " + " ".join(job[2]) if len(job) > 2 else ""): _build.ptxas_report(*job) for job in jobs}
-    log(f"[2] built {SOURCE} (general and static) and {FREE_SOURCE} (static) for {list(STATIC_SHAPES)}"
+    log(f"[2] built {SOURCE} (general), {DRIVEN_SOURCE} and {FREE_SOURCE} (static) for {list(STATIC_SHAPES)}"
         f"{', and their instrumented static free kernels' if clock_jobs else ''}: {len(jobs)} nvcc processes "
         f"started together, {report['build_s']:.1f}s")
     for tag, rep_ in report["ptxas"].items():
@@ -419,9 +447,24 @@ def main() -> int:
         geo = fr.launch_geometry(few.jobs_pad, few.machines_pad, getattr(torch, vdt))
         report["geometry"][f"{name} {vdt}"] = geo._asdict()
         log(f"[2] launch geometry {name} (J={few.jobs_pad}, M={few.machines_pad}) {vdt}: {geo}")
-    # the new kernel's registers, spills, resident warps and waves at each
-    # unpadded FULL config, in the config's value dtype
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the driven static build's registers, spills, resident warps and waves
+    # at each static shape, at the policy loop's B
+    report["driven_static_occupancy"] = {}
+    for shape in STATIC_SHAPES:
+        lib = fr._driven_lib(shape)
+        lib.jss_driven_static_blocks_per_sm.argtypes, lib.jss_driven_static_blocks_per_sm.restype = [], ctypes.c_int
+        blocks = lib.jss_driven_static_blocks_per_sm()
+        check(blocks >= 1, f"driven_static {shape}: occupancy query failed ({blocks})")
+        geo = fr.static_geometry(MAIN_B)
+        ptx = [ln for ln in report["ptxas"][f"driven_static static {shape[0]}x{shape[1]}"].split("\n") if ln.strip()]
+        row = {"shape": shape, "blocks_per_sm": blocks, "warps_per_sm": blocks * geo.lanes,
+               "waves_at_main_B": geo.blocks / (blocks * sms), "ptxas": ptx}
+        report["driven_static_occupancy"][f"{shape[0]}x{shape[1]}"] = row
+        log(f"[2] driven_static_kernel {shape}: {blocks} blocks of {geo.lanes} lanes an SM ({blocks * geo.lanes} "
+            f"resident warps), {row['waves_at_main_B']:.3f} waves at B={MAIN_B}")
+    # the free kernel's registers, spills, resident warps and waves at each
+    # unpadded FULL config, in the config's value dtype
     report["free_static_occupancy"] = {}
     for name, B, _ in FULL:
         if name in PADDED:
@@ -433,7 +476,7 @@ def main() -> int:
         lib.jss_free_static_blocks_per_sm.restype = ctypes.c_int
         blocks = lib.jss_free_static_blocks_per_sm(int(i16))
         check(blocks >= 1, f"free_static {shape}: occupancy query failed ({blocks})")
-        geo = fr.free_static_geometry(B)
+        geo = fr.static_geometry(B)
         kernel = "int16_t" if i16 else "int32_t"
         ptx = [ln for ln in report["ptxas"][f"free_static static {shape[0]}x{shape[1]}"].split("\n")
                if ln.strip()]
@@ -490,6 +533,7 @@ def main() -> int:
             raws.append(r[0])
             ends.append(e[0])
         kern = Events()
+        snap = snapshot(state)
         with kern:
             fin, rew, k_ends = fr.rollout_driven(state, torch.stack(acts), T, return_ends=True)
         torch.cuda.synchronize()
@@ -500,11 +544,9 @@ def main() -> int:
         check(max(max_err(rew_plain, rew), state_err(fin_plain, fin)) == 0, f"driven {name}: ends changed the run")
         key = "rollout_driven" + variant(state)
         kerr[key] = max(kerr[key], err)
-        if key.endswith("_static"):  # the general build on the same batch, bit-equal
-            g = fr._driven_kernel(state, torch.stack(acts), T, fr._solution_mode(state), True, general=True)
-            torch.cuda.synchronize()
-            check(max(max_err(g[1], rew), max_err(g[2], k_ends), state_err(g[0], fin)) == 0,
-                  f"driven {name}: the static and general kernels differ")
+        # the input unchanged, the masks' bytes, the twin and, on an unpadded
+        # batch, the general build on the same inputs
+        hold_driven(fr, state, snap, torch.stack(acts), T, (fin, rew, k_ends), f"driven {name}")
         episodes = int((ends > 0).sum())
         row = {"config": name, "pad": pad, "B": B, "T": T, "episodes": episodes, "kernel": key,
                "max_abs_err": err, "kernel_call_ms": kern.ms(), "plain_step_ms": plain.ms()}
@@ -512,7 +554,7 @@ def main() -> int:
         log(f"[3] driven parity (rewards, ends, state) {row}")
         if i == 0:
             acts = torch.stack(acts)
-            recorded["T512"] = (state, acts, episodes, int((acts < state.num_jobs).sum()))
+            recorded["T512"] = (state, acts, episodes)
     check(any(r["episodes"] > 0 for r in report["driven_parity"]), "no episode crossed a boundary")
 
     if not args.quick:
@@ -537,18 +579,23 @@ def main() -> int:
                     s_p, r_p, e_p = fr.rollout_driven_reference(s_p, a[None], 1, return_ends=True)
                 # the general build on the same state and actions, then the static one
                 g = fr._driven_kernel(s_k, a[None].contiguous(), 1, not light, True, general=True)
+                snap = snapshot(s_k)
+                s_in_k = s_k
                 s_k, rew, e_k = fr.rollout_driven(s_k, a[None], 1, return_ends=True)
                 err = max(max_err(rew, r_p), max_err(e_k, e_p), state_err(s_k, s_p))
                 check(err == 0, f"driven B={B} light={light}: rewards or ends differ")
                 check(max(max_err(g[1], rew), max_err(g[2], e_k), state_err(g[0], s_k)) == 0,
                       f"driven B={B} light={light}: the static and general kernels differ")
+                changed = [k for k, v in snap.items() if not torch.equal(getattr(s_in_k, k), v)]
+                check(not changed, f"driven B={B} light={light}: the launch changed its input {changed}")
+                check(not any(bool((getattr(s_k, k).view(torch.uint8) > 1).any()) for k in fr._DRIVEN_U8),
+                      f"driven B={B} light={light}: mask bytes other than 0 and 1")
                 check(s_k.solution.shape[1] == (0 if light else s_k.jobs_pad),
                       f"driven B={B} light={light}: solution rows {s_k.solution.shape[1]}")
                 noop_steps += s_p.noop_legal.sum()
                 episodes += (e_p > 0).sum()
             if not light:
-                recorded["main"] = (s_in, a[None].contiguous(), int((e_p > 0).sum()),
-                                    int((a < s_in.num_jobs).sum()))
+                recorded["main"] = (s_in, a[None].contiguous(), int((e_p > 0).sum()))
             row = {"B": B, "T": T, "light": light, "max_abs_err": 0, "episodes": int(episodes),
                    "noop_legal_lane_steps": int(noop_steps), "plain_step_ms": plain.ms()}
             check(row["episodes"] > 0 and row["noop_legal_lane_steps"] > 0,
@@ -657,9 +704,14 @@ def main() -> int:
     ep_raw = torch.zeros(loop_B, dtype=torch.int64, device=dev)
     loop_eps = torch.zeros((), dtype=torch.int64, device=dev)
     loop_bad = torch.zeros((), dtype=torch.int64, device=dev)
-    for _ in range(LOOP_STEPS):
+    held = 0
+    for t in range(LOOP_STEPS):
         a = vector.random_legal_actions(gen, s)
+        s_in, snap = s, (snapshot(s) if t % LOOP_HOLD == 0 else None)
         s, rew = fr.rollout_driven(s, a[None], 1)
+        if snap is not None:  # held against the twin and the general build (their launches uncounted)
+            hold_driven(fr, s_in, snap, a[None], 1, (s, rew), f"policy loop step {t}")
+            held += 1
         ep_raw += rew[0]
         # a lane that finished this step was reset: no work done or running
         ended = (s.work_done.sum(1) == 0) & (s.job_busy_for.sum(1) == 0)
@@ -671,7 +723,7 @@ def main() -> int:
         ep_raw = torch.where(ended, 0, ep_raw)
     loop_eps, loop_bad = int(loop_eps), int(loop_bad)
     check(loop_eps > 0 and loop_bad == 0, f"policy loop: {loop_eps} episodes, {loop_bad} bad makespans")
-    report["policy_loop"] = {"config": "ta01", "B": loop_B, "T": LOOP_STEPS, "episodes": loop_eps}
+    report["policy_loop"] = {"config": "ta01", "B": loop_B, "T": LOOP_STEPS, "episodes": loop_eps, "held": held}
     # the same loop on a padded batch of two shapes (the general driven
     # kernel): each lane's reward identity at its episode ends, from the
     # kernel's own ends
@@ -681,9 +733,12 @@ def main() -> int:
     ep_raw = torch.zeros(B, dtype=torch.int64, device=dev)
     pad_eps = torch.zeros((), dtype=torch.int64, device=dev)
     pad_bad = torch.zeros((), dtype=torch.int64, device=dev)
-    for _ in range(T):
+    for t in range(T):
         a = vector.random_legal_actions(gen, s)
+        s_in, snap = s, (snapshot(s) if t % LOOP_HOLD == 0 else None)
         s, rew, ends = fr.rollout_driven(s, a[None], 1, return_ends=True)
+        if snap is not None:  # held against the twin
+            hold_driven(fr, s_in, snap, a[None], 1, (s, rew, ends), f"padded policy loop step {t}")
         ep_raw += rew[0]
         done = ends[0] > 0
         pad_eps += done.sum()
@@ -820,16 +875,18 @@ def main() -> int:
     # the driven kernel on inputs of the parity runs: the last step of the
     # main-shape run, and the first driven case
     driven_turns = [(None, True), (None, False)]
-    state, acts, resets, job_steps = recorded["main"]
-    turns = in_turns("rollout_driven", state, 1, driven_turns, actions=acts, resets=resets, job_steps=job_steps)
+    state, acts, resets = recorded["main"]
+    turns = in_turns("rollout_driven", state, 1, driven_turns, actions=acts)
     timings["rollout_driven"] = turn_row(turns, (None, False), resets=resets,
                                          shape=f"ta01 B={MAIN_B} T=1 (step {LOOP_STEPS} of a policy loop)",
-                                         plain_ms=report["driven_main_shape"]["plain_step_ms"])
+                                         plain_ms=report["driven_main_shape"]["plain_step_ms"],
+                                         call=call_timer(fr, state, acts, 1, repeats=10))
     name, B, T, _ = DRIVEN_CASES[0]
-    state, acts, resets, job_steps = recorded["T512"]
-    turns = in_turns("rollout_driven", state, T, driven_turns, actions=acts, resets=resets, job_steps=job_steps)
+    state, acts, resets = recorded["T512"]
+    turns = in_turns("rollout_driven", state, T, driven_turns, actions=acts)
     timings["rollout_driven_T512"] = turn_row(turns, (None, False), resets=resets, shape=f"{name} B={B} T={T}",
-                                              plain_ms=report["driven_parity"][0]["plain_step_ms"] * T)
+                                              plain_ms=report["driven_parity"][0]["plain_step_ms"] * T,
+                                              call=call_timer(fr, state, acts, T, repeats=3))
     for name, B, T in FULL:
         state = make(name, B)
         vdt = getattr(torch, FULL_DTYPE[name])
@@ -856,11 +913,7 @@ def main() -> int:
             + f"; {row['env_steps_per_s']:.4g} env-steps/s ({smi}); bound {row['bound_ms']:.4f} ms by "
               f"{row['bound_by']}; plain {row['plain_ms']:.0f} ms")
     for key in ("rollout_driven", "rollout_driven_T512"):
-        row = timings[key]
-        log(f"[7] {key} {row['shape']}: static build {row['ms']:.4f} ms against the general build's "
-            f"{row['general_ms']:.4f} ms (static/general {row['static_to_general']:.3f}; turns {row['ms_turns']}, "
-            f"{row['general_ms_turns']}; host ms of the launch call {row['host_ms']:.4f} against "
-            f"{row['general_host_ms']:.4f}) ({smi}); bound {row['bound_ms']:.5f} ms; plain {row['plain_ms']:.1f} ms")
+        log_driven_row(key, timings[key], smi)
     report["timings"] = timings
 
     # ---- 7c. where a step's cycles go: the instrumented static free kernels
@@ -889,33 +942,28 @@ def main() -> int:
 
     # ---- 8. where the main path's time goes --------------------------------
     def policy_step(s, gen, clock=None):
-        """One policy-loop step, the stages of ``fr.rollout_driven`` spelled
-        out so that ``clock`` (a dict) can take each stage's host time."""
-        stages = (
-            ("sample", lambda: vector.random_legal_actions(gen, s)),
-            ("to_lanes", lambda: fr._to_lanes(s, True)),
-            ("lane_inputs", lambda: fr._lane_inputs(s)),
-        )
+        """One policy-loop step, the stages of ``fr.rollout_driven`` on the
+        driven static build spelled out, so that ``clock`` (a dict) can take
+        each stage's host time: the policy's draw, the cached lane inputs, the
+        new state's two allocations and views, the input fields as the kernel
+        reads them, and the launch."""
+        check(fr.driven_build(s) is not None, "the policy loop's batch does not take the driven static build")
         out = {}
+        stages = (
+            ("sample", lambda: vector.random_legal_actions(gen, s)[None].to(torch.int32).contiguous()),
+            ("lane_inputs", lambda: fr._lane_inputs(s)),
+            ("outputs", lambda: fr._driven_outputs(s, 1)),
+            ("inputs", lambda: fr._driven_inputs(s)),
+            ("kernel", lambda: fr.launch_driven_static(s, out["inputs"], *out["lane_inputs"], out["sample"],
+                                                       *out["outputs"][:2], True)),
+        )
         for name, fn in stages:
             t0 = time.perf_counter()
             out[name] = fn()
             if clock is not None:
                 torch.cuda.synchronize()
                 clock[name] = clock.get(name, 0.0) + time.perf_counter() - t0
-        t0 = time.perf_counter()
-        rewards = torch.empty((1, s.batch_size), dtype=torch.int32, device=dev)
-        fr.launch_driven(s, out["to_lanes"], *out["lane_inputs"], out["sample"][None].contiguous(),
-                         rewards, True)
-        if clock is not None:
-            torch.cuda.synchronize()
-            clock["kernel"] = clock.get("kernel", 0.0) + time.perf_counter() - t0
-        t0 = time.perf_counter()
-        s = fr._from_lanes(out["to_lanes"], s, True)
-        if clock is not None:
-            torch.cuda.synchronize()
-            clock["from_lanes"] = clock.get("from_lanes", 0.0) + time.perf_counter() - t0
-        return s
+        return out["outputs"][2]
 
     n = 32
     s = make("ta01", MAIN_B)
@@ -926,8 +974,8 @@ def main() -> int:
         s = policy_step(s, gen, clock)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n):
-        s = policy_step(s, gen)
+    for _ in range(n):  # the user's path: the policy, then rollout_driven
+        s, _ = fr.rollout_driven(s, vector.random_legal_actions(gen, s)[None], 1)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / n * 1e3
     stage_ms = {k: v / n * 1e3 for k, v in clock.items()}
@@ -939,7 +987,7 @@ def main() -> int:
         def loop():
             nonlocal s
             for _ in range(n):
-                s = policy_step(s, gen)
+                s, _ = fr.rollout_driven(s, vector.random_legal_actions(gen, s)[None], 1)
 
         prof_loop = busy_share(loop)
         state = make("ta01", MAIN_B)
@@ -979,17 +1027,11 @@ def main() -> int:
     kerr["rollout_driven_static"] = max(kerr["rollout_driven_static"], err)
     log(f"[13] rollout_driven at the learner's shape: the static kernel equals its twin and the general kernel on "
         f"the recorded step ({int((ref[2] > 0).sum())} lanes end)")
-    turns = in_turns("rollout_driven", st, 1, driven_turns, actions=acts, resets=int(call["resets"].sum()),
-                     job_steps=int(call["jobs"].sum()), ends=True, repeats=20)
+    turns = in_turns("rollout_driven", st, 1, driven_turns, actions=acts, ends=True, repeats=20)
     timings["rollout_driven_learner"] = turn_row(
         turns, (None, False), shape=f"ta01 B={st.batch_size} T=1 with ends (the learner's env step, light state)",
-        plain_ms=twin.ms(), launches=driven(by_path["training"]))
-    row = timings["rollout_driven_learner"]
-    log(f"[13] rollout_driven at the learner's shape {row['shape']}: static build {row['ms']:.4f} ms against the "
-        f"general build's {row['general_ms']:.4f} ms (static/general {row['static_to_general']:.3f}; turns "
-        f"{row['ms_turns']}, {row['general_ms_turns']}; host ms of the launch call {row['host_ms']:.4f} against "
-        f"{row['general_host_ms']:.4f}) ({smi}); "
-        f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}; plain {row['plain_ms']:.2f} ms")
+        plain_ms=twin.ms(), launches=driven(by_path["training"]), call=call_timer(fr, st, acts, 1, True, repeats=10))
+    log_driven_row("rollout_driven_learner", timings["rollout_driven_learner"], smi, phase=13)
 
     # ---- 14-16. data and tensor parallel, distillation, diagnostics and resume
     by_path["parallel"], par_errs = parallel_phase(report, dev, quick=False)
@@ -1027,42 +1069,59 @@ def main() -> int:
     return finish(report, args, smi, kind, count)
 
 
-def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, resets=0, job_steps=0,
-                 vdt=None, ends=False, general=False):
+def log_driven_row(key, row, smi, phase=7) -> None:
+    c = row["call"]
+    log(f"[{phase}] {key} {row['shape']}: static build {row['ms']:.4f} ms against the general build's "
+        f"{row['general_ms']:.4f} ms (static/general {row['static_to_general']:.3f}; turns {row['ms_turns']}, "
+        f"{row['general_ms_turns']}; host ms of the launch call {row['host_ms']:.4f} against "
+        f"{row['general_host_ms']:.4f}); the whole rollout_driven call {c['ms']:.4f} ms on the card, its host "
+        f"call {c['host_ms']:.4f} ms, {c['sync_ms']:.4f} ms on the synchronised host clock ({smi}); bound "
+        f"{row['bound_ms']:.5f} ms by {row['bound_by']}; plain {row['plain_ms']:.2f} ms")
+
+
+def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, vdt=None, ends=False,
+                 general=False):
     """Mean ms of one launch (CUDA events, the card kept busy while the host
-    issues it: kernel time alone), each on a freshly restored state buffer,
-    the mean host ms of the launch call (``host_ms``), and the launch's
-    bound. ``fr``: the ``fused_rollout`` module
-    whose kernels are timed (this checkout's or another's). ``resets`` and
-    ``job_steps``: the episodes that end and the jobs allocated in the
-    launch (they set the driven kernel's solution writes). ``vdt``: the free
-    kernel's storage dtype (int32 by default). ``ends``: the driven kernel
-    also writes its (T, B) episode ends, as the learner's steps do.
-    ``general``: the general build on an unpadded batch (else the build the
-    batch takes)."""
+    issues it: kernel time alone), each on the same inputs (a general or
+    older build's state buffer restored first), the mean host ms of the
+    launch call (``host_ms``), and the launch's bound. ``fr``: the
+    ``fused_rollout`` module whose kernels are timed (this checkout's or
+    another's). ``vdt``: the free kernel's storage dtype (int32 by default). ``ends``: the driven kernel's (T, B) episode
+    ends are asked for, as the learner's steps do (the driven static build
+    writes them always). ``general``: the general build on an unpadded batch
+    (else the build the batch takes)."""
     import torch
 
     vdt = torch.int32 if vdt is None else vdt
     ws = kernel == "rollout_driven" and fr._solution_mode(state)
-    buf0 = fr._to_lanes(state, ws, vdt)
-    buf = buf0.clone()
     tab, lanec = fr._lane_inputs(state)
     B = state.batch_size
-    force = {"_general": True} if general else {}  # an older checkout's launcher has one build
-    if kernel == "rollout_driven":
-        rewards = torch.empty((T, B), dtype=torch.int32, device=dev)
-        out_ends = torch.empty_like(rewards) if ends else None
-        extra = (out_ends,) if ends else ()  # an older checkout's launcher takes no ends
-        go = lambda: fr.launch_driven(state, buf, tab, lanec, actions, rewards, ws, *extra, **force)  # noqa: E731
+    new_api = hasattr(fr, "launch_driven_static")  # this checkout: the driven static build takes the state's tensors
+    buf0 = buf = None
+    if kernel == "rollout_driven" and new_api and not general:
+        inputs = fr._driven_inputs(state)
+        out, out8, *_ = fr._driven_outputs(state, T)
+        go = lambda: fr.launch_driven_static(state, inputs, tab, lanec, actions, out, out8, ws)  # noqa: E731
     else:
-        st = torch.empty((4, B), dtype=torch.int64, device=dev)
-        ret = torch.empty((B,), dtype=torch.float32, device=dev)
-        go = lambda: fr.launch_free(state, buf, tab, lanec, bits, SEED, st, ret, T, vdt, **force)  # noqa: E731
-    buf.copy_(buf0)
+        buf0 = fr._to_lanes(state, ws, vdt)
+        buf = buf0.clone()
+        # an older checkout's launchers choose the build by `_general`; here
+        # the driven one is the general build only
+        force = {"_general": True} if general and not (new_api and kernel == "rollout_driven") else {}
+        if kernel == "rollout_driven":
+            rewards = torch.empty((T, B), dtype=torch.int32, device=dev)
+            extra = (torch.empty_like(rewards),) if ends else ()
+            go = lambda: fr.launch_driven(state, buf, tab, lanec, actions, rewards, ws, *extra, **force)  # noqa: E731
+        else:
+            st = torch.empty((4, B), dtype=torch.int64, device=dev)
+            ret = torch.empty((B,), dtype=torch.float32, device=dev)
+            go = lambda: fr.launch_free(state, buf, tab, lanec, bits, SEED, st, ret, T, vdt, **force)  # noqa: E731
+    restore = (lambda: buf.copy_(buf0)) if buf0 is not None else (lambda: None)
+    restore()
     go()  # warm-up
     total = host = 0.0
     for _ in range(repeats):
-        buf.copy_(buf0)
+        restore()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(QUEUE_CYCLES)
         e0.record()
@@ -1072,26 +1131,56 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
         e1.record()
         torch.cuda.synchronize()
         total += e0.elapsed_time(e1)
-    # bytes: the light state rows in the storage dtype, read once by the free
-    # kernel (which writes no state) and read and written once by the driven
-    # one (whose solution is only written: one word per allocated job, J*M
-    # per reset); the tables, the lane constants the kernel reads, the
-    # actions or bits, the outputs (the driven kernel's rewards and, when
-    # asked, its ends: T*B words each)
     J, M = state.jobs_pad, state.machines_pad
-    passes = 2 if kernel == "rollout_driven" else 1
-    state_bytes = passes * (4 + 10 * J + 2 * M) * B * buf.element_size()
-    words = tab.numel()
     if kernel == "rollout_driven":
-        words += 4 * B + (3 if ends else 2) * T * B + (job_steps + resets * J * M if ws else 0)
+        # the bytes of the EnvState fields the call must read and write, at
+        # their own dtypes (a full state's solution included), the tables, the
+        # actions, the rewards and, where asked for, the ends: the same work
+        # for every design of the kernel
+        fields = sum(t.numel() * t.element_size() for t in state.dynamic_fields().values())
+        nbytes = 2 * fields + 4 * tab.numel() + (3 if ends else 2) * 4 * T * B
         ops_per = 4 * J + 2 * M
     else:
-        words += 5 * B + (T * B if bits is not None else 0) + 2 * 4 * B + B
+        # the light state rows in the storage dtype, read once; the tables,
+        # the lane constants, the bits, the stats and returns
+        nbytes = (4 + 10 * J + 2 * M) * B * buf.element_size() + 4 * (
+            tab.numel() + 5 * B + (T * B if bits is not None else 0) + 2 * 4 * B + B)
         ops_per = 5 * J + 2 * M + (0 if bits is not None else 100)
-    nbytes, nops = state_bytes + 4 * words, T * B * ops_per
+    nops = T * B * ops_per
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
     return {"ms": total / repeats, "host_ms": host / repeats * 1e3, "bytes": nbytes, "int_ops": nops,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def call_timer(fr, state, actions, T, ends=False, repeats=5):
+    """The whole ``fr.rollout_driven`` call, from the first input to the
+    returned state, in the build the batch takes: the mean device ms of
+    everything it enqueues (CUDA events around the call, the card kept busy
+    by a queued spin while the host issues it), the mean host ms of the call
+    itself, and the mean ms on the host clock synchronised before and after
+    (``sync_ms``: the caller's wall time)."""
+    import torch
+
+    go = lambda: fr.rollout_driven(state, actions, T, return_ends=ends)  # noqa: E731
+    go()  # warm-up
+    dev_ms = host = wall = 0.0
+    for _ in range(repeats):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(CALL_QUEUE_CYCLES)
+        e0.record()
+        h0 = time.perf_counter()
+        go()
+        host += time.perf_counter() - h0
+        e1.record()
+        torch.cuda.synchronize()
+        dev_ms += e0.elapsed_time(e1)
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        go()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - h0
+    return {"ms": dev_ms / repeats, "host_ms": host / repeats * 1e3, "sync_ms": wall / repeats * 1e3}
 
 
 def pass_clocks(fr, _build, dev, state, T, vdt, old: bool):
@@ -1151,11 +1240,16 @@ def time_kernels_of(root: str, out: str) -> int:
     kernels there, and write to ``out`` (JSON) the time of its free kernel
     on each FULL config in the config's value dtype and of its driven kernel
     at the main shape (ta01, B=MAIN_B, T=1, the last step of a
-    LOOP_STEPS-step policy loop run on the plain path) and at the first
-    driven parity case's (ta01, B=1024, T=512 random-policy steps). A
-    checkout with a static build (this one) has each time of its general
-    build under the key an older checkout uses, and of its static build, on
-    an unpadded batch, under that key plus " static"."""
+    LOOP_STEPS-step policy loop run on the plain path), at the learner's
+    (ta01, B=LEARNER_B, light, T=1 with ends, after as many steps) and at the
+    first driven parity case's (ta01, B=1024, T=512 random-policy steps). A
+    checkout with a static build has each time of its general build under
+    the key an older checkout uses, and of its static build, on an unpadded
+    batch, under that key plus " static" (the launch call's host ms under
+    "... static host"). At each driven shape also the whole
+    ``rollout_driven`` call (``call_timer``): "<key> call" (device ms of all
+    it enqueues), "<key> call host" (the call's host ms) and "<key> call
+    sync" (the synchronised host clock)."""
     root_path = Path(root).resolve()
     sys.path.insert(0, str(root_path))
     import torch
@@ -1182,23 +1276,44 @@ def time_kernels_of(root: str, out: str) -> int:
     def timed(key, kernel, state, T, **kw):
         res[key] = launch_timer(fr, dev, kernel, state, T, general=two_builds, **kw)["ms"]
         if two_builds and fr.static_shape(state) is not None:
-            res[key + " static"] = launch_timer(fr, dev, kernel, state, T, **kw)["ms"]
+            row = launch_timer(fr, dev, kernel, state, T, **kw)
+            res[key + " static"] = row["ms"]
+            if kernel == "rollout_driven":
+                res[key + " static host"] = row["host_ms"]
 
-    s = vector.make_batch(instances.get_instance("ta01"), MAIN_B, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    stats = vector.RolloutStats.zero(dev)
-    for _ in range(LOOP_STEPS - 1):
-        s, _, stats = vector.step_autoreset(s, vector.random_legal_actions(gen, s), stats)
-    acts = vector.random_legal_actions(gen, s)[None].contiguous()
+    def called(key, state, actions, T, ends=False):
+        row = call_timer(fr, state, actions, T, ends, repeats=10 if T == 1 else 3)
+        res[key + " call"], res[key + " call host"], res[key + " call sync"] = row["ms"], row["host_ms"], row["sync_ms"]
+
+    def loop_state(B, light):
+        """ta01 at B lanes after LOOP_STEPS - 1 random-policy steps, and the
+        next step's actions."""
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        s = vector.make_batch(instances.get_instance("ta01"), B, device=dev)
+        s = vector.strip_solution(s) if light else s
+        stats = vector.RolloutStats.zero(dev)
+        for _ in range(LOOP_STEPS - 1):
+            s, _, stats = vector.step_autoreset(s, vector.random_legal_actions(gen, s), stats)
+        return s, vector.random_legal_actions(gen, s)[None].to(torch.int32).contiguous()
+
+    s, acts = loop_state(MAIN_B, light=False)
     timed("rollout_driven", "rollout_driven", s, 1, actions=acts, repeats=20)
+    called("rollout_driven", s, acts, 1)
+    s, acts = loop_state(LEARNER_B, light=True)
+    timed("rollout_driven_learner", "rollout_driven", s, 1, actions=acts, ends=True, repeats=20)
+    called("rollout_driven_learner", s, acts, 1, ends=True)
     # the first driven parity case's shape: T=512 steps of a random policy
     name, B, T, _ = DRIVEN_CASES[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    stats = vector.RolloutStats.zero(dev)
     s0 = s = vector.make_batch(source(instances, name), B, device=dev)
     acts = []
     for _ in range(T):
         acts.append(vector.random_legal_actions(gen, s))
         s, _, stats = vector.step_autoreset(s, acts[-1], stats)
-    timed("rollout_driven_T512", "rollout_driven", s0, T, actions=torch.stack(acts).contiguous(), repeats=5)
+    acts = torch.stack(acts).to(torch.int32).contiguous()
+    timed("rollout_driven_T512", "rollout_driven", s0, T, actions=acts, repeats=5)
+    called("rollout_driven_T512", s0, acts, T)
     for name, B, T in FULL:
         state = vector.make_batch(source(instances, name), B, device=dev)
         vdt = fr.value_dtype(state)
@@ -1407,23 +1522,70 @@ def wrapper_phase(report: dict, dev) -> None:
         + ", ".join(f"{e} {s / steps * 1e3:.3f} ms/step" for e, s in secs.items()))
 
 
+def snapshot(state) -> dict:
+    """Copies of the state's dynamic fields, to show later that a launch left
+    its input unchanged."""
+    return {k: v.clone() for k, v in state.dynamic_fields().items()}
+
+
+def hold_driven(fr, state, snap, actions, T: int, got, tag: str) -> None:
+    """A driven launch's results ``got`` = (new state, rewards[, ends]) on
+    ``state`` and ``actions``: the input's fields still equal ``snap``, the
+    new masks hold the bytes 0 and 1 only, and the new state (every field),
+    the rewards and the ends equal the plain twin's and, where the batch takes
+    the driven static build, the general build's on the same inputs. The
+    general build's launch is not counted in ``LAUNCHES``."""
+    import torch
+
+    from jssenv_tpu_torch.core.state import FIELD_NAMES
+
+    changed = [k for k, v in snap.items() if not torch.equal(getattr(state, k), v)]
+    check(not changed, f"{tag}: the launch changed its input state: {changed}")
+    new = got[0]
+    bad = [k for k in fr._DRIVEN_U8 if bool((getattr(new, k).view(torch.uint8) > 1).any())]
+    check(not bad, f"{tag}: mask bytes other than 0 and 1 in {bad}")
+    actions = actions.to(torch.int32).contiguous()
+    others = [("twin", fr.rollout_driven_reference(state, actions, T, return_ends=True))]
+    if fr.driven_build(state) is not None:
+        counts = dict(fr.LAUNCHES)
+        others.append(("general build", fr._driven_kernel(state, actions, T, fr._solution_mode(state), True,
+                                                          general=True)))
+        fr.LAUNCHES.update(counts)
+    for name, other in others:
+        diff = [k for k in FIELD_NAMES if not torch.equal(getattr(new, k), getattr(other[0], k))]
+        diff += [k for k, i in (("rewards", 1), ("ends", 2)) if i < len(got) and not torch.equal(got[i], other[i])]
+        check(not diff, f"{tag}: the kernel and the {name} differ in {diff}")
+
+
 class DrivenRecorder:
     """While active, wraps ``fused_rollout.rollout_driven`` (which
     ``step_autoreset`` and ``evaluate_policy`` call) to see each call's
     inputs, raw rewards and ends; launches are still counted where the
     kernel launches, nowhere else. ``on_call(state, actions, raw, ends)``
-    runs after each call. It sees only calls made through the module
-    attribute, so each phase that uses it requires its call count to equal
-    the kernel's launch count."""
+    runs after each call. Every ``hold_every``-th call (0: none) of the
+    first ``hold_until`` (None: all), from the first, is held against the
+    twin and the general build (``hold_driven``; ``holds`` counts them): the
+    phases hold calls of their warm-up update only, or a few a run, so that
+    the holds stay out of their times. It sees only calls made through the
+    module attribute, so each phase that uses it requires its call count to
+    equal the kernel's launch count."""
 
-    def __init__(self, fr, on_call):
-        self.fr, self.on_call = fr, on_call
+    def __init__(self, fr, on_call, hold_every: int = 0, hold_until=None):
+        self.fr, self.on_call, self.hold_every, self.hold_until = fr, on_call, hold_every, hold_until
+        self.calls = self.holds = 0
 
     def __enter__(self):
         orig = self.orig = self.fr.rollout_driven
 
         def wrapped(state, actions, num_steps, return_ends=False):
+            hold = (self.hold_every and self.calls % self.hold_every == 0
+                    and (self.hold_until is None or self.calls < self.hold_until))
+            snap = snapshot(state) if hold else None
             out = orig(state, actions, num_steps, return_ends)
+            if hold:
+                hold_driven(self.fr, state, snap, actions, num_steps, out, f"driven call {self.calls}")
+                self.holds += 1
+            self.calls += 1
             self.on_call(state, actions, out[1], out[2] if return_ends else None)
             return out
 
@@ -1459,7 +1621,8 @@ def serving_phase(report: dict, dev, quick: bool) -> dict:
         fr.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with DrivenRecorder(fr, lambda s, a, r, e: (raws.append(r[0, 0]), ends.append(e[0, 0]))):
+        rec = DrivenRecorder(fr, lambda s, a, r, e: (raws.append(r[0, 0]), ends.append(e[0, 0])), *SERVING_HOLDS)
+        with rec:
             res = learner.evaluate_policy(params, spec, cfg, stochastic_lanes=lanes, max_steps=4096, device=dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -1467,6 +1630,7 @@ def serving_phase(report: dict, dev, quick: bool) -> dict:
         check(n == res["steps"] and n == len(ends) and fr.LAUNCHES["rollout_driven_static"] == n
               and sum(fr.LAUNCHES.values()) == n,
               f"serve {name} {spec_name}: {fr.LAUNCHES} launches for {res['steps']} steps")
+        check(rec.holds > 0, f"serve {name} {spec_name}: no launch held against the twin")
         for k, v in fr.LAUNCHES.items():
             launches[k] += v
         mk = res["greedy_makespan"]
@@ -1481,11 +1645,11 @@ def serving_phase(report: dict, dev, quick: bool) -> dict:
             check(ok, f"serve {name} {spec_name} {dtype}: makespan {mk}, expected "
                   f"{'' if dtype == 'float32' else '< '}{want}")
         row = dict(res, checkpoint=name, instance=spec_name, dtype=dtype, expected=want, seconds=secs,
-                   ms_per_step=secs / n * 1e3, launches=n)
+                   ms_per_step=secs / n * 1e3, launches=n, held=rec.holds)
         rows.append(row)
         log(f"[12] serve {name} on {spec_name} ({dtype}, {1 + lanes} lanes): greedy makespan {mk} "
             f"({'recorded, no bound' if want is None else ('JAX value ' if dtype == 'float32' else 'JAX bound < ') + str(want)}), "
-            f"{n} steps, {n} driven launches, "
+            f"{n} steps, {n} driven launches ({rec.holds} held against the twin and the general build), "
             f"{secs:.2f} s, {secs / n * 1e3:.3f} ms a step"
             + (f"; sampled best {res['best_sampled_makespan']}, mean {res['avg_sampled_makespan']:.1f}"
                if lanes else ""))
@@ -1534,8 +1698,7 @@ def training_phase(report: dict, dev, quick: bool, profile: bool):
             ended.add_(done.sum())
             ep_raw = torch.where(done, 0, ep_raw)
             if tag == "reinforce":
-                last_call.update(state=s, actions=a.to(torch.int32).contiguous(), resets=done,
-                                 jobs=a < s.num_jobs)
+                last_call.update(state=s, actions=a.to(torch.int32).contiguous())
             calls[0] += 1
             if calls[0] % T == 0:  # the update's rollout is done
                 ev = torch.cuda.Event(enable_timing=True)
@@ -1547,7 +1710,8 @@ def training_phase(report: dict, dev, quick: bool, profile: bool):
         fr.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with DrivenRecorder(fr, on_call):
+        rec = DrivenRecorder(fr, on_call, hold_every=8, hold_until=T)  # the warm-up update's calls
+        with rec:
             for _ in range(updates):
                 e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 e0.record()
@@ -1562,6 +1726,7 @@ def training_phase(report: dict, dev, quick: bool, profile: bool):
         check(n == updates * T and fr.LAUNCHES["rollout_driven_static"] == n and sum(fr.LAUNCHES.values()) == n,
               f"train {tag}: {fr.LAUNCHES} launches for {updates} updates of {T} steps")
         check(calls[0] == n, f"train {tag}: the recorder saw {calls[0]} of {n} driven launches")
+        check(rec.holds > 0, f"train {tag}: no launch held against the twin")
         for k, v in fr.LAUNCHES.items():
             launches[k] += v
         losses = [float(m["loss"]) for m in metrics]
@@ -1578,7 +1743,7 @@ def training_phase(report: dict, dev, quick: bool, profile: bool):
         mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
         row = {"instance": spec_name, "B": B, "updates": updates, "config": {k: str(v) for k, v in
                                                                           dataclasses.asdict(cfg).items()},
-               "losses": losses, "episodes": eps, "identity_violations": int(viol), "launches": n,
+               "losses": losses, "episodes": eps, "identity_violations": int(viol), "launches": n, "held": rec.holds,
                "wall_s": wall, "ms_per_update": mean(upd_ms[steady]), "ms_per_update_all": upd_ms,
                "rollout_ms": mean(roll_ms[steady]),
                "learn_ms": mean([u - r for u, r in zip(upd_ms, roll_ms)][steady]),
@@ -1653,7 +1818,8 @@ def learner_run(dev, cfg, B: int, updates: int, mesh=None, snaps=()):
         ts = learner.shard_train_state(ts, mesh, mp_axis="mp" if mesh.mp > 1 else None)
     step = learner.make_train_step(cfg, mesh)
     acts, losses, events, params = [], [], [], {}
-    with DrivenRecorder(fr, lambda s, a, r, e: acts.append(a[0].clone())):
+    # the warm-up update's calls held against the twin and the general build
+    with DrivenRecorder(fr, lambda s, a, r, e: acts.append(a[0].clone()), hold_every=8, hold_until=cfg.unroll_steps):
         for i in range(updates):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -2262,6 +2428,24 @@ mod.DATA = out
 sys.exit(mod.main(sys.argv[1:]))
 """
 BENCH_CONFIGS = ("ta01", "ta41-ta50", "ta71")  # the bench's records, in order
+# runs a tool as __main__ with every EVAL_HOLD-th rollout_driven call held
+# against the twin and the general build (DrivenRecorder); the counts go to
+# the JSON file named by the second argument, the checkout's root is the first
+HOLD_DRIVEN = """
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from jssenv_tpu_torch.core import fused_rollout
+out, every, sys.argv = sys.argv[2], int(sys.argv[3]), sys.argv[4:]
+rec = chip_smoke.DrivenRecorder(fused_rollout, lambda *a: None, hold_every=every)
+try:
+    with rec:
+        runpy.run_path(sys.argv[0], run_name="__main__")
+finally:
+    with open(out, "w") as f:
+        json.dump({"calls": rec.calls, "holds": rec.holds}, f)
+"""
+EVAL_HOLD = 50
 # runs a tool as __main__ with jssenv_tpu_torch.solve.solve recorded: each
 # result's instance, makespan and machine order go to the JSON file named by
 # the first argument when the tool exits
@@ -2403,15 +2587,23 @@ def tools_phase(report: dict, dev, quick: bool, smi: str) -> dict:
     log(f"[18] collect {names} on the card: {n} pairs equal the shipped rows 0-{n - 1} in order (obs max err "
         f"{obs_err:.3g}, the rest exact); the process took {secs:.1f} s")
 
-    # (d) the float32 greedy eval of the shipped ta41_distill: 2658
-    stdout, stderr, secs = run_tool(TOOL_RUNS["eval"][pick])
+    # (d) the float32 greedy eval of the shipped ta41_distill: 2658, every
+    # EVAL_HOLD-th driven call in the tool's process held against the twin
+    # and the general build
+    hold_file = TOOLS_DIR / "eval_holds.json"
+    hold_file.unlink(missing_ok=True)
+    root = str(Path(__file__).resolve().parent)
+    stdout, stderr, secs = run_tool(TOOL_RUNS["eval"][pick], prefix=("-c", HOLD_DRIVEN, root, str(hold_file),
+                                                                     str(EVAL_HOLD)))
     check(stdout.splitlines() == ["ta41: greedy 2658"], f"eval ta41_distill float32: {stdout!r}")
     ev = tool_launches(stderr)
     check(ev["rollout_driven_static"] > 0 and ev["rollout_driven_static"] == sum(ev.values()), f"eval launches {ev}")
+    holds = json.loads(hold_file.read_text())
+    check(holds["calls"] == ev["rollout_driven_static"] and holds["holds"] > 0, f"eval holds {holds}, launches {ev}")
     launches["rollout_driven_static"] += ev["rollout_driven_static"]
-    out["eval"] = {"greedy_makespan": 2658, "launches": ev, "process_s": secs}
+    out["eval"] = {"greedy_makespan": 2658, "launches": ev, "process_s": secs, "held": holds["holds"]}
     log(f"[18] eval ta41_distill float32: greedy 2658 (= the JAX package's), {ev['rollout_driven_static']} driven "
-        f"launches; the process took {secs:.1f} s")
+        f"launches, {holds['holds']} held against the twin and the general build; the process took {secs:.1f} s")
 
     # (e) the weak-scaling tool: a row for each card count up to the cards
     # there are (one card: the 1-rank NCCL row), each env step one driven
@@ -2432,10 +2624,26 @@ def tools_phase(report: dict, dev, quick: bool, smi: str) -> dict:
     n = sum(r["devices"] for r in rows) * (SCALING_WARMUP + 3 * steps)
     check(sc["rollout_driven_static"] == n and sum(sc.values()) == n, f"scaling launches {sc}, expected {n}")
     launches["rollout_driven_static"] += n
-    out["scaling"] = dict(rec, process_s=secs, launches=sc)
+    # its batch (ta01, `lanes` lanes), stepped here as its ranks step it
+    # (random legal actions, one driven launch a step), every 8th step held
+    # against the twin and the general build; these launches are not counted
+    counts = dict(fr.LAUNCHES)
+    s = vector.make_batch(instances.get_instance("ta01"), lanes, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    held = 0
+    for t in range(steps):
+        a = vector.random_legal_actions(gen, s)[None]
+        snap = snapshot(s) if t % 8 == 0 else None
+        s_in, (s, raw, ends) = s, fr.rollout_driven(s, a, 1, return_ends=True)
+        if snap is not None:
+            hold_driven(fr, s_in, snap, a, 1, (s, raw, ends), f"scaling batch step {t}")
+            held += 1
+    fr.LAUNCHES.update(counts)
+    out["scaling"] = dict(rec, process_s=secs, launches=sc, held=held)
     log(f"[18] bench_scaling_torch, one card: {rows[0]['steps_per_s']} env-steps/s at {lanes} lanes, "
         f"{rows[0]['step_us']} us a vectorized step, {rows[0]['episodes']} episodes, {n} driven launches "
-        f"({rec['gpu']}, {rec['power_limit']}); the process took {secs:.1f} s")
+        f"({rec['gpu']}, {rec['power_limit']}); the process took {secs:.1f} s; its batch stepped here "
+        f"{steps} times, {held} steps held against the twin and the general build")
 
     # (f) the golden-file tool on one instance without an entry, into a copy
     # of the golden file: its entry replayed to its makespan on the card and

@@ -2,14 +2,16 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``jssenv_tpu_torch/build/lib<name>_<hash>.so`` (the hash covers the
-source and the flags, so an edited source is rebuilt). ``-Xptxas -v`` output
+source, the headers of ``csrc/`` and the flags, so an edited source or
+header is rebuilt). ``-Xptxas -v`` output
 (registers, spills) is kept beside the library as ``.log``. Nothing is built
 or imported at module import time.
 
 A source may also be built for one static shape ``(J, M)``: ``nvcc`` gets
 ``-DJSS_STATIC_J=J -DJSS_STATIC_M=M`` and the library is
-``lib<name>_<J>x<M>_<hash>.so``, one for each shape met (``csrc/rollout.cu``'s
-static variant, and ``csrc/free_static.cu``, which builds for a shape only).
+``lib<name>_<J>x<M>_<hash>.so``, one for each shape met
+(``csrc/driven_static.cu`` and ``csrc/free_static.cu`` build for a shape
+only; ``csrc/rollout.cu``'s static variant is its instrumented build).
 ``shape=None`` is the general build. ``defines`` (``("JSS_PASS_CLOCKS",)``)
 build a variant of its own, named after them: the instrumented builds that
 count each pass's clocks.
@@ -61,7 +63,7 @@ def nvcc_flags(shape: Shape = None, defines: Defines = ()) -> Tuple[str, ...]:
 
 
 def library_path(name: str, shape: Shape = None, defines: Defines = ()) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(nvcc_flags(shape, defines)).encode()).hexdigest()[:16]
     tag = name if shape is None else f"{name}_{shape[0]}x{shape[1]}"
     tag += "".join("_" + d.lower().removeprefix("jss_").replace("=", "") for d in defines)

@@ -61,17 +61,15 @@
 // two variants (pallas_rollout.py _static_lane, :1018, passed as static_lane
 // to _driven_kernel / _free_kernel). The general build (both kernels) reads
 // the padded shape (J, M) from the launch and each lane's own (nj, nm) from
-// its lane constants, so padded and mixed-shape batches run. The static
-// build (-DJSS_STATIC_J=J -DJSS_STATIC_M=M, core/_build.py) serves a batch
-// whose every lane is unpadded (nj == J, nm == M) with the driven kernel: J,
-// M, nj, nm, every row offset, the strides and the slot counts ceil(J/32) and
-// ceil(M/32) are compile-time constants, the bound compares fold away and the
-// reset is the counterpart of _fresh_static (:503). The lanes' max_time_op
-// and sum_op stay per-lane reads: a same-shape batch may hold several
-// instances. Both builds share every line of the step math below; only the
-// Bounds of a Group differ. The free kernel's static build is free_static.cu
-// (its state in registers); here it is compiled for a static shape only
-// with -DJSS_PASS_CLOCKS, as the instrumented baseline of that design.
+// its lane constants, so padded and mixed-shape batches run: every batch that
+// the static builds of driven_static.cu and free_static.cu (a lane's state in
+// registers) do not take. The static build (-DJSS_STATIC_J=J -DJSS_STATIC_M=M,
+// core/_build.py), in which J, M, nj, nm, every row offset, the strides and
+// the slot counts are compile-time constants and the reset is the counterpart
+// of _fresh_static (:503), is built only with -DJSS_PASS_CLOCKS: the
+// instrumented free kernel of this shared-memory design, the baseline of
+// chip_smoke.py's phase 7c. Both builds share every line of the step math
+// below; only the Bounds of a Group differ.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,6 +91,9 @@
 #endif
 static_assert((JSS_STATIC_J > 0) == (JSS_STATIC_M > 0), "a static build fixes both J and M");
 static_assert(JSS_STATIC_J >= 0 && JSS_STATIC_M >= 0 && JSS_STATIC_M <= JSS_MAX_M, "bad static shape");
+#if JSS_STATIC_J > 0 && !defined(JSS_PASS_CLOCKS)
+#error "a static build of rollout.cu is the instrumented free kernel only (-DJSS_PASS_CLOCKS)"
+#endif
 
 // Each job j of this thread (j = r, r + 32, ... < J), slot by slot; a static
 // build's ceil(J/32) slots unroll. `continue` goes on to the next job.
@@ -746,8 +747,8 @@ enum { S_EPISODES = 0, S_MK_SUM, S_MK_MIN, S_VIOL };
 // The per-step inputs (actions, random words) come 32 steps at a time: rank
 // r loads or draws step t + r, and step t takes rank t % 32's by a shuffle.
 // `ends` (T, B), where not null: the makespan of the episode a lane finished
-// at step t (its time, read before fresh() clears it), else 0. SJ, SM: the
-// static build's shape (0: the general build).
+// at step t (its time, read before fresh() clears it), else 0. Instantiated
+// in the general build only (SJ = SM = 0): driven_static.cu is the static one.
 template <int SJ, int SM>
 __global__ void __launch_bounds__(JSS_MAX_THREADS, JSS_MIN_BLOCKS) rollout_driven_kernel(
     int* state, const int* tab, const int* lanec, const int* actions, int* rewards, int* ends,
@@ -869,9 +870,8 @@ static int launch_check(K kernel, int J, int M, int lanes, int stride, int scr_s
   return 0;
 }
 
-// The free kernel: in the general build, and in a static build only when
-// instrumented (free_static.cu is the static free kernel).
-#if JSS_STATIC_J == 0 || defined(JSS_PASS_CLOCKS)
+// The free kernel: in the general build, and in the (instrumented) static
+// build.
 template <typename V>
 static int launch_free(void* state, const void* tab, const void* lanec, const void* bits,
                        unsigned long long seed, void* stats, void* ret_out, int B, int J, int M,
@@ -885,7 +885,6 @@ static int launch_free(void* state, const void* tab, const void* lanec, const vo
       (long long*)stats, (float*)ret_out, B, J, M, T, lane_offset, stride, scr_stride);
   return (int)cudaGetLastError();
 }
-#endif
 
 extern "C" {
 
@@ -894,6 +893,7 @@ extern "C" {
 int jss_static_j(void) { return JSS_STATIC_J; }
 int jss_static_m(void) { return JSS_STATIC_M; }
 
+#if JSS_STATIC_J == 0
 // Each returns 0 when the kernel launched, else the CUDA error (a geometry
 // the card refuses: too many threads or too much shared memory).
 // `ends` may be null: no episode-end output.
@@ -909,7 +909,6 @@ int jss_rollout_driven(void* state, const void* tab, const void* lanec, const vo
   return (int)cudaGetLastError();
 }
 
-#if JSS_STATIC_J == 0
 int jss_rollout_free(void* state, const void* tab, const void* lanec, const void* bits,
                      unsigned long long seed, void* stats, void* ret_out, int B, int J, int M,
                      int T, int lane_offset, int lanes, int stride, int scr_stride, int smem,

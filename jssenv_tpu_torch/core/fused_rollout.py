@@ -15,22 +15,26 @@ points with the JAX signatures (minus the TPU's ``tile``/``interpret``):
   and episode stats with the exact reward-identity check
   ``raw return == 2*sum_op - M*makespan``; returns summary stats.
 
-On a CUDA state each launches its hand-written kernel
-(``csrc/rollout.cu``) or raises; on a CPU state each runs its plain twin
-(``rollout_driven_reference`` / ``rollout_free_reference``), built on
-``core.engine`` and ``vector``. Nothing falls back from one to the other.
+On a CUDA state each launches its hand-written kernel or raises; on a CPU
+state each runs its plain twin (``rollout_driven_reference`` /
+``rollout_free_reference``), built on ``core.engine`` and ``vector``. Nothing
+falls back from one to the other.
 
-Kernel variants: a batch whose every lane is unpadded (``static_shape``)
-launches the kernels' static build for its shape (J, M), compiled at the
-first use of that shape, in which every bound is a compile-time constant:
-the counterpart of the JAX package's ``_static_lane`` / ``_fresh_static``.
-For the driven kernel that is ``csrc/rollout.cu`` built for the shape; for
-the free kernel it is ``csrc/free_static.cu`` (a lane's state in registers,
-its boolean rows as warp-wide bitmasks), within that source's limits
-(``FREE_STATIC_MAX_J``, ``FREE_STATIC_MAX_M``; ``free_build``). Padded and
-mixed-shape batches launch the general build, as the JAX package keeps
-``static_lane=None`` for them. The answer is computed once per batch, with
-the lane inputs (``_lane_inputs``), and costs a launch no host read.
+Kernel builds: a batch whose every lane is unpadded (``static_shape``) and
+whose shape is within ``STATIC_MAX_J`` jobs and ``STATIC_MAX_M`` machines
+(``static_fits``; all of the repo's instances) launches the static build of
+its shape (J, M), compiled at the first use of that shape, in which every
+bound is a compile-time constant: the counterpart of the JAX package's
+``_static_lane`` / ``_fresh_static``. Those builds hold a lane's state in
+registers and its boolean rows as warp-wide bitmasks (``csrc/static_lane.cuh``):
+``csrc/driven_static.cu`` for the driven kernel (``driven_build``), which reads
+the ``EnvState``'s own tensors and writes a new state, and
+``csrc/free_static.cu`` for the free kernel (``free_build``). Every other
+batch (padded, mixed-shape, or past those limits) launches the general build
+of ``csrc/rollout.cu``, as the JAX package keeps ``static_lane=None`` for
+padded batches: a routing rule, not a fallback. The answer is computed once
+per batch, with the lane inputs (``_lane_inputs``), and costs a launch no host
+read.
 
 Random bits: with ``bits=None`` the free rollout draws one 32-bit Philox4x32-10
 word per (step, lane), keyed by ``seed`` with counter (t, lane_offset + lane);
@@ -43,15 +47,18 @@ stored value fits (``value_dtype``, the JAX package's int16 mode) and then
 launches the int16 instantiation of its kernel; the driven rollout stays
 int32, as in the JAX package.
 
-Host plumbing: the dynamic state moves to one batch-last (R, B) int32 (or
-int16) buffer (``_to_lanes`` / ``_from_lanes``, rows in ``_ROWS`` order), the static tables
-to one (n_inst, 4, J, M) int32 stack of the batch's distinct instances with a
-per-lane instance index, so ragged batches need no lane grouping. The stack
+Host plumbing: the general build takes the dynamic state in one batch-last
+(R, B) int32 (or int16) buffer (``_to_lanes`` / ``_from_lanes``, rows in
+``_ROWS`` order), as the free static build does; the driven static build
+takes the state's fields as they are (``_driven_inputs``) and writes the new
+state into two allocations (``_driven_outputs``). The static tables go to one
+(n_inst, 4, J, M) int32 stack of the batch's distinct instances with a
+per-lane instance index, so ragged batches need no lane grouping; the stack
 is built once per batch and cached (``_lane_inputs``). ``launch_geometry``
 sizes the launch of ``csrc/rollout.cu``: a warp per lane, each block's lanes
-with their state in shared memory; ``free_static_geometry`` that of
-``csrc/free_static.cu``: a warp per lane, ``FREE_STATIC_LANES`` lanes a
-block, the state in registers.
+with their state in shared memory; ``static_geometry`` that of the static
+builds: a warp per lane, ``STATIC_LANES`` lanes a block, the state in
+registers.
 """
 
 from __future__ import annotations
@@ -70,8 +77,8 @@ _I32 = torch.int32
 
 # Kernel launches per kernel: each wrapper adds one where it launches.
 # "rollout_free_i16" counts the free kernel's int16 instantiation; a
-# "_static" key the static build of that kernel (any shape: for the free
-# kernel, csrc/free_static.cu), the others the general build.
+# "_static" key the static build of that kernel (any shape: csrc/driven_static.cu
+# and csrc/free_static.cu), the others the general build (csrc/rollout.cu).
 LAUNCHES: Dict[str, int] = {
     "rollout_driven": 0, "rollout_driven_static": 0,
     "rollout_free": 0, "rollout_free_static": 0,
@@ -197,12 +204,9 @@ def _lane_inputs(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
 def static_shape(state: EnvState) -> Optional[Tuple[int, int]]:
     """(J, M) when every lane of the batch is unpadded (``num_jobs ==
     jobs_pad`` and ``num_machines == machines_pad``): the kernels then
-    launch their static build for that shape. None otherwise (padded or
-    mixed-shape lanes): the general build. The free kernel's static build
-    (``csrc/free_static.cu``) holds at most ``FREE_STATIC_MAX_J`` jobs and
-    ``FREE_STATIC_MAX_M`` machines: an unpadded batch of a larger shape runs
-    the free kernel's general build (``free_build``), the driven kernel's
-    static one still.
+    launch their static build for that shape where it is within
+    ``STATIC_MAX_J`` and ``STATIC_MAX_M`` (``driven_build``, ``free_build``).
+    None otherwise (padded or mixed-shape lanes): the general build.
 
     The port's form of the JAX package's ``_static_lane``
     (``jssenv_tpu/core/pallas_rollout.py:1018``), which also asks for a
@@ -303,57 +307,61 @@ def launch_geometry(J: int, M: int, vdt: torch.dtype = _I32) -> Geometry:
     return Geometry(_WARP, lanes, lanes * _WARP, state_words * 4 // item, scratch, lanes * lane_bytes)
 
 
-# The free kernel's static build (csrc/free_static.cu): a warp a lane with
-# its state in registers, FREE_STATIC_LANES lanes a block, no shared memory;
-# ceil(J/32) job slots and ceil(M/32) machine words a thread, at most 4 and 2.
-FREE_STATIC_LANES = 4  # kLanes in the source; its library's jss_free_static_lanes()
-FREE_STATIC_MAX_J = 128
-FREE_STATIC_MAX_M = 64
+# The static builds (csrc/driven_static.cu, csrc/free_static.cu, on
+# csrc/static_lane.cuh): a warp a lane with its state in registers,
+# STATIC_LANES lanes a block, no shared memory; ceil(J/32) job slots and
+# ceil(M/32) machine words a thread, at most 4 and 2.
+STATIC_LANES = 4  # kLanes in static_lane.cuh; each library's jss_*_static_lanes()
+STATIC_MAX_J = 128
+STATIC_MAX_M = 64
 
 
-class FreeStaticGeometry(NamedTuple):
+class StaticGeometry(NamedTuple):
     lanes: int  # lanes (warps) a block
     threads: int  # threads a block
     blocks: int  # blocks of the grid
     shared_bytes: int  # none: the state lives in registers
 
 
-def free_static_geometry(B: int) -> FreeStaticGeometry:
-    """The launch of ``csrc/free_static.cu`` on B lanes."""
-    lanes = FREE_STATIC_LANES
-    return FreeStaticGeometry(lanes, lanes * _WARP, -(-B // lanes), 0)
+def static_geometry(B: int) -> StaticGeometry:
+    """The launch of a static build on B lanes."""
+    lanes = STATIC_LANES
+    return StaticGeometry(lanes, lanes * _WARP, -(-B // lanes), 0)
 
 
-def free_static_fits(shape: Optional[Tuple[int, int]]) -> bool:
-    """Whether the free kernel's static build takes the static ``shape``."""
-    return shape is not None and shape[0] <= FREE_STATIC_MAX_J and shape[1] <= FREE_STATIC_MAX_M
+def static_fits(shape: Optional[Tuple[int, int]]) -> bool:
+    """Whether the static builds take the static ``shape``."""
+    return shape is not None and shape[0] <= STATIC_MAX_J and shape[1] <= STATIC_MAX_M
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(shape: Optional[Tuple[int, int]] = None) -> ctypes.CDLL:
-    """The built ``csrc/rollout.cu`` with its C signatures declared: the
-    general build (both kernels), or the static build of ``shape`` (J, M:
-    the driven kernel), built at its first use (a failed build raises with
+def _lib() -> ctypes.CDLL:
+    """The built general ``csrc/rollout.cu`` (both kernels) with its C
+    signatures declared, built at its first use (a failed build raises with
     the compiler's output)."""
-    lib = _build.load("rollout", shape)
+    lib = _build.load("rollout")
     P, I = ctypes.c_void_p, ctypes.c_int
     geometry = [I, I, I, I]  # lanes, state stride, scratch stride, shared bytes
     lib.jss_rollout_driven.argtypes = [P, P, P, P, P, P, I, I, I, I, I, *geometry, P]
     lib.jss_rollout_driven.restype = I
-    if shape is None:
-        for fn in (lib.jss_rollout_free, lib.jss_rollout_free_i16):
-            fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, *geometry, P]
-            fn.restype = I
-    _check_built(lib, "rollout", shape)
+    for fn in (lib.jss_rollout_free, lib.jss_rollout_free_i16):
+        fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, *geometry, P]
+        fn.restype = I
+    _check_built(lib, "rollout", None)
     return lib
 
 
-def _check_built(lib: ctypes.CDLL, name: str, shape) -> None:
+def _check_built(lib: ctypes.CDLL, name: str, shape, lanes: Optional[str] = None) -> None:
     for fn in (lib.jss_static_j, lib.jss_static_m):
         fn.argtypes, fn.restype = [], ctypes.c_int
     built = (lib.jss_static_j(), lib.jss_static_m())
     if built != (tuple(shape) if shape else (0, 0)):
         raise RuntimeError(f"the {name} library for shape {shape} was built for {built}")
+    if lanes is not None:
+        fn = getattr(lib, lanes)
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        if fn() != STATIC_LANES:
+            raise RuntimeError(f"the {name} library holds {fn()} lanes a block, not {STATIC_LANES}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -365,46 +373,66 @@ def _free_lib(shape: Tuple[int, int]) -> ctypes.CDLL:
     for fn in (lib.jss_free_static, lib.jss_free_static_i16):
         fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, P]
         fn.restype = I
-    lib.jss_free_static_lanes.argtypes, lib.jss_free_static_lanes.restype = [], I
-    _check_built(lib, "free_static", shape)
-    if lib.jss_free_static_lanes() != FREE_STATIC_LANES:
-        raise RuntimeError(f"the free_static library holds {lib.jss_free_static_lanes()} lanes a block, "
-                           f"not {FREE_STATIC_LANES}")
+    _check_built(lib, "free_static", shape, "jss_free_static_lanes")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _driven_lib(shape: Tuple[int, int]) -> ctypes.CDLL:
+    """The built ``csrc/driven_static.cu`` for ``shape`` with its C signature
+    declared, built at its first use."""
+    lib = _build.load("driven_static", shape)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # the 17 input fields (_DRIVEN_I32, _DRIVEN_U8), tab, lanec, actions, out, out8
+    lib.jss_driven_static.argtypes = [P] * 22 + [I, I, I, I, I, P]
+    lib.jss_driven_static.restype = I
+    _check_built(lib, "driven_static", shape, "jss_driven_static_lanes")
     return lib
 
 
 def kernel_jobs(shapes=(None,)):
-    """The (source, shape) builds that launches on the given shapes
-    (``None``: the general kernels) need."""
-    shapes = [None if s is None else tuple(s) for s in shapes]
-    return [("rollout", s) for s in shapes] + [("free_static", s) for s in shapes if free_static_fits(s)]
+    """The (source, shape) builds that launches on the given shapes need:
+    both static builds of a shape they take, else (``None``, or a shape past
+    their limits) the general build."""
+    jobs = []
+    for s in shapes:
+        s = None if s is None else tuple(s)
+        jobs += [("driven_static", s), ("free_static", s)] if static_fits(s) else [("rollout", None)]
+    return list(dict.fromkeys(jobs))
 
 
 def build_kernels(shapes=(None,)) -> None:
-    """Build the general kernels (``None``) and the static builds of the
-    given (J, M) shapes that are not built yet, every nvcc process started
-    together, and load them."""
+    """Build what launches on the given shapes need (``kernel_jobs``) and is
+    not built yet, every nvcc process started together, and load it."""
     jobs = kernel_jobs(shapes)
     _build.build_jobs(jobs)
     for name, s in jobs:
         if name == "rollout":
-            _lib(s)
-        else:
+            _lib()
+        elif name == "free_static":
             _free_lib(s)
+        else:
+            _driven_lib(s)
 
 
 def _variant(state: EnvState, general: bool) -> Optional[Tuple[int, int]]:
-    """The build a launch on ``state`` takes: its static shape, or None (the
-    general build) for padded or mixed-shape lanes or when ``general``
-    forces it (the tests and the smoke run both builds on one batch)."""
-    return None if general else static_shape(state)
+    """The static shape of ``state`` where its kernels' static builds take
+    it, else None: the general build, also when ``general`` forces it (the
+    tests and the smoke run both builds on one batch)."""
+    shape = None if general else static_shape(state)
+    return shape if static_fits(shape) else None
+
+
+def driven_build(state: EnvState, general: bool = False) -> Optional[Tuple[int, int]]:
+    """The build a driven launch on ``state`` takes: the static shape where
+    ``csrc/driven_static.cu`` takes it, else None (the general build)."""
+    return _variant(state, general)
 
 
 def free_build(state: EnvState, general: bool = False) -> Optional[Tuple[int, int]]:
     """The build a free launch on ``state`` takes: the static shape where
     ``csrc/free_static.cu`` takes it, else None (the general build)."""
-    shape = _variant(state, general)
-    return shape if free_static_fits(shape) else None
+    return _variant(state, general)
 
 
 def free_kernel_job(state: EnvState) -> Tuple[str, Optional[Tuple[int, int]]]:
@@ -445,28 +473,97 @@ def _check_kernel_inputs(state: EnvState, *tensors: torch.Tensor, dtype: torch.d
 
 def launch_driven(
     state: EnvState, buf, tab, lanec, actions, rewards, with_solution: bool, ends=None,
-    _general: bool = False,
 ) -> None:
-    """One ``rollout_driven_kernel`` launch on prepared buffers (``buf`` is
-    updated in place, ``rewards`` (T, B) and, unless None, ``ends`` (T, B)
-    written) on the current stream: the static build where every lane is
-    unpadded (``static_shape``), else the general one. ``_general`` forces
-    the general build, so that both can run on one batch."""
+    """One launch of the general build's ``rollout_driven_kernel``
+    (``csrc/rollout.cu``) on prepared buffers (``buf`` is updated in place,
+    ``rewards`` (T, B) and, unless None, ``ends`` (T, B) written) on the
+    current stream: the driven launch of a batch that ``driven_build`` does
+    not take static, or of any batch when a caller forces the general build."""
     _check_kernel_inputs(state, buf, tab, lanec, actions, rewards, *(() if ends is None else (ends,)))
     T, B = actions.shape
     if rewards.shape != (T, B) or (ends is not None and ends.shape != (T, B)):
         raise ValueError(f"rewards and ends must be (T, B)=({T}, {B})")
     geo = launch_geometry(state.jobs_pad, state.machines_pad)
-    shape = _variant(state, _general)
     with torch.cuda.device(state.device):
-        err = _lib(shape).jss_rollout_driven(
+        err = _lib().jss_rollout_driven(
             buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), actions.data_ptr(),
             rewards.data_ptr(), None if ends is None else ends.data_ptr(), B, state.jobs_pad,
             state.machines_pad, T, int(with_solution), *_geometry_args(geo),
             torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(err, "rollout_driven_kernel" + _tag(shape), geo)
-    LAUNCHES["rollout_driven" + _key(shape)] += 1
+    _check_launch(err, "rollout_driven_kernel", geo)
+    LAUNCHES["rollout_driven"] += 1
+
+
+# The driven static build's state fields, in the order of csrc/driven_static.cu's
+# DrivenIO and Out / Out8: the int32 fields (the solution last, (B, 0, M) when
+# light), then the masks (torch.bool, one byte each).
+_DRIVEN_I32 = ("time", "nb_legal", "nb_machine_legal", "machine_busy_for", "job_busy_for", "next_op",
+               "work_done", "needed_machine", "op_end_at", "idle_frozen", "idle_total_alloc", "wait4", "solution")
+_DRIVEN_U8 = ("noop_legal", "legal", "noop_pin", "machine_legal")
+
+
+def _driven_inputs(state: EnvState) -> list:
+    """The state's fields in ``_DRIVEN_I32`` then ``_DRIVEN_U8`` order, as
+    the kernel reads them: each as it is when it is a contiguous int32
+    (bool) tensor on the state's device, else a contiguous copy of that
+    dtype. Never written."""
+    dev = state.device
+    out = []
+    for names, dtype in ((_DRIVEN_I32, _I32), (_DRIVEN_U8, torch.bool)):
+        for name in names:
+            t = getattr(state, name)
+            if t.device != dev:
+                raise ValueError(f"{name} is on {t.device}, the state on {dev}")
+            out.append(t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous())
+    return out
+
+
+def _driven_outputs(state: EnvState, T: int):
+    """The driven static build's outputs: one int32 allocation holding the
+    new state's int32 fields (``_DRIVEN_I32``: the three (B,) counters, the
+    (B, M) busy times, the eight (B, J) job rows, the solution), then the
+    (T, B) rewards and the (T, B) ends, and one uint8 allocation holding its
+    masks (``_DRIVEN_U8``). Returns (out, out8, new state, rewards, ends);
+    the new state's dynamic fields are views of the two (its static ones are
+    the input's), so it shares no written storage with ``state``. Fields of
+    one shape come out of one ``unbind``: a view costs microseconds of host
+    time, and a T=1 launch is tens."""
+    B, J, M, dev = state.batch_size, state.jobs_pad, state.machines_pad, state.device
+    JS = state.solution.shape[1]  # J, or 0 when light
+    out = torch.empty((3 * B + B * M + 8 * B * J + B * JS * M + 2 * T * B,), dtype=_I32, device=dev)
+    out8 = torch.empty((B + 2 * B * J + B * M,), dtype=torch.uint8, device=dev)
+    lane, mbf, jobs, sol, steps = out.split([3 * B, B * M, 8 * B * J, B * JS * M, 2 * T * B])
+    noop_legal, pins, ml = out8.view(torch.bool).split([B, 2 * B * J, B * M])
+    new = dict(zip(_DRIVEN_I32, (*lane.view(3, B).unbind(), mbf.view(B, M), *jobs.view(8, B, J).unbind(),
+                                 sol.view(B, JS, M))))
+    new.update(zip(_DRIVEN_U8, (noop_legal, *pins.view(2, B, J).unbind(), ml.view(B, M))))
+    rewards, ends = steps.view(2, T, B).unbind()
+    return out, out8, state.replace(**new), rewards, ends
+
+
+def launch_driven_static(state: EnvState, inputs, tab, lanec, actions, out, out8, with_solution: bool) -> None:
+    """One ``driven_static_kernel`` launch (``csrc/driven_static.cu``, built
+    for the batch's static shape) on the current stream: T steps on
+    ``actions`` (T, B) from the state's fields ``inputs``
+    (``_driven_inputs``, read only) into the allocations ``out`` and
+    ``out8`` (``_driven_outputs``). Refuses a batch that ``driven_build``
+    does not take static."""
+    shape = driven_build(state)
+    if shape is None:
+        raise ValueError("the driven static build takes an unpadded batch of at most "
+                         f"{STATIC_MAX_J} jobs and {STATIC_MAX_M} machines")
+    _check_kernel_inputs(state, tab, lanec, actions, out)
+    _check_kernel_inputs(state, out8, dtype=torch.uint8)
+    T, B = actions.shape
+    with torch.cuda.device(state.device):
+        err = _driven_lib(shape).jss_driven_static(
+            *[t.data_ptr() for t in inputs], tab.data_ptr(), lanec.data_ptr(), actions.data_ptr(),
+            out.data_ptr(), out8.data_ptr(), B, state.jobs_pad, state.machines_pad, T, int(with_solution),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(err, "driven_static_kernel" + _tag(shape), static_geometry(B))
+    LAUNCHES["rollout_driven_static"] += 1
 
 
 def launch_free(
@@ -477,12 +574,11 @@ def launch_free(
     it reads and does not write: per-lane stats (4, B) int64 and returns
     (B,) float32 written. ``vdt`` picks the instantiation (int32 or int16)
     and must be ``buf``'s dtype: a buffer is never converted here.
-    ``lane_offset``: the global index of lane 0 in the Philox counter. An
-    unpadded batch (``static_shape``) of at most ``FREE_STATIC_MAX_J`` jobs
-    and ``FREE_STATIC_MAX_M`` machines launches ``free_static_kernel`` of
-    ``csrc/free_static.cu``, built for its shape (``free_build``); any other
-    batch launches ``rollout_free_kernel``, the general build of
-    ``csrc/rollout.cu``. ``_general`` forces the general build."""
+    ``lane_offset``: the global index of lane 0 in the Philox counter. A
+    batch that ``free_build`` takes static launches ``free_static_kernel``
+    of ``csrc/free_static.cu``, built for its shape; any other batch launches
+    ``rollout_free_kernel``, the general build of ``csrc/rollout.cu``.
+    ``_general`` forces the general build."""
     if vdt not in (_I32, torch.int16):
         raise ValueError(f"the free kernel stores int32 or int16, not {vdt}")
     if buf.dtype != vdt:
@@ -498,11 +594,11 @@ def launch_free(
             state.machines_pad, T, int(lane_offset))
     if shape is None:
         geo = launch_geometry(state.jobs_pad, state.machines_pad, vdt)  # refuses what cannot fit, before a build
-        lib = _lib(None)
+        lib = _lib()
         fn = lib.jss_rollout_free_i16 if i16 else lib.jss_rollout_free
         name, extra = "rollout_free_kernel", _geometry_args(geo)
     else:
-        geo = free_static_geometry(state.batch_size)
+        geo = static_geometry(state.batch_size)
         lib = _free_lib(shape)
         fn = lib.jss_free_static_i16 if i16 else lib.jss_free_static
         name, extra = "free_static_kernel", ()
@@ -564,14 +660,20 @@ def rollout_driven(state: EnvState, actions: torch.Tensor, num_steps: int, retur
 
 def _driven_kernel(state: EnvState, actions: torch.Tensor, T: int, with_solution: bool, with_ends: bool,
                    general: bool = False):
-    """One driven launch; ``general`` forces the general build."""
-    buf = _to_lanes(state, with_solution)
+    """One driven launch: the static build where ``driven_build`` takes the
+    batch (the state's own tensors in, a new state out), else the general
+    build on the lane buffer; ``general`` forces the general build."""
     tab, lanec = _lane_inputs(state)
-    rewards = torch.empty((T, state.batch_size), dtype=_I32, device=state.device)
-    ends = torch.empty_like(rewards) if with_ends else None
-    launch_driven(state, buf, tab, lanec, actions, rewards, with_solution, ends, _general=general)
-    out = (_from_lanes(buf, state, with_solution), rewards)
-    return out + (ends,) if with_ends else out
+    if driven_build(state, general) is None:
+        buf = _to_lanes(state, with_solution)
+        rewards = torch.empty((T, state.batch_size), dtype=_I32, device=state.device)
+        ends = torch.empty_like(rewards) if with_ends else None
+        launch_driven(state, buf, tab, lanec, actions, rewards, with_solution, ends)
+        new = _from_lanes(buf, state, with_solution)
+    else:  # the kernel always writes the ends
+        out, out8, new, rewards, ends = _driven_outputs(state, T)
+        launch_driven_static(state, _driven_inputs(state), tab, lanec, actions, out, out8, with_solution)
+    return (new, rewards, ends) if with_ends else (new, rewards)
 
 
 def rollout_driven_reference(

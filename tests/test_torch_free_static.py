@@ -117,7 +117,7 @@ def test_every_full_config_takes_its_build(smoke):
         assert fr.free_build(state, general=True) is None
         assert str(fr.value_dtype(state)).removeprefix("torch.") == smoke.FULL_DTYPE[name], name
         assert fr.free_kernel_job(state) == (("rollout", None) if want is None else ("free_static", want))
-    assert all(fr.free_static_fits(s) for s in smoke.STATIC_SHAPES)
+    assert all(fr.static_fits(s) for s in smoke.STATIC_SHAPES)
 
 
 def test_every_bench_config_takes_the_new_kernel():
@@ -131,15 +131,15 @@ def test_every_bench_config_takes_the_new_kernel():
 
 def test_every_repo_instance_fits_the_new_kernel():
     shapes = {(ti.get_instance(n).num_jobs, ti.get_instance(n).num_machines) for n in ti.instance_names()}
-    assert len(shapes) > 5 and all(fr.free_static_fits(s) for s in shapes)
+    assert len(shapes) > 5 and all(fr.static_fits(s) for s in shapes)
 
 
 @pytest.mark.parametrize("shape,fits", [((128, 64), True), ((1, 1), True), ((129, 5), False), ((6, 65), False),
                                         ((100, 20), True), ((200, 20), False)])
 def test_shape_limits(shape, fits):
-    assert fr.free_static_fits(shape) == fits
+    assert fr.static_fits(shape) == fits
     jobs = fr.kernel_jobs([None, shape])
-    assert jobs == [("rollout", None), ("rollout", shape)] + ([("free_static", shape)] if fits else [])
+    assert jobs == [("rollout", None)] + ([("driven_static", shape), ("free_static", shape)] if fits else [])
 
 
 def test_a_static_batch_past_the_limits_runs_the_general_build():
@@ -150,8 +150,8 @@ def test_a_static_batch_past_the_limits_runs_the_general_build():
 
 @pytest.mark.parametrize("B", [1, 4, 5, 37, 16384])
 def test_free_static_geometry(B):
-    geo = fr.free_static_geometry(B)
-    assert geo.lanes == fr.FREE_STATIC_LANES == 4 and geo.threads == 128 and geo.shared_bytes == 0
+    geo = fr.static_geometry(B)
+    assert geo.lanes == fr.STATIC_LANES == 4 and geo.threads == 128 and geo.shared_bytes == 0
     assert (geo.blocks - 1) * geo.lanes < B <= geo.blocks * geo.lanes
 
 
@@ -174,7 +174,7 @@ def fake_card(monkeypatch):
     libs = types.SimpleNamespace(free=_FakeLib(), general=_FakeLib())
     monkeypatch.setattr(fr, "_check_kernel_inputs", lambda *a, **k: None)
     monkeypatch.setattr(fr, "_free_lib", lambda shape: libs.free)
-    monkeypatch.setattr(fr, "_lib", lambda shape=None: libs.general)
+    monkeypatch.setattr(fr, "_lib", lambda: libs.general)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=7))
     return libs
@@ -225,8 +225,9 @@ def test_a_refused_launch_raises_and_counts_nothing(fake_card):
 
 
 def test_the_kernels_build_together(tmp_path, monkeypatch):
-    """``build_kernels`` starts the rollout builds and the new kernel's
-    static builds in one batch of nvcc processes; an instrumented build is a
+    """``build_kernels`` starts the general build and both static builds of
+    each shape within the limits in one batch of nvcc processes (a shape
+    past them needs the general build only); an instrumented build is a
     library of its own."""
     started = []
 
@@ -236,19 +237,20 @@ def test_the_kernels_build_together(tmp_path, monkeypatch):
             self.cmd, self.returncode = cmd, 0
 
         def communicate(self, timeout=None):
-            assert len(started) == 4  # every process started before the first is waited for
+            assert len(started) == 3  # every process started before the first is waited for
             Path(self.cmd[self.cmd.index("-o") + 1]).write_bytes(b"")
             return "ptxas info    : Used 40 registers\n", None
 
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_nvcc", lambda: "/fake/nvcc")
     monkeypatch.setattr(subprocess, "Popen", FakeNvcc)
-    monkeypatch.setattr(fr, "_lib", lambda shape=None: None)
+    monkeypatch.setattr(fr, "_lib", lambda: None)
     monkeypatch.setattr(fr, "_free_lib", lambda shape: None)
+    monkeypatch.setattr(fr, "_driven_lib", lambda shape: None)
     fr.build_kernels([None, (15, 15), (200, 5)])
     got = sorted((Path(c[-1]).name, tuple(x for x in c if x.startswith("-DJSS_STATIC"))) for c in started)
-    s15, s200 = ("-DJSS_STATIC_J=15", "-DJSS_STATIC_M=15"), ("-DJSS_STATIC_J=200", "-DJSS_STATIC_M=5")
-    assert got == sorted([("rollout.cu", ()), ("rollout.cu", s15), ("rollout.cu", s200), ("free_static.cu", s15)])
+    s15 = ("-DJSS_STATIC_J=15", "-DJSS_STATIC_M=15")
+    assert got == sorted([("rollout.cu", ()), ("driven_static.cu", s15), ("free_static.cu", s15)])
     plain = _build.library_path("free_static", (15, 15))
     clocks = _build.library_path("free_static", (15, 15), ("JSS_PASS_CLOCKS",))
     assert plain != clocks and "_pass_clocks_" in clocks.name and plain.name.startswith("libfree_static_15x15_")

@@ -1,8 +1,9 @@
-"""The CUDA sources of the free rollout, run on the CPU through a shim.
+"""The CUDA sources of the rollouts, run on the CPU through a shim.
 
-``csrc/free_static.cu`` (the free kernel's static build, one library per
-shape) and the general build of ``csrc/rollout.cu``'s free kernel are
-compiled as C++ (``g++ -std=c++20``) against ``SHIM`` below: every CUDA
+``csrc/free_static.cu`` and ``csrc/driven_static.cu`` (the static builds of
+the free and the driven kernel, one library per shape, on
+``csrc/static_lane.cuh``) and the general build of ``csrc/rollout.cu``'s free
+kernel are compiled as C++ (``g++ -std=c++20``) against ``SHIM`` below: every CUDA
 thread of a block is a fiber of one host thread, the blocks of a grid run
 one after another, and per warp a barrier of its 32 fibers around a 32-slot
 array stands for ``__syncwarp`` and every vote, shuffle and reduction; the
@@ -14,13 +15,19 @@ entry points below launch its kernels as the source's own do. The libraries
 go into a temporary directory.
 
 Each case runs in a process of this file (``python
-tests/test_torch_kernel_shim.py LIBDIR CASE``) with a time limit of its own,
-and holds each kernel's per-lane stats and float32 returns bit for bit
-against ``fused_rollout.free_lane_stats_reference``: int32 and int16 storage
-where the values fit, Philox words with a non-zero ``lane_offset`` and caller
-bits, from fresh states and from states a few hundred driven steps into an
-episode (``START``: running jobs, no-op pins, work done and busy machines,
-which a fresh state has none of)."""
+tests/test_torch_kernel_shim.py LIBDIR CASE``) with a time limit of its own.
+A free case holds each kernel's per-lane stats and float32 returns bit for
+bit against ``fused_rollout.free_lane_stats_reference``: int32 and int16
+storage where the values fit, Philox words with a non-zero ``lane_offset``
+and caller bits, from fresh states and from states a few hundred driven
+steps into an episode (``START``: running jobs, no-op pins, work done and
+busy machines, which a fresh state has none of). A driven case (``DRIVEN``)
+holds the driven kernel's new state, field by field, its rewards and its
+ends bit for bit against ``fused_rollout.rollout_driven_reference`` at T = 0,
+1 and 40 on the full and the light state, fresh and mid-episode, at every
+job-slot and machine-slot count, and checks that the input state is
+unchanged and that the new masks hold the bytes 0 and 1 only; one of them
+also against the JAX package's ``rollout_driven`` in interpret mode."""
 
 import ctypes
 import os
@@ -38,6 +45,7 @@ sys.path.insert(0, str(ROOT))
 from jssenv_tpu_torch import instances as ti  # noqa: E402
 from jssenv_tpu_torch import vector as tv  # noqa: E402
 from jssenv_tpu_torch.core import fused_rollout as fr  # noqa: E402
+from jssenv_tpu_torch.core import state as ts  # noqa: E402
 from test_torch_free_static import driven_start  # noqa: E402
 
 CSRC = ROOT / "jssenv_tpu_torch" / "core" / "csrc"
@@ -216,6 +224,18 @@ extern "C" int shim_free(const void* state, const void* tab, const void* lanec, 
 extern "C" int shim_mod_small(unsigned x, int d) { return mod_small(x, d); }
 """
 
+DRIVEN_ENTRY = r"""
+extern "C" int shim_driven(const void* const* p, int B, int T, int with_solution) {
+  const DrivenIO io{(const int*)p[0], (const int*)p[1], (const int*)p[2], (const int*)p[3], (const int*)p[4],
+                    (const int*)p[5], (const int*)p[6], (const int*)p[7], (const int*)p[8], (const int*)p[9],
+                    (const int*)p[10], (const int*)p[11], (const int*)p[12], (const uint8_t*)p[13],
+                    (const uint8_t*)p[14], (const uint8_t*)p[15], (const uint8_t*)p[16], (const int*)p[17],
+                    (const int*)p[18], (const int*)p[19], (int*)p[20], (uint8_t*)p[21], B, T, with_solution};
+  launch((B + kLanes - 1) / kLanes, kLanes * 32, [=] { driven_static_kernel(io); });
+  return kLanes;
+}
+"""
+
 GENERAL_ENTRY = r"""
 extern "C" int shim_free(const void* state, const void* tab, const void* lanec, const void* bits,
                          unsigned long long seed, void* stats, void* ret, int B, int J, int M, int T,
@@ -269,6 +289,26 @@ START = {"ta01-mid": (150, 0), "ta41-mid": (450, 1), "rand6x5-mid": (47, 0)}
 TIME_LIMIT_S = 90  # a case's process; each takes 2-8 s alone
 LANE_OFFSET = 5
 
+# driven case -> (instance source, B, driven steps before the window (0: a
+# fresh state), seed of its actions, kind of actions in the window). Every
+# case runs T = 0, 1 and 40 on the full and the light state. The job slots a
+# thread: one (J = 6, 15, 30), two (40), three (70), four (100); two machine
+# words at M = 40. The mid-episode windows cross episode ends. "any" actions
+# are drawn from [-2, J + 2) whatever the mask: waits, illegal allocations
+# and a negative id (engine.step clamps it to job 0).
+DRIVEN = {
+    "d-ta01": (lambda: ti.get_instance("ta01"), 8, 0, 1, "legal"),
+    "d-ta01-mid": (lambda: ti.get_instance("ta01"), 8, 235, 2, "legal"),
+    "d-rand6x5": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 8, 0, 3, "legal"),
+    "d-rand6x5-any": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 6, 20, 4, "any"),
+    "d-ta41-mid": (lambda: ti.get_instance("ta41"), 4, 650, 5, "legal"),
+    "d-rand40x3-mid": (lambda: ti.random_instance(40, 3, (1, 9), seed=7), 4, 105, 6, "legal"),
+    "d-rand70x4-mid": (lambda: ti.random_instance(70, 4, (1, 9), seed=9), 4, 265, 7, "legal"),
+    "d-rand100x3-mid": (lambda: ti.random_instance(100, 3, (1, 9), seed=10), 4, 285, 8, "legal"),
+    "d-rand6x40-mid": (lambda: ti.random_instance(6, 40, (1, 9), seed=11), 4, 225, 9, "legal"),
+}
+DRIVEN_T = (0, 1, 40)
+
 
 def _source(name):
     """(C++ text of the source's device part) of csrc/<name>.cu."""
@@ -277,23 +317,32 @@ def _source(name):
     return device.replace("#include <cuda_runtime.h>", '#include "shim.h"')
 
 
+def _driven_shape(case):
+    spec = DRIVEN[case][0]()
+    return spec.num_jobs, spec.num_machines
+
+
 def build(libdir: Path) -> dict:
     """Compile the general library and one static library per shape of
-    CASES, every g++ started together; returns {shape or None: path}."""
+    CASES (free) and of DRIVEN (driven), every g++ started together; returns
+    {(source, shape or None): path}."""
     libdir.mkdir(parents=True, exist_ok=True)
     (libdir / "shim.h").write_text(SHIM)
-    jobs = {None: ("rollout", GENERAL_ENTRY, [])}
+    jobs = {("rollout", None): GENERAL_ENTRY}
     for _, _, _, shape, _ in CASES.values():
         if shape is not None:
-            jobs[shape] = ("free_static", STATIC_ENTRY, [f"-DJSS_STATIC_J={shape[0]}", f"-DJSS_STATIC_M={shape[1]}"])
+            jobs["free_static", shape] = STATIC_ENTRY
+    for case in DRIVEN:
+        jobs["driven_static", _driven_shape(case)] = DRIVEN_ENTRY
     procs, out = [], {}
-    for shape, (name, entry, defs) in jobs.items():
+    for (name, shape), entry in jobs.items():
         tag = "general" if shape is None else f"{shape[0]}x{shape[1]}"
+        defs = [] if shape is None else [f"-DJSS_STATIC_J={shape[0]}", f"-DJSS_STATIC_M={shape[1]}"]
         cpp, lib = libdir / f"{name}_{tag}.cpp", libdir / f"lib{name}_{tag}.so"
         cpp.write_text(_source(name) + entry)
-        cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", *defs, "-o", str(lib), str(cpp)]
+        cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{CSRC}", *defs, "-o", str(lib), str(cpp)]
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        out[shape] = lib
+        out[name, shape] = lib
     for cmd, p in procs:
         log, _ = p.communicate(timeout=300)
         assert p.returncode == 0, f"{' '.join(cmd)}\n{log}"
@@ -322,6 +371,83 @@ def _run_lib(lib, state, T, vdt, seed, bits, lane_offset, general):
     lib.shim_free.restype = I
     lib.shim_free(*args)
     return {"episodes": stats[0], "mk_sum": stats[1], "mk_min": stats[2], "viol": stats[3], "ret": ret}
+
+
+def _run_driven(lib, state, actions, T):
+    """One launch of the shim's driven library on the port's kernel inputs
+    and output allocations; returns (new state, rewards, ends, the uint8
+    allocation of the masks)."""
+    B = state.batch_size
+    tab, lanec = fr._lane_inputs(state)
+    inputs = fr._driven_inputs(state)
+    out, out8, new, rewards, ends = fr._driven_outputs(state, T)
+    ptrs = [t.data_ptr() for t in inputs] + [tab.data_ptr(), lanec.data_ptr(), actions.data_ptr(),
+                                             out.data_ptr(), out8.data_ptr()]
+    lib.shim_driven.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.shim_driven.restype = ctypes.c_int
+    lib.shim_driven((ctypes.c_void_p * len(ptrs))(*ptrs), B, T, int(fr._solution_mode(state)))
+    return new, rewards, ends, out8
+
+
+def _window_actions(state, T, seed, kind):
+    """(T, B) int32 actions for the window: the twin's own trajectory under
+    random legal actions, or ids drawn from [-2, J + 2) whatever the mask."""
+    if kind == "any":
+        g = np.random.default_rng(seed)
+        return torch.from_numpy(g.integers(-2, state.jobs_pad + 2, size=(T, state.batch_size)).astype(np.int32))
+    g = torch.Generator().manual_seed(seed)
+    acts = []
+    for _ in range(T):
+        acts.append(tv.random_legal_actions(g, state).to(torch.int32))
+        state, _ = fr.rollout_driven_reference(state, acts[-1][None], 1)
+    return torch.stack(acts) if acts else torch.zeros((0, state.batch_size), dtype=torch.int32)
+
+
+def driven_window(case):
+    """The case's start state and its (max T, B) actions."""
+    src, B, steps, seed, kind = DRIVEN[case]
+    state = tv.make_batch(src(), B, device="cpu")
+    if steps:
+        state = driven_start(state, steps, seed)
+    return state, _window_actions(state, max(DRIVEN_T), seed + 100, kind)
+
+
+def run_driven_case(libdir: str, case: str) -> None:
+    """The body of one driven case (a process of its own): T = 0, 1 and 40
+    on the full and the light state, each against the twin."""
+    torch.set_num_threads(1)
+    start, acts = driven_window(case)
+    lib = ctypes.CDLL(str(Path(libdir) / "libdriven_static_{}x{}.so".format(*_driven_shape(case))))
+    assert fr.driven_build(start) == _driven_shape(case)
+    ended = 0
+    for state in (start, tv.strip_solution(start)):
+        for T in DRIVEN_T:
+            a = acts[:T].contiguous()
+            before = {k: v.clone() for k, v in state.dynamic_fields().items()}
+            new, rewards, ends, out8 = _run_driven(lib, state, a, T)
+            ref, ref_raw, ref_ends = fr.rollout_driven_reference(state, a, T, return_ends=True)
+            tag = f"{case} T={T} {'light' if state.solution.shape[1] == 0 else 'full'}"
+            assert torch.equal(rewards, ref_raw), f"{tag}: rewards {rewards.tolist()} != {ref_raw.tolist()}"
+            assert torch.equal(ends, ref_ends), f"{tag}: ends {ends.tolist()} != {ref_ends.tolist()}"
+            for k in ts.FIELD_NAMES:
+                got, want = getattr(new, k), getattr(ref, k)
+                assert got.dtype == want.dtype and torch.equal(got, want), f"{tag}: {k} {got.tolist()} != {want.tolist()}"
+            assert all(torch.equal(getattr(state, k), v) for k, v in before.items()), f"{tag}: the input changed"
+            assert int(out8.max()) <= 1, f"{tag}: a mask byte other than 0 and 1"
+            ended += int((ref_ends > 0).sum())
+            print(f"{tag}: equal to the twin ({int((ref_ends > 0).sum())} episode ends)")
+    assert ended > 0 or DRIVEN[case][2] == 0 and case != "d-rand6x5", f"{case}: no episode ended in the window"
+
+
+def run_driven_jax_case(libdir: str, out: str) -> None:
+    """The d-rand6x5 case at T = 40 on the full state: the shim's results,
+    saved to ``out`` (npz) for the test process to hold against JAX."""
+    torch.set_num_threads(1)
+    state, acts = driven_window("d-rand6x5")
+    lib = ctypes.CDLL(str(Path(libdir) / "libdriven_static_6x5.so"))
+    new, rewards, ends, _ = _run_driven(lib, state, acts.contiguous(), acts.shape[0])
+    np.savez(out, actions=acts.numpy(), rewards=rewards.numpy(), ends=ends.numpy(),
+             **{f"state_{k}": v for k, v in ts.to_numpy(new).items()})
 
 
 def _lib(libdir, general, shape):
@@ -374,10 +500,10 @@ def run_dead_fields(libdir: str) -> None:
         assert all(torch.equal(want[f], ref[f]) for f in ref)
 
 
-def _in_process(libdir, case):
+def _in_process(libdir, case, *extra):
     """Run ``case`` in a process of this file, under its time limit."""
     try:
-        proc = subprocess.run([sys.executable, __file__, str(libdir), case], capture_output=True, text=True,
+        proc = subprocess.run([sys.executable, __file__, str(libdir), case, *extra], capture_output=True, text=True,
                               timeout=TIME_LIMIT_S, env=dict(os.environ, OMP_NUM_THREADS="1"))
     except subprocess.TimeoutExpired as e:
         pytest.fail(f"{case}: no result in {TIME_LIMIT_S} s (a hung warp collective?)\n{e.stdout}")
@@ -394,12 +520,44 @@ def libdir(tmp_path_factory):
 def test_shim_builds_one_library_per_shape(libdir):
     names = sorted(p.name for p in libdir.glob("*.so"))
     shapes = sorted({f"{c[3][0]}x{c[3][1]}" for c in CASES.values() if c[3]})
-    assert names == sorted(["librollout_general.so"] + [f"libfree_static_{s}.so" for s in shapes])
+    driven = sorted({"{}x{}".format(*_driven_shape(c)) for c in DRIVEN})
+    assert names == sorted(["librollout_general.so"] + [f"libfree_static_{s}.so" for s in shapes]
+                           + [f"libdriven_static_{s}.so" for s in driven])
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_source_matches_twin_on_cpu(libdir, case):
     _in_process(libdir, case)
+
+
+@pytest.mark.parametrize("case", list(DRIVEN))
+def test_driven_kernel_source_matches_twin_on_cpu(libdir, case):
+    _in_process(libdir, case)
+
+
+def test_driven_kernel_source_matches_jax_on_cpu(libdir, tmp_path):
+    """The shim's d-rand6x5 window at T = 40 (episode ends inside) equals the
+    JAX package's ``rollout_driven`` in interpret mode: rewards and every
+    field of the final state."""
+    pytest.importorskip("flax")
+    import jax
+
+    from jssenv_tpu import instances as ji
+    from jssenv_tpu import vector as jv
+    from jssenv_tpu.core import pallas_rollout
+
+    out = tmp_path / "driven_6x5.npz"
+    _in_process(libdir, "driven-jax", str(out))
+    got = dict(np.load(out))
+    src, B = DRIVEN["d-rand6x5"][:2]
+    build_ = lambda m: m.stack_instances([m.random_instance(6, 5, (1, 9), seed=3)])  # noqa: E731
+    js = jv.make_batch(build_(ji), B)
+    T = got["actions"].shape[0]
+    jfinal, jraw = pallas_rollout.rollout_driven(js, jax.numpy.asarray(got["actions"]), T, tile=4, interpret=True)
+    np.testing.assert_array_equal(got["rewards"], np.asarray(jraw))
+    assert int((got["ends"] > 0).sum()) > 0
+    for k, v in vars(jax.device_get(jfinal)).items():
+        np.testing.assert_array_equal(got[f"state_{k}"], np.asarray(v), err_msg=k)
 
 
 def test_static_kernel_reads_no_dead_field_on_cpu(libdir):
@@ -414,7 +572,7 @@ def test_draw_modulo_without_division_on_cpu(libdir):
     cpp.write_text(src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
                    + 'extern "C" int shim_mod_small(unsigned x, int d) { return mod_small(x, d); }\n')
     lib = libdir / "libmod_small_128.so"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-DJSS_STATIC_J=128",
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{CSRC}", "-DJSS_STATIC_J=128",
                     "-DJSS_STATIC_M=2", "-o", str(lib), str(cpp)], check=True, capture_output=True, timeout=300)
     fn = ctypes.CDLL(str(lib)).shim_mod_small
     fn.argtypes, fn.restype = [ctypes.c_uint, ctypes.c_int], ctypes.c_int
@@ -427,5 +585,9 @@ def test_draw_modulo_without_division_on_cpu(libdir):
 if __name__ == "__main__":
     if sys.argv[2] == "dead-fields":
         run_dead_fields(sys.argv[1])
+    elif sys.argv[2] == "driven-jax":
+        run_driven_jax_case(sys.argv[1], sys.argv[3])
+    elif sys.argv[2] in DRIVEN:
+        run_driven_case(sys.argv[1], sys.argv[2])
     else:
         run_case(sys.argv[1], sys.argv[2])

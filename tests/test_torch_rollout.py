@@ -619,11 +619,11 @@ def test_kernel_wrappers_refuse_bad_inputs_on_card(cuda_dev):
 @pytest.mark.parametrize("refused", ["threads", "shared"])
 def test_refused_launch_raises_on_card(cuda_dev, monkeypatch, refused):
     """A geometry the card refuses (too many threads a block, more shared
-    memory than a block may have) raises; nothing runs in its place. The
-    free half runs a padded batch, which takes the general build: the free
-    kernel's static build (csrc/free_static.cu) has no shared memory and a
-    block of its own, so no geometry of launch_geometry reaches it."""
-    state = tv.make_batch(ti.get_instance("ta01"), 16, device=cuda_dev)
+    memory than a block may have) raises; nothing runs in its place. Both
+    halves run a padded batch, which takes the general build: the static
+    builds (csrc/driven_static.cu, csrc/free_static.cu) have no shared
+    memory and a block of their own, so no geometry of launch_geometry
+    reaches them."""
     padded = tv.make_batch(ti.get_instance_set(["ta01", "ta41"]), 16, device=cuda_dev)
     plain = fr.launch_geometry
 
@@ -634,10 +634,10 @@ def test_refused_launch_raises_on_card(cuda_dev, monkeypatch, refused):
         return geo._replace(shared_bytes=240000)
 
     monkeypatch.setattr(fr, "launch_geometry", bad)
-    assert fr.free_build(padded) is None
+    assert fr.free_build(padded) is None and fr.driven_build(padded) is None
     before = dict(fr.LAUNCHES)
-    with pytest.raises(RuntimeError, match="refused or failed"):
-        fr.rollout_driven(state, torch.zeros((2, 16), dtype=torch.int32, device=cuda_dev), 2)
+    with pytest.raises(RuntimeError, match="rollout_driven_kernel.*refused or failed"):
+        fr.rollout_driven(padded, torch.zeros((2, 16), dtype=torch.int32, device=cuda_dev), 2)
     with pytest.raises(RuntimeError, match="rollout_free_kernel.*refused or failed"):
         fr.free_lane_stats(padded, 2, seed=1)
     assert fr.LAUNCHES == before
