@@ -6,18 +6,22 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power limit;
-2. build with nvcc the general kernels of ``core/csrc/rollout.cu`` and,
-   for every shape the run meets (``STATIC_SHAPES``), the static builds of
-   ``core/csrc/driven_static.cu`` and ``core/csrc/free_static.cu`` (a lane's
-   state in registers, on ``core/csrc/static_lane.cuh``), with the
-   instrumented static free kernels of rollout.cu and free_static.cu
-   (``-DJSS_PASS_CLOCKS``, read in phase 7c), every nvcc started together,
-   and print each build's ``-Xptxas -v`` report (registers, stack, spills),
-   the launch geometry of each FULL config (``fused_rollout.launch_geometry``:
-   a warp a lane, lanes a block, shared bytes), and the resident warps an
-   SM and waves of the driven static build at each shape and of the free
-   one at each unpadded FULL config. A batch whose every lane is unpadded
-   launches the static builds of its shape, a padded one the general build
+2. build with nvcc the general kernels of ``core/csrc/rollout.cu``, for
+   every shape the run meets (``STATIC_SHAPES``) the static builds of
+   ``core/csrc/driven_static.cu`` and ``core/csrc/free_static.cu``, and for
+   every slot class (``SLOT_CLASSES``: 1-4 job slots, 1-2 machine words a
+   thread) ``core/csrc/general_lane.cu`` (both kernels for padded and
+   mixed-shape batches), all on ``core/csrc/static_lane.cuh`` (a lane's
+   state in registers), with the instrumented static free kernels of
+   rollout.cu and free_static.cu (``-DJSS_PASS_CLOCKS``, read in phase 7c),
+   every nvcc started together, and print each build's ``-Xptxas -v``
+   report (registers, stack, spills), the launch geometry of each FULL
+   config (``fused_rollout.launch_geometry``: a warp a lane, lanes a block,
+   shared bytes), and the resident warps an SM and waves of the driven
+   static build at each shape, of the free one at each unpadded FULL config
+   and of both slot-class kernels in each class. A batch whose every lane is
+   unpadded launches the static builds of its shape, a padded or mixed one
+   its slot class's, one past 128 jobs or 64 machines rollout.cu's
    (``fused_rollout.static_shape``, ``driven_build``, ``free_build``);
 3. driven parity: the plain twin (``vector.step_autoreset``'s two calls,
    under ``random_legal_actions``) on the card records actions, raw rewards,
@@ -28,30 +32,34 @@ Phases (any failure raises and the script exits non-zero):
    policy loop takes, across episode ends and open no-op gates: ta01
    B=16384 on the full state (the policy loop) and ta01 B=8192 on the light
    state (``vector.strip_solution``, as the learner and serving run it). On
-   every unpadded batch the general build runs the same actions too and must
-   be bit-equal to the static one; every launch leaves its input state
-   unchanged and writes masks of the bytes 0 and 1 only (``hold_driven``);
+   every batch rollout.cu's build and (on an unpadded one) the slot-class
+   build run the same actions too and must be bit-equal to the build the
+   batch takes; every launch leaves its input state unchanged and writes
+   masks of the bytes 0 and 1 only (``hold_driven``);
 4. free parity, bits mode: the same (T, B) bits through the kernel and the
    plain twin; per-lane integer stats equal, return within rel 1e-5, no
    reward-identity violations. Where a case's values fit int16, both
    instantiations of the free kernel (int32 and int16) are held against the
-   same twin; each in its static and its general build, bit-equal lane by
-   lane;
+   same twin; each in every build that takes the batch (static, slot class,
+   rollout.cu), bit-equal lane by lane; a padded case too;
 5. the main path at full width, launch counts zeroed just before: a
    policy-in-the-loop rollout (``random_legal_actions`` outside, the env step
    in the driven kernel) on ta01 with B=16384, and the free Philox rollout on
    ta01 B=16384, ragged ta01-ta10 B=10240, ragged ta41-ta50 B=10240 and ta71
    B=8192 (static builds), and on the padded batches of two shapes ta01+ta11
-   and ta01+ta41, B=10240, T=512 (general builds). ``value_dtype`` must pick
-   int16 on ta01, ta01-ta10 and ta01+ta11 (which launch the int16
+   and ta01+ta41, B=10240, T=512 (the slot-class build). ``value_dtype`` must
+   pick int16 on ta01, ta01-ta10 and ta01+ta11 (which launch the int16
    instantiation) and int32 on the others. Also the policy loop on the padded
-   ta01+ta11 batch (B=8192, 300 steps; the general driven kernel, each lane's
-   reward identity at its episode ends, from the kernel's own ends); every
-   ``LOOP_HOLD``-th step of both loops held against the twin and, on the
-   unpadded batch, the general build (``hold_driven``, uncounted);
+   ta01+ta11 batch (B=8192, 300 steps; the slot-class driven kernel, each
+   lane's reward identity at its episode ends, from the kernel's own ends);
+   every ``LOOP_HOLD``-th step of both loops held against the twin and the
+   other builds (``hold_driven``, uncounted); and the instances past the
+   register lane's 128 jobs (``LARGE``: random 160x5 and 140x20 instances,
+   B=1024, the free rollout in int16 and int32 and a 64-step policy loop),
+   which launch rollout.cu's build, each held against its twin;
 6. the plain twin on the same full-width inputs and seed: lane by lane equal
-   to the kernel in the build the batch takes and, on an unpadded batch, in
-   the general build too (every stat and the float32 return), and on an
+   to the kernel in every build that takes the batch (every stat and the
+   float32 return), and on an
    unpadded batch lanes [B/2, B) alone with lane_offset B/2 equal to the
    whole run's; then the kernel in bits mode at full width, in both builds
    lane by lane against the twin on the same bits, its mean makespan within
@@ -60,16 +68,19 @@ Phases (any failure raises and the script exits non-zero):
 7. kernel times (CUDA events, after warm-up, the card kept busy by a queued
    spin while the host issues each launch, so that the events time the
    kernel and not the launch call, whose host time is kept beside) on each
-   batch in turns, the general build against the static one (general, static, static, general;
-   on the int16 batches the int32 static build too), the plain twins' times,
+   batch in turns, rollout.cu's build, the slot-class build and the static
+   one (in that order, then back; on the int16 batches the int32 static
+   build too; a padded batch has the first two), the plain twins' times,
    the least time the card could take, env-steps/s; with
    ``--against ROOT``, the kernels of another checkout (e.g. the parent
    commit's, unpacked with ``git archive``) and this one's in turns (root,
    this, this, root), each turn a process of its own. The driven rows also
    time the whole ``rollout_driven`` call (``call_timer``: the device time of
    all it enqueues, its host call, the synchronised host clock), in turns
-   too; their bound counts the bytes of the state's fields each way at their
-   own dtypes, the tables, the actions, rewards and ends;
+   too (on the padded policy loop's step, ta01+ta11 B=8192 T=1, in the
+   slot-class build and in rollout.cu's); their bound counts the bytes of
+   the state's fields each way at their own dtypes, the tables, the
+   actions, rewards and ends;
 7c. where a step's cycles go in the static free kernel, in both designs
    (rollout.cu's and free_static.cu's), on each unpadded FULL config:
    the instrumented builds' clock64 per pass (the draw, the action's update,
@@ -78,8 +89,10 @@ Phases (any failure raises and the script exits non-zero):
    counted);
 8. where a policy-loop step's time goes, stage by stage on the driven static
    build (host clock: the draw, the lane inputs, the new state's
-   allocations, the input fields, the launch); with ``--profile`` also the
-   device's busy share under ``torch.profiler``;
+   allocations, the input fields, the launch); the padded policy loop's
+   T=1 call under ``torch.profiler``: one device kernel, the slot-class
+   build's, and nothing else (rollout.cu's call beside it, its layout
+   copies counted); with ``--profile`` also the device's busy share;
 9. the dispatching-rule sweep: all 7 rules on ragged ta01-ta10, 10240 lanes
    per rule, through ``compare_rules_batched`` on the card, timed per rule.
    Each rule's episodes are also run with every chosen action checked
@@ -99,7 +112,7 @@ Phases (any failure raises and the script exits non-zero):
    (``ta41_distill`` recorded only), at float32 equal to the JAX package's
    float32 makespans, one run with 63 sampled lanes; the reward identity of
    each greedy episode from the kernel's rewards and ends; a few calls of
-   each run held against the twin and the general build (``SERVING_HOLDS``);
+   each run held against the twin and the other builds (``SERVING_HOLDS``);
 13. training at full width: the JAX package's learner configuration (ta01,
    B=8192, unroll 32, 256x256 ``MaskedPolicyNet``, REINFORCE), then 2 PPO
    updates at that shape and 2 ``perjob`` updates on ta41 (B=1024, rich
@@ -173,9 +186,10 @@ build). ``--out`` writes every measured number as JSON. On an H100 the run
 takes about 9 minutes (``--quick`` about 4); ``--against`` adds about 3. The
 last stdout lines are the ``nvidia-smi`` line, one ``{"kernels": [...]}``
 line and ``{"ok": true, "device": {...}}``. The kernels line has each
-kernel in each build (``KERNELS``: general and static), its time at the
-main shape of its kind (the general build's on the same unpadded batch as
-the static build's), and its ``launches``: the driven kernel's sum phases 5,
+kernel in each build (``KERNELS``: rollout.cu's general build, static, slot
+class), its time at the main shape of its kind (rollout.cu's on the same
+unpadded batch as the static build's, the slot-class build's at the padded
+batch of its kind), and its ``launches``: the driven kernel's sum phases 5,
 12, 13, 14 (both ranks' too), 15 and 18, the free kernels' phases 5, 14 and
 18, each path counted from zero (phase 18's from its processes' own counts)
 and listed in ``launches_by_path``. Every build must have been launched on
@@ -218,28 +232,44 @@ DRIVEN_CASES = (
     ("rand6x5", 256, 256, {}),
 )
 QUICK_DRIVEN_CASES = (("ta01", 256, 300, {}), ("ta01", 256, 300, {"light": True}), ("rand6x5", 128, 128, {}),
-                      ("ta71", 64, 64, {}))
-FREE_CASES = (("ta01", 1024, 512), ("ta41-ta50", 1280, 768))
-QUICK_FREE_CASES = (("ta01", 256, 300), ("rand6x5", 128, 128))
+                      ("ta71", 64, 64, {}), ("ta01+ta11", 128, 300, {}))
+FREE_CASES = (("ta01", 1024, 512), ("ta41-ta50", 1280, 768), ("ta01+ta11", 1024, 512))
+QUICK_FREE_CASES = (("ta01", 256, 300), ("rand6x5", 128, 128), ("ta01+ta11", 128, 300))
 FULL = (("ta01", 16384, 1024), ("ta01-ta10", 10240, 1024), ("ta41-ta50", 10240, 1024), ("ta71", 8192, 3072),
         ("ta01+ta11", 10240, 512), ("ta01+ta41", 10240, 512))
 # the free kernel's storage dtype each FULL batch must select (value_dtype)
 FULL_DTYPE = {"ta01": "int16", "ta01-ta10": "int16", "ta41-ta50": "int32", "ta71": "int32", "ta01+ta11": "int16",
               "ta01+ta41": "int32"}
 # the FULL batches with padded lanes (two shapes in one batch): they run the
-# general kernels; every other batch is unpadded and runs the static build of
-# its shape (fused_rollout.static_shape)
+# slot-class build (general_lane.cu, slot class 1x1); every other batch is
+# unpadded and runs the static build of its shape (fused_rollout.static_shape)
 PADDED = ("ta01+ta11", "ta01+ta41")
 MAIN_B = 16384  # ta01 lanes of the policy-in-the-loop main path
 LOOP_STEPS = 256  # its steps, one driven launch each
 LOOP_HOLD = 32  # every 32nd step of phase 5's policy loops held against the twin (and the general build)
-# the policy loop on a padded batch (the general driven kernel), long enough
-# for ta01's random-policy episodes (about 260 steps) to end
+# the policy loop on a padded batch (the slot-class driven kernel), long
+# enough for ta01's random-policy episodes (about 260 steps) to end
 PAD_LOOP = ("ta01+ta11", 8192, 300)
+# instances past the register lane's 128 jobs, which launch rollout.cu's
+# build on the main path: (config, B, T) of the free rollout (160x5 fits
+# int16, 140x20 with Taillard's durations 1-99 needs int32), and the policy
+# loop's (config, B, steps, steps between holds)
+LARGE = (("big160x5", 1024, 512), ("big140x20", 1024, 512))
+LARGE_SPECS = {"big160x5": (160, 5, (1, 9)), "big140x20": (140, 20, (1, 99))}  # jobs, machines, durations
+LARGE_DTYPE = {"big160x5": "int16", "big140x20": "int32"}
+LARGE_LOOP = ("big140x20", 1024, 64, 16)
 # the static shapes (J, M) the run meets: ta01 and ta01-ta10, ta41-ta50
 # (and ta41, ta42, ta45), ta71, the 6x5 random instance; built in phase 2
 # with the general kernels, every nvcc started together
 STATIC_SHAPES = ((15, 15), (30, 20), (100, 20), (6, 5))
+# the slot classes of core/csrc/general_lane.cu (job slots, machine words a
+# thread): all eight are built in phase 2 (-Xptxas -v of each); the padded
+# batches of the main path are of class (1, 1), the others run in phase 4 on
+# SLOT_CASES, batches of two random shapes padded to one (B, T: SLOT_BT)
+SLOT_CLASSES = tuple((s, k) for s in range(1, 5) for k in range(1, 3))
+SLOT_CASES = ("mix6x40+2x35", "mix40x3+3x5", "mix40x3+2x40", "mix70x4+3x3", "mix70x4+2x33", "mix100x3+3x5",
+              "mix100x3+2x40")
+SLOT_BT = (256, 160)
 LEARNER_B = 8192  # ta01 lanes of the learner's light env state (phase 13)
 RULE_SET, RULE_LANES, QUICK_RULE_LANES, RULE_MAX_STEPS = "ta01-ta10", 10240, 70, 4096
 EXPLORE = (0.0, 0.1)
@@ -290,11 +320,14 @@ TRAIN_QUICK = (
 
 # LAUNCHES key -> (kernel, the TPU kernel it replaces); a "_static" key is
 # the static build (the counterpart of the JAX kernels' static_lane variant,
-# pallas_rollout.py _static_lane :1018, _fresh_static :503)
+# pallas_rollout.py _static_lane :1018, _fresh_static :503), a "_slots" key
+# the slot-class build (their static_lane=None variant on the register lane)
 SOURCE = "jssenv_tpu_torch/core/csrc/rollout.cu"
 FREE_SOURCE = "jssenv_tpu_torch/core/csrc/free_static.cu"  # the free kernel's static build
 DRIVEN_SOURCE = "jssenv_tpu_torch/core/csrc/driven_static.cu"  # the driven kernel's static build
-LANE_HEADER = "jssenv_tpu_torch/core/csrc/static_lane.cuh"  # the step math of both static builds
+GENERAL_SOURCE = "jssenv_tpu_torch/core/csrc/general_lane.cu"  # both kernels' slot-class build
+LANE_HEADER = "jssenv_tpu_torch/core/csrc/static_lane.cuh"  # the step math of the register lane
+LANE_BODIES = ("jssenv_tpu_torch/core/csrc/driven_lane.cuh", "jssenv_tpu_torch/core/csrc/free_lane.cuh")
 KERNELS = {
     "rollout_driven": ("rollout_driven_kernel", "jssenv_tpu/core/pallas_rollout.py:598", SOURCE),
     "rollout_driven_static": ("driven_static_kernel (static J,M)", "jssenv_tpu/core/pallas_rollout.py:598",
@@ -305,28 +338,47 @@ KERNELS = {
     "rollout_free_i16": ("rollout_free_kernel<int16>", "jssenv_tpu/core/pallas_rollout.py:653", SOURCE),
     "rollout_free_i16_static": ("free_static_kernel<int16_t> (static J,M)", "jssenv_tpu/core/pallas_rollout.py:653",
                                 FREE_SOURCE),
+    "rollout_driven_slots": ("driven_general_kernel (slot class S,K)", "jssenv_tpu/core/pallas_rollout.py:598",
+                             GENERAL_SOURCE),
+    "rollout_free_slots": ("free_general_kernel<int32_t> (slot class S,K)", "jssenv_tpu/core/pallas_rollout.py:653",
+                           GENERAL_SOURCE),
+    "rollout_free_i16_slots": ("free_general_kernel<int16_t> (slot class S,K)",
+                               "jssenv_tpu/core/pallas_rollout.py:653", GENERAL_SOURCE),
 }
-DRIVEN_KEYS = ("rollout_driven", "rollout_driven_static")
+DRIVEN_KEYS = ("rollout_driven", "rollout_driven_static", "rollout_driven_slots")
 # the passes of the instrumented free kernels (-DJSS_PASS_CLOCKS), in the
 # sources' order: the draw, the action's update, fast_forward,
 # prioritization, check_no_op, the episode's bookkeeping and reset
 PASS_NAMES = ("draw", "act", "fast_forward", "prioritization", "check_no_op", "reset")
 CLOCKS = ("JSS_PASS_CLOCKS",)
 # what the script runs or reads of the checkout around it
-CHECKOUT = ("jssenv_tpu_torch", SOURCE, FREE_SOURCE, DRIVEN_SOURCE, LANE_HEADER, "tools/bench_torch.py", "tools/solver_quality_torch.py",
+CHECKOUT = ("jssenv_tpu_torch", SOURCE, FREE_SOURCE, DRIVEN_SOURCE, GENERAL_SOURCE, LANE_HEADER, *LANE_BODIES,
+            "tools/bench_torch.py", "tools/solver_quality_torch.py",
             "tools/distill_30x20_torch.py", "tools/bench_scaling_torch.py", "tools/gen_golden_torch.py",
             "models_data", "tests/data/golden_solutions.json")
 
 
 def driven(counts) -> int:
-    """The driven kernel's launches in ``counts``, both builds."""
+    """The driven kernel's launches in ``counts``, every build."""
     return sum(counts.get(k, 0) for k in DRIVEN_KEYS)
 
 
-def free_key(vdt, static) -> str:
+def free_key(vdt, build="") -> str:
     """The LAUNCHES key of the free kernel in storage dtype ``vdt`` (a torch
-    dtype or its name), static build or not."""
-    return ("rollout_free_i16" if "int16" in str(vdt) else "rollout_free") + ("_static" if static else "")
+    dtype or its name) in the build of key suffix ``build`` ("", "_static",
+    "_slots")."""
+    return ("rollout_free_i16" if "int16" in str(vdt) else "rollout_free") + build
+
+
+def job_tag(job) -> str:
+    """A ``_build`` job's name in the reports: its source and build."""
+    name, shape, *defines = job
+    if name == "general_lane":
+        slots = [d.split("=")[1] for d in defines[0] if d.startswith("JSS_SLOTS")]
+        return f"general_lane slots {slots[0]}x{slots[1]}"
+    extra = [d for d in defines[0] if not d.startswith("JSS_SLOTS")] if defines else []
+    return f"{name} " + ("general" if shape is None else f"static {shape[0]}x{shape[1]}") + "".join(
+        " " + d for d in extra)
 
 
 def check(cond, msg: str) -> None:
@@ -358,6 +410,27 @@ def busy_share(fn):
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "busy_share": busy_us / wall_us if busy_us else "not measured",
             "top": [(e.key, e.self_device_time_total / 1e3, e.count) for e in top]}
+
+
+def device_ops(fn) -> dict:
+    """{name: count} of the device kernels and copies ``fn()`` enqueues,
+    under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0}
+
+
+def other_builds(fr, state, own: str) -> list:
+    """The builds other than ``own`` that take ``state``: the slot-class
+    build (within 128 jobs and 64 machines) and rollout.cu's."""
+    fits = fr.slot_class(state.jobs_pad, state.machines_pad) is not None
+    return [b for b in ("slots", "rollout") if b != own and (b == "rollout" or fits)]
 
 
 def main() -> int:
@@ -415,26 +488,27 @@ def main() -> int:
     t0 = time.perf_counter()
     clock_jobs = [] if args.quick else [(name, sh, CLOCKS) for sh in STATIC_SHAPES
                                         for name in ("rollout", "free_static")]
-    jobs = fr.kernel_jobs([None, *STATIC_SHAPES]) + clock_jobs
+    batches = [None, *STATIC_SHAPES, *(fr.Build("slots", c) for c in SLOT_CLASSES)]
+    jobs = fr.kernel_jobs(batches) + clock_jobs
     _build.build_jobs(jobs)
-    fr.build_kernels([None, *STATIC_SHAPES])
+    fr.build_kernels(batches)
     report["build_s"] = time.perf_counter() - t0
-    report["ptxas"] = {f"{job[0]} " + ("general" if job[1] is None else f"static {job[1][0]}x{job[1][1]}")
-                       + (" " + " ".join(job[2]) if len(job) > 2 else ""): _build.ptxas_report(*job) for job in jobs}
-    log(f"[2] built {SOURCE} (general), {DRIVEN_SOURCE} and {FREE_SOURCE} (static) for {list(STATIC_SHAPES)}"
-        f"{', and their instrumented static free kernels' if clock_jobs else ''}: {len(jobs)} nvcc processes "
+    report["ptxas"] = {job_tag(job): _build.ptxas_report(*job) for job in jobs}
+    log(f"[2] built {SOURCE} (general), {DRIVEN_SOURCE} and {FREE_SOURCE} (static) for {list(STATIC_SHAPES)}, "
+        f"{GENERAL_SOURCE} for the slot classes {list(SLOT_CLASSES)}"
+        f"{', and the instrumented static free kernels' if clock_jobs else ''}: {len(jobs)} nvcc processes "
         f"started together, {report['build_s']:.1f}s")
     for tag, rep_ in report["ptxas"].items():
         log(f"[2] {tag}:\n{rep_}")
-    kerr = {k: 0.0 for k in KERNELS}  # max |kernel - twin| (or - the other build) by LAUNCHES key
+    kerr = {k: 0.0 for k in KERNELS}  # max |kernel - twin| (or - another build) by LAUNCHES key
 
     def variant(state) -> str:
         """The LAUNCHES suffix of a driven launch on ``state``."""
-        return "_static" if fr.static_shape(state) else ""
+        return fr._key(fr.driven_build(state))
 
     def free_variant(state) -> str:
         """The LAUNCHES suffix of a free launch on ``state``."""
-        return "_static" if fr.free_build(state) else ""
+        return fr._key(fr.free_build(state))
 
     def make(name, B, **pad):
         return vector.make_batch(source(instances, name), B, device=dev, **pad)
@@ -485,6 +559,23 @@ def main() -> int:
         report["free_static_occupancy"][name] = row
         log(f"[2] free_static_kernel<{kernel}> {name} {shape} B={B}: {blocks} blocks of {geo.lanes} lanes an SM "
             f"({blocks * geo.lanes} resident warps), {geo.blocks} blocks over {sms} SMs: {row['waves']:.3f} waves")
+    # both slot-class kernels of each class: registers, spills, resident warps
+    report["general_occupancy"] = {}
+    for slots in SLOT_CLASSES:
+        lib = fr._general_lib(slots)
+        lib.jss_driven_general_blocks_per_sm.argtypes = []
+        lib.jss_free_general_blocks_per_sm.argtypes = [ctypes.c_int]
+        for fn in (lib.jss_driven_general_blocks_per_sm, lib.jss_free_general_blocks_per_sm):
+            fn.restype = ctypes.c_int
+        blocks = {"driven": lib.jss_driven_general_blocks_per_sm(), "free_int32": lib.jss_free_general_blocks_per_sm(0),
+                  "free_int16": lib.jss_free_general_blocks_per_sm(1)}
+        check(min(blocks.values()) >= 1, f"general_lane {slots}: occupancy query failed ({blocks})")
+        tag = job_tag(fr.build_job("driven", fr.Build("slots", slots)))
+        ptx = [ln.strip() for ln in report["ptxas"][tag].split("\n") if ln.strip()]
+        row = {"slots": slots, "blocks_per_sm": blocks,
+               "warps_per_sm": {k: v * fr.STATIC_LANES for k, v in blocks.items()}, "ptxas": ptx}
+        report["general_occupancy"][f"{slots[0]}x{slots[1]}"] = row
+        log(f"[2] general_lane slot class {slots}: resident warps an SM {row['warps_per_sm']}")
 
     def max_err(a, b) -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
@@ -544,8 +635,8 @@ def main() -> int:
         check(max(max_err(rew_plain, rew), state_err(fin_plain, fin)) == 0, f"driven {name}: ends changed the run")
         key = "rollout_driven" + variant(state)
         kerr[key] = max(kerr[key], err)
-        # the input unchanged, the masks' bytes, the twin and, on an unpadded
-        # batch, the general build on the same inputs
+        # the input unchanged, the masks' bytes, the twin and the other
+        # builds on the same inputs
         hold_driven(fr, state, snap, torch.stack(acts), T, (fin, rew, k_ends), f"driven {name}")
         episodes = int((ends > 0).sum())
         row = {"config": name, "pad": pad, "B": B, "T": T, "episodes": episodes, "kernel": key,
@@ -577,15 +668,18 @@ def main() -> int:
                 s_in = s_p
                 with plain:
                     s_p, r_p, e_p = fr.rollout_driven_reference(s_p, a[None], 1, return_ends=True)
-                # the general build on the same state and actions, then the static one
-                g = fr._driven_kernel(s_k, a[None].contiguous(), 1, not light, True, general=True)
+                # rollout.cu's and the slot-class build on the same state and
+                # actions, then the static one
+                others = [fr._driven_kernel(s_k, a[None].contiguous(), 1, not light, True, build=b)
+                          for b in ("rollout", "slots")]
                 snap = snapshot(s_k)
                 s_in_k = s_k
                 s_k, rew, e_k = fr.rollout_driven(s_k, a[None], 1, return_ends=True)
                 err = max(max_err(rew, r_p), max_err(e_k, e_p), state_err(s_k, s_p))
                 check(err == 0, f"driven B={B} light={light}: rewards or ends differ")
-                check(max(max_err(g[1], rew), max_err(g[2], e_k), state_err(g[0], s_k)) == 0,
-                      f"driven B={B} light={light}: the static and general kernels differ")
+                for b, g in zip(("rollout", "slots"), others):
+                    check(max(max_err(g[1], rew), max_err(g[2], e_k), state_err(g[0], s_k)) == 0,
+                          f"driven B={B} light={light}: the static and the {b} kernels differ")
                 changed = [k for k, v in snap.items() if not torch.equal(getattr(s_in_k, k), v)]
                 check(not changed, f"driven B={B} light={light}: the launch changed its input {changed}")
                 check(not any(bool((getattr(s_k, k).view(torch.uint8) > 1).any()) for k in fr._DRIVEN_U8),
@@ -622,13 +716,13 @@ def main() -> int:
 
     KEY = {torch.int32: "rollout_free", torch.int16: "rollout_free_i16"}
 
-    def free_kernel(state, T, vdt, seed=0, bits=None, general=False, lane_offset=0):
+    def free_kernel(state, T, vdt, seed=0, bits=None, build=None, lane_offset=0):
         """Per-lane stats of one launch of the free kernel's ``vdt``
-        instantiation, in the build the batch takes (or the general one);
-        checks that it launched, under its key."""
-        key = KEY[vdt] + ("" if general else free_variant(state))
+        instantiation, in the build the batch takes (or ``build``); checks
+        that it launched, under its key."""
+        key = KEY[vdt] + fr._key(fr.free_build(state, build))
         before = dict(fr.LAUNCHES)
-        out = fr._free_kernel(state, T, seed, bits, vdt, lane_offset=lane_offset, general=general)
+        out = fr._free_kernel(state, T, seed, bits, vdt, lane_offset=lane_offset, build=build)
         check(fr.LAUNCHES[key] == before[key] + 1 and sum(fr.LAUNCHES.values()) == sum(before.values()) + 1,
               f"{key} did not launch")
         return out
@@ -639,13 +733,14 @@ def main() -> int:
         check(not bad, f"{tag}: per-lane {bad} differ")
 
     def free_both(state, T, vdt, tag, seed=0, bits=None, lane_offset=0):
-        """The free kernel in the build the batch takes and, where that is
-        the static one, the general one on the same batch: bit-equal.
-        Returns the first's per-lane stats."""
+        """The free kernel in the build the batch takes and in every other
+        build that takes it (the slot class's, rollout.cu's) on the same
+        batch: bit-equal. Returns the first's per-lane stats."""
         k = free_kernel(state, T, vdt, seed, bits, lane_offset=lane_offset)
-        if free_variant(state):
-            same_lanes(k, free_kernel(state, T, vdt, seed, bits, general=True, lane_offset=lane_offset),
-                       f"{tag}: the static and general kernels")
+        own = fr.free_build(state).kind
+        for b in other_builds(fr, state, own):
+            same_lanes(k, free_kernel(state, T, vdt, seed, bits, build=b, lane_offset=lane_offset),
+                       f"{tag}: the {own} and {b} kernels")
         return k
 
     free_cases = QUICK_FREE_CASES if args.quick else FREE_CASES
@@ -665,8 +760,40 @@ def main() -> int:
             row[key] = {"ret_max_abs_err": ret_err, "total_return_rel_err": rel}
         check(row["episodes"] > 0, f"free bits {name}: no episode ended")
         report["free_parity"].append(row)
-        log(f"[4] free parity (bits; static and general builds bit-equal) {row}")
-    check(any("rollout_free_i16_static" in r for r in report["free_parity"]), "no bits-mode case ran the int16 kernel")
+        log(f"[4] free parity (bits; every build bit-equal) {row}")
+    for key in ("rollout_free_i16_static", "rollout_free_i16_slots"):
+        check(any(key in r for r in report["free_parity"]), f"no bits-mode case ran {key}")
+
+    # every other slot class, on a batch of two random shapes padded to one:
+    # the driven kernel on the twin's own random-policy actions, and the free
+    # one in bits mode in both storage types, each against the twin and
+    # rollout.cu's build
+    report["slot_parity"] = {}
+    B, T = SLOT_BT
+    for i, name in enumerate(SLOT_CASES):
+        state = make(name, B)
+        build = fr.driven_build(state)
+        check(build.kind == "slots", f"{name}: {build}")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 300 + i)
+        acts, s = [], state
+        for _ in range(T):
+            acts.append(vector.random_legal_actions(gen, s).to(torch.int32))
+            s, _ = fr.rollout_driven_reference(s, acts[-1][None], 1)
+        acts = torch.stack(acts)
+        snap = snapshot(state)
+        got = fr.rollout_driven(state, acts, T, return_ends=True)
+        hold_driven(fr, state, snap, acts, T, got, f"driven {name}")
+        bits = rand_bits(T, B, SEED + 400 + i)
+        r = fr.free_lane_stats_reference(state, T, bits=bits)
+        for vdt in (torch.int32, torch.int16):
+            same_lanes(free_both(state, T, vdt, f"free bits {name}", bits=bits), r, f"free bits {name}: kernel and twin")
+        row = {"slots": build.shape, "B": B, "T": T, "driven_episodes": int((got[2] > 0).sum()),
+               "free_episodes": int(r["episodes"].sum())}
+        check(row["driven_episodes"] > 0 and row["free_episodes"] > 0, f"{name}: no episode ended {row}")
+        report["slot_parity"][name] = row
+        log(f"[4] slot class {build.shape} on {name}: driven and free (int32, int16) kernels equal to the twin and "
+            f"rollout.cu's build {row}")
+    check({r["slots"] for r in report["slot_parity"].values()} | {(1, 1)} == set(SLOT_CLASSES), "a slot class was not run")
 
     if args.quick:
         # the Philox words of the kernel and of the twin, in both instantiations
@@ -675,7 +802,7 @@ def main() -> int:
         for vdt in KEY:
             compare_free(free_both(state, 128, vdt, f"free philox {KEY[vdt]}", seed=SEED), ref,
                          f"free philox {KEY[vdt]}")
-        log("[4] free parity (philox, int32 and int16, static and general) ok")
+        log("[4] free parity (philox, int32 and int16, every build) ok")
         rule_phase(report, dev, QUICK_RULE_LANES, profile=False)
         replay_phase(report, dev, quick=True)
         wrapper_phase(report, dev)
@@ -729,7 +856,7 @@ def main() -> int:
     # kernel's own ends
     name, B, T = PAD_LOOP
     s = make(name, B)
-    check(variant(s) == "", f"policy loop {name}: not a padded batch")
+    check(variant(s) == "_slots", f"policy loop {name}: not the slot-class build")
     ep_raw = torch.zeros(B, dtype=torch.int64, device=dev)
     pad_eps = torch.zeros((), dtype=torch.int64, device=dev)
     pad_bad = torch.zeros((), dtype=torch.int64, device=dev)
@@ -737,7 +864,7 @@ def main() -> int:
         a = vector.random_legal_actions(gen, s)
         s_in, snap = s, (snapshot(s) if t % LOOP_HOLD == 0 else None)
         s, rew, ends = fr.rollout_driven(s, a[None], 1, return_ends=True)
-        if snap is not None:  # held against the twin
+        if snap is not None:  # held against the twin and rollout.cu's build
             hold_driven(fr, s_in, snap, a[None], 1, (s, rew, ends), f"padded policy loop step {t}")
         ep_raw += rew[0]
         done = ends[0] > 0
@@ -747,6 +874,30 @@ def main() -> int:
     check(int(pad_eps) > 0 and int(pad_bad) == 0,
           f"policy loop {name}: {int(pad_eps)} episodes, {int(pad_bad)} reward-identity violations")
     report["policy_loop_padded"] = {"config": name, "B": B, "T": T, "episodes": int(pad_eps)}
+    recorded["padded"] = (s_in, a[None].to(torch.int32).contiguous(), int((ends > 0).sum()))
+    # instances past the register lane's limits: rollout.cu's build, every
+    # LARGE_LOOP[3]-th step held against the twin
+    name, B, T, every = LARGE_LOOP
+    s = make(name, B)
+    check(variant(s) == "", f"policy loop {name}: not rollout.cu's build")
+    for t in range(T):
+        a = vector.random_legal_actions(gen, s)
+        s_in, snap = s, (snapshot(s) if t % every == 0 else None)
+        s, rew, ends = fr.rollout_driven(s, a[None], 1, return_ends=True)
+        if snap is not None:
+            hold_driven(fr, s_in, snap, a[None], 1, (s, rew, ends), f"{name} policy loop step {t}")
+    report["policy_loop_large"] = {"config": name, "B": B, "T": T, "held": -(-T // every)}
+    for name, B, T in LARGE:
+        state = make(name, B)
+        vdt = getattr(torch, LARGE_DTYPE[name])
+        check(fr.value_dtype(state) == vdt and variant(state) == "", f"{name}: {fr.value_dtype(state)}, "
+              f"{fr.driven_build(state)}")
+        k = fr.free_lane_stats(state, T, seed=SEED)
+        same_lanes(k, fr.free_lane_stats_reference(state, T, seed=SEED), f"free {name}: kernel and twin")
+        red = {key: v.item() for key, v in fr._reduce_stats(k, T, B).items()}
+        check(red["identity_violations"] == 0, f"free {name}: {red}")
+        report.setdefault("large", {})[name] = dict(red, B=B, T=T, value_dtype=LARGE_DTYPE[name])
+        log(f"[5] free philox {name} (rollout.cu's build, {LARGE_DTYPE[name]}): equal to the twin lane by lane, {red}")
 
     def free_run(name, B, T):
         state = make(name, B)
@@ -772,9 +923,12 @@ def main() -> int:
     log(f"[5] main path launches {launches}; value_dtype {FULL_DTYPE}; padded {PADDED}")
     want = dict.fromkeys(fr.LAUNCHES, 0)
     want["rollout_driven_static"] += LOOP_STEPS
-    want["rollout_driven"] += PAD_LOOP[2]
+    want["rollout_driven_slots"] += PAD_LOOP[2]
+    want["rollout_driven"] += LARGE_LOOP[2]
     for name, _, _ in FULL:
-        want[free_key(FULL_DTYPE[name], name not in PADDED)] += 1
+        want[free_key(FULL_DTYPE[name], "_slots" if name in PADDED else "_static")] += 1
+    for name, _, _ in LARGE:
+        want[free_key(LARGE_DTYPE[name])] += 1
     check(launches == want and all(launches.values()), f"the main path's launches: {launches}, expected {want}")
     I16_FULL = [(name, B, T) for name, B, T in FULL if FULL_DTYPE[name] == "int16" and name not in PADDED]
 
@@ -786,21 +940,20 @@ def main() -> int:
         with plain:
             r_lanes = fr.free_lane_stats_reference(state, T, seed=SEED)
         plain_free_ms[name] = plain.ms()
-        # the kernel lane by lane, in the build the batch takes and, where
-        # that is the static one, the general one: bit-equal to the twin
+        # the kernel lane by lane, in every build that takes the batch:
+        # bit-equal to the twin
         vdt = getattr(torch, FULL_DTYPE[name])
         kkey = KEY[vdt] + free_variant(state)
-        check((kkey == KEY[vdt]) == (name in PADDED), f"{name}: {kkey}, padded {PADDED}")
+        check(kkey.endswith("_slots") == (name in PADDED), f"{name}: {kkey}, padded {PADDED}")
         k_lanes = free_both(state, T, vdt, f"{kkey} {name}", seed=SEED)
         same_lanes(k_lanes, r_lanes, f"{kkey} {name}: kernel and twin")
-        if name not in PADDED:
-            # lanes [B/2, B) alone, with their lane_offset: the whole run's
-            # lanes (so the twin's), in both builds
-            src = source(instances, name)
-            src = src if hasattr(src, "names") else instances.stack_instances([src])
-            half = vector.make_lanes(src, torch.arange(B // 2, B), dev)
-            k_half = free_both(half, T, vdt, f"{kkey} {name} offset", seed=SEED, lane_offset=B // 2)
-            same_lanes(k_half, {f: v[B // 2:] for f, v in k_lanes.items()}, f"{kkey} {name}: offset {B // 2}")
+        # lanes [B/2, B) alone, with their lane_offset: the whole run's lanes
+        # (so the twin's), in every build
+        src = source(instances, name)
+        src = src if hasattr(src, "names") else instances.stack_instances([src])
+        half = vector.make_lanes(src, torch.arange(B // 2, B), dev)
+        k_half = free_both(half, T, vdt, f"{kkey} {name} offset", seed=SEED, lane_offset=B // 2)
+        same_lanes(k_half, {f: v[B // 2:] for f, v in k_lanes.items()}, f"{kkey} {name}: offset {B // 2}")
         r = {k: v.item() for k, v in fr._reduce_stats(r_lanes, T, B).items()}
         k = free_main[name]
         for key in ("episodes", "total_makespan", "min_makespan", "steps", "identity_violations"):
@@ -820,9 +973,8 @@ def main() -> int:
         check(drift <= 0.01, f"{name}: philox mean makespan {k['mean_makespan']} vs bits {mean_bits}")
         free_main[name].update(plain_ms=plain_free_ms[name], total_return_rel_err=rel,
                                bits_mean_makespan=mean_bits, philox_vs_bits=drift, kernel=kkey)
-        log(f"[6] {name}: twin equal in Philox and bits mode, lane by lane in both builds"
-            + ("" if name in PADDED else f", and from lane_offset {B // 2}")
-            + f" (return rel err {rel:.2e}), bits-mode mean makespan "
+        log(f"[6] {name}: twin equal in Philox and bits mode, lane by lane in every build, and from lane_offset "
+            f"{B // 2} (return rel err {rel:.2e}), bits-mode mean makespan "
             f"{mean_bits:.2f} vs philox {k['mean_makespan']:.2f} ({drift:.2e}), plain {plain_free_ms[name]:.0f} ms")
 
     # the int16 kernel against the int32 kernel, lane by lane, at full width
@@ -843,76 +995,94 @@ def main() -> int:
 
     # ---- 7. kernel times and bounds ----------------------------------------
     # each row in turns on one batch (CUDA events; the launch_timer calls in
-    # the order given, then reversed): the general build and the static one
-    # of the batch's shape, and on an int16 batch the int32 static build too.
-    # A padded batch has the general build only.
+    # the order given, then reversed): rollout.cu's build, the slot-class
+    # build and the static one of the batch's shape, and on an int16 batch
+    # the int32 static build too. A padded batch has the first two.
     timings = {}
 
     def in_turns(kernel, state, T, variants, **kw):
-        """{(vdt, general): [row, row]}: launch_timer of each variant, in
+        """{(vdt, build): [row, row]}: launch_timer of each variant, in
         turns (v1, v2, ..., v2, v1)."""
         out = {}
-        for vdt, general in list(variants) + list(reversed(variants)):
-            out.setdefault((vdt, general), []).append(
-                launch_timer(fr, dev, kernel, state, T, vdt=vdt, general=general, **kw))
+        for vdt, build in list(variants) + list(reversed(variants)):
+            out.setdefault((vdt, build), []).append(
+                launch_timer(fr, dev, kernel, state, T, vdt=vdt, build=build, **kw))
         return out
 
     def turn_row(turns, main, **extra):
-        """Variant ``main``'s row (ms and host_ms: the means of its turns),
-        with the general build's times on the same batch (``general_ms``,
-        ``general_host_ms``) where it ran."""
+        """Variant ``main``'s row (ms and host_ms: the means of its turns;
+        ``build`` its build), with rollout.cu's times on the same batch
+        (``general_ms``, ``general_host_ms``) and the slot-class build's
+        (``slots_ms``, ``slots_host_ms``) where they ran, and main's ratio to
+        each (``<build>_to_general``, ``<build>_to_slots``)."""
         ms = [t["ms"] for t in turns[main]]
         host = sum(t["host_ms"] for t in turns[main]) / len(ms)
-        row = dict(turns[main][0], ms=sum(ms) / len(ms), ms_turns=ms, host_ms=host, **extra)
-        g = (main[0], True)
-        if g != main and g in turns:
-            gms = [t["ms"] for t in turns[g]]
-            row.update(general_ms=sum(gms) / len(gms), general_ms_turns=gms,
-                       general_host_ms=sum(t["host_ms"] for t in turns[g]) / len(gms))
-            row["static_to_general"] = row["ms"] / row["general_ms"]
+        row = dict(turns[main][0], ms=sum(ms) / len(ms), ms_turns=ms, host_ms=host, build=main[1], **extra)
+        for kind, name_ in (("rollout", "general"), ("slots", "slots")):
+            g = (main[0], kind)
+            if g != main and g in turns:
+                gms = [t["ms"] for t in turns[g]]
+                row.update({f"{name_}_ms": sum(gms) / len(gms), f"{name_}_ms_turns": gms,
+                            f"{name_}_host_ms": sum(t["host_ms"] for t in turns[g]) / len(gms)})
+                row[f"{main[1]}_to_{name_}"] = row["ms"] / row[f"{name_}_ms"]
         return row
 
     # the driven kernel on inputs of the parity runs: the last step of the
-    # main-shape run, and the first driven case
-    driven_turns = [(None, True), (None, False)]
+    # main-shape run, and the first driven case; the padded policy loop's
+    # last step in its two builds, the whole call in each
+    driven_turns = [(None, "rollout"), (None, "slots"), (None, "static")]
     state, acts, resets = recorded["main"]
     turns = in_turns("rollout_driven", state, 1, driven_turns, actions=acts)
-    timings["rollout_driven"] = turn_row(turns, (None, False), resets=resets,
+    timings["rollout_driven"] = turn_row(turns, (None, "static"), resets=resets,
                                          shape=f"ta01 B={MAIN_B} T=1 (step {LOOP_STEPS} of a policy loop)",
                                          plain_ms=report["driven_main_shape"]["plain_step_ms"],
                                          call=call_timer(fr, state, acts, 1, repeats=10))
     name, B, T, _ = DRIVEN_CASES[0]
     state, acts, resets = recorded["T512"]
     turns = in_turns("rollout_driven", state, T, driven_turns, actions=acts)
-    timings["rollout_driven_T512"] = turn_row(turns, (None, False), resets=resets, shape=f"{name} B={B} T={T}",
+    timings["rollout_driven_T512"] = turn_row(turns, (None, "static"), resets=resets, shape=f"{name} B={B} T={T}",
                                               plain_ms=report["driven_parity"][0]["plain_step_ms"] * T,
                                               call=call_timer(fr, state, acts, T, repeats=3))
+    name, B, T = PAD_LOOP
+    state, acts, resets = recorded["padded"]
+    plain = Events()
+    for _ in range(3):
+        with plain:
+            fr.rollout_driven_reference(state, acts, 1, return_ends=True)
+    turns = in_turns("rollout_driven", state, 1, [(None, "rollout"), (None, "slots")], actions=acts, ends=True,
+                     repeats=20)
+    timings["rollout_driven_padded"] = turn_row(
+        turns, (None, "slots"), resets=resets, plain_ms=plain.ms(),
+        shape=f"{name} B={B} T=1 with ends (step {T} of the padded policy loop)",
+        call=call_timer(fr, state, acts, 1, True, repeats=10),
+        call_general=call_timer(fr, state, acts, 1, True, repeats=10, build="rollout"))
     for name, B, T in FULL:
         state = make(name, B)
         vdt = getattr(torch, FULL_DTYPE[name])
         if name in PADDED:
-            variants, main = [(vdt, True)], (vdt, True)
+            variants, main = [(vdt, "rollout"), (vdt, "slots")], (vdt, "slots")
         elif vdt == torch.int16:
-            variants, main = [(torch.int32, False), (torch.int16, False), (torch.int16, True)], (vdt, False)
+            variants = [(torch.int32, "static"), (vdt, "rollout"), (vdt, "slots"), (vdt, "static")]
+            main = (vdt, "static")
         else:
-            variants, main = [(vdt, True), (vdt, False)], (vdt, False)
+            variants, main = [(vdt, "rollout"), (vdt, "slots"), (vdt, "static")], (vdt, "static")
         turns = in_turns("rollout_free", state, T, variants, repeats=2)
-        row = turn_row(turns, main, shape=f"{name} B={B} T={T}", plain_ms=plain_free_ms[name],
-                       build="general" if name in PADDED else "static")
+        row = turn_row(turns, main, shape=f"{name} B={B} T={T}", plain_ms=plain_free_ms[name])
         row["env_steps_per_s"] = B * T / (row["ms"] / 1e3)
-        if (torch.int32, False) in turns and vdt == torch.int16:
-            ms32 = [t["ms"] for t in turns[torch.int32, False]]
-            row.update(int32_ms=sum(ms32) / 2, int32_ms_turns=ms32, int32_bound_ms=turns[torch.int32, False][0]["bound_ms"])
+        if (torch.int32, "static") in turns and vdt == torch.int16:
+            ms32 = [t["ms"] for t in turns[torch.int32, "static"]]
+            row.update(int32_ms=sum(ms32) / 2, int32_ms_turns=ms32,
+                       int32_bound_ms=turns[torch.int32, "static"][0]["bound_ms"])
             row["ratio_to_int32"] = row["ms"] / row["int32_ms"]
         timings[f"{KEY[vdt]} {name}"] = row
         log(f"[7] {KEY[vdt]} {name} ({row['build']} build): {row['ms']:.3f} ms"
-            + (f" against the general build's {row['general_ms']:.3f} ms (static/general "
-               f"{row['static_to_general']:.3f})" if "general_ms" in row else "")
+            + (f", slot class {row['slots_ms']:.3f} ms" if "slots_ms" in row else "")
+            + f", rollout.cu's {row['general_ms']:.3f} ms ({row['build']}/general {row[row['build'] + '_to_general']:.3f})"
             + (f", int32 static {row['int32_ms']:.3f} ms (ratio {row['ratio_to_int32']:.3f})" if "int32_ms" in row
                else "")
             + f"; {row['env_steps_per_s']:.4g} env-steps/s ({smi}); bound {row['bound_ms']:.4f} ms by "
               f"{row['bound_by']}; plain {row['plain_ms']:.0f} ms")
-    for key in ("rollout_driven", "rollout_driven_T512"):
+    for key in ("rollout_driven", "rollout_driven_T512", "rollout_driven_padded"):
         log_driven_row(key, timings[key], smi)
     report["timings"] = timings
 
@@ -995,6 +1165,22 @@ def main() -> int:
         report["profile"] = {"policy_loop": prof_loop, "free_ta01": prof_free}
         log(f"[8] profile policy loop: {prof_loop}\n[8] profile free ta01: {prof_free}")
 
+    # the padded policy loop's T=1 call (its last step, int32 actions as the
+    # loop's step hands them over) under torch.profiler: one device kernel,
+    # the slot-class build's, and no layout copy; rollout.cu's call beside it
+    state, acts, _ = recorded["padded"]
+    ops = {}
+    for build in ("slots", "rollout"):
+        go = (lambda: fr.rollout_driven(state, acts, 1, return_ends=True)) if build == "slots" else (
+            lambda: fr._driven_kernel(state, acts, 1, True, True, build="rollout"))
+        go()
+        ops[build] = device_ops(go)
+    report["padded_call_device_ops"] = ops
+    check(len(ops["slots"]) == 1 and all("driven_general_kernel" in k and n == 1 for k, n in ops["slots"].items()),
+          f"the padded T=1 call enqueues more than its kernel: {ops['slots']}")
+    log(f"[8] padded policy loop, one T=1 rollout_driven call under torch.profiler: device ops {ops['slots']}; "
+        f"rollout.cu's call on the same inputs: {sum(ops['rollout'].values())} device ops {ops['rollout']}")
+
     # ---- 9-11. rules, replay, wrappers -------------------------------------
     fr.reset_launch_counts()
     rule_phase(report, dev, RULE_LANES, profile=args.profile)
@@ -1009,7 +1195,7 @@ def main() -> int:
     # the driven kernel at the learner's shape: the last env step of the
     # REINFORCE run (light state), its ends written; kernel and twin on the
     # same inputs must agree in every state field, the rewards and the ends,
-    # and the general build with them
+    # and the other builds with them
     st, acts = call["state"], call["actions"]
     check(st.solution.shape[1] == 0, "the learner's env state is not light")
     check(variant(st) == "_static", "the learner's batch does not take the static build")
@@ -1018,18 +1204,19 @@ def main() -> int:
         with twin:
             ref = fr.rollout_driven_reference(st, acts, 1, return_ends=True)
     got = fr.rollout_driven(st, acts, 1, return_ends=True)
-    gen_ = fr._driven_kernel(st, acts, 1, False, True, general=True)
+    others = {b: fr._driven_kernel(st, acts, 1, False, True, build=b) for b in ("rollout", "slots")}
     torch.cuda.synchronize()
     err = max(state_err(got[0], ref[0]), max_err(got[1], ref[1]), max_err(got[2], ref[2]))
     check(err == 0 and got[0].solution.shape[1] == 0, "driven at the learner's shape: kernel and twin differ")
-    check(max(state_err(gen_[0], got[0]), max_err(gen_[1], got[1]), max_err(gen_[2], got[2])) == 0,
-          "driven at the learner's shape: the static and general kernels differ")
+    for b, gen_ in others.items():
+        check(max(state_err(gen_[0], got[0]), max_err(gen_[1], got[1]), max_err(gen_[2], got[2])) == 0,
+              f"driven at the learner's shape: the static and {b} kernels differ")
     kerr["rollout_driven_static"] = max(kerr["rollout_driven_static"], err)
-    log(f"[13] rollout_driven at the learner's shape: the static kernel equals its twin and the general kernel on "
-        f"the recorded step ({int((ref[2] > 0).sum())} lanes end)")
+    log(f"[13] rollout_driven at the learner's shape: the static kernel equals its twin, rollout.cu's and the "
+        f"slot-class kernel on the recorded step ({int((ref[2] > 0).sum())} lanes end)")
     turns = in_turns("rollout_driven", st, 1, driven_turns, actions=acts, ends=True, repeats=20)
     timings["rollout_driven_learner"] = turn_row(
-        turns, (None, False), shape=f"ta01 B={st.batch_size} T=1 with ends (the learner's env step, light state)",
+        turns, (None, "static"), shape=f"ta01 B={st.batch_size} T=1 with ends (the learner's env step, light state)",
         plain_ms=twin.ms(), launches=driven(by_path["training"]), call=call_timer(fr, st, acts, 1, True, repeats=10))
     log_driven_row("rollout_driven_learner", timings["rollout_driven_learner"], smi, phase=13)
 
@@ -1045,22 +1232,26 @@ def main() -> int:
     check(all(total.values()), f"a kernel was not launched on the main paths: {total}")
     report["main_path"]["launches_by_path"] = by_path
 
-    # each kernel's time at the main shape of its kind, the general build's
-    # on the same unpadded batch as the static build's
+    # each kernel's time at the main shape of its kind: rollout.cu's on the
+    # same unpadded batch as the static build's, the slot-class build's on
+    # the padded batch of its kind
     main_rows = {"rollout_driven": timings["rollout_driven"], "rollout_free": timings["rollout_free ta41-ta50"],
-                 "rollout_free_i16": timings["rollout_free_i16 ta01"]}
+                 "rollout_free_i16": timings["rollout_free_i16 ta01"],
+                 "rollout_driven_slots": timings["rollout_driven_padded"],
+                 "rollout_free_slots": timings["rollout_free ta01+ta41"],
+                 "rollout_free_i16_slots": timings["rollout_free_i16 ta01+ta11"]}
     kernels = []
     for n in KERNELS:
-        base = n.removesuffix("_static")
-        row = main_rows[base]
-        general = n == base
+        row = main_rows.get(n, main_rows[n.removesuffix("_static")])
+        general = not n.endswith(("_static", "_slots"))  # rollout.cu's build
         kernels.append({
             "name": KERNELS[n][0], "route": "cuda", "source": KERNELS[n][2], "replaces": KERNELS[n][1],
             "launches": total[n], "max_abs_err": kerr[n], "ms": row["general_ms"] if general else row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "shape": row["shape"] + (" (general build)" if general else " (static build)"),
+            "library_ms": None, "shape": row["shape"] + (" (rollout.cu's general build)" if general else
+                                                         f" ({row['build']} build)"),
             "launches_by_path": {p: c.get(n, 0) for p, c in by_path.items()}})
-        if base == "rollout_driven":
+        if n in ("rollout_driven", "rollout_driven_static"):
             lr = timings["rollout_driven_learner"]
             kernels[-1]["learner_shape"] = dict({k: lr[k] for k in ("shape", "plain_ms", "bound_ms", "bound_by")},
                                                 ms=lr["general_ms"] if general else lr["ms"])
@@ -1070,49 +1261,65 @@ def main() -> int:
 
 
 def log_driven_row(key, row, smi, phase=7) -> None:
-    c = row["call"]
-    log(f"[{phase}] {key} {row['shape']}: static build {row['ms']:.4f} ms against the general build's "
-        f"{row['general_ms']:.4f} ms (static/general {row['static_to_general']:.3f}; turns {row['ms_turns']}, "
+    c, b = row["call"], row["build"]
+    slots = (f"; the slot-class build's {row['slots_ms']:.4f} ms ({b}/slots {row[b + '_to_slots']:.3f}, turns "
+             f"{row['slots_ms_turns']}, host {row['slots_host_ms']:.4f})" if "slots_ms" in row else "")
+    cg = row.get("call_general")
+    log(f"[{phase}] {key} {row['shape']}: {b} build {row['ms']:.4f} ms against rollout.cu's general build's "
+        f"{row['general_ms']:.4f} ms ({b}/general {row[b + '_to_general']:.3f}; turns {row['ms_turns']}, "
         f"{row['general_ms_turns']}; host ms of the launch call {row['host_ms']:.4f} against "
-        f"{row['general_host_ms']:.4f}); the whole rollout_driven call {c['ms']:.4f} ms on the card, its host "
-        f"call {c['host_ms']:.4f} ms, {c['sync_ms']:.4f} ms on the synchronised host clock ({smi}); bound "
-        f"{row['bound_ms']:.5f} ms by {row['bound_by']}; plain {row['plain_ms']:.2f} ms")
+        f"{row['general_host_ms']:.4f}){slots}; the whole rollout_driven call {c['ms']:.4f} ms on the card, its "
+        f"host call {c['host_ms']:.4f} ms, {c['sync_ms']:.4f} ms on the synchronised host clock"
+        + (f" (rollout.cu's: {cg['ms']:.4f}, {cg['host_ms']:.4f}, {cg['sync_ms']:.4f})" if cg else "")
+        + f" ({smi}); bound {row['bound_ms']:.5f} ms by {row['bound_by']}; plain {row['plain_ms']:.2f} ms")
 
 
 def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, vdt=None, ends=False,
-                 general=False):
+                 build=None):
     """Mean ms of one launch (CUDA events, the card kept busy while the host
     issues it: kernel time alone), each on the same inputs (a general or
     older build's state buffer restored first), the mean host ms of the
     launch call (``host_ms``), and the launch's bound. ``fr``: the
     ``fused_rollout`` module whose kernels are timed (this checkout's or
     another's). ``vdt``: the free kernel's storage dtype (int32 by default). ``ends``: the driven kernel's (T, B) episode
-    ends are asked for, as the learner's steps do (the driven static build
-    writes them always). ``general``: the general build on an unpadded batch
-    (else the build the batch takes)."""
+    ends are asked for, as the learner's steps do (the driven static and
+    slot-class builds write them always). ``build``: "rollout" (rollout.cu's
+    general build), "slots" or "static" (a checkout without slot classes:
+    "rollout" or the batch's), else the build the batch takes."""
     import torch
 
     vdt = torch.int32 if vdt is None else vdt
     ws = kernel == "rollout_driven" and fr._solution_mode(state)
     tab, lanec = fr._lane_inputs(state)
     B = state.batch_size
-    new_api = hasattr(fr, "launch_driven_static")  # this checkout: the driven static build takes the state's tensors
+    three = hasattr(fr, "Build")  # a checkout with the slot-class build
+    # the driven build on the state's own tensors: this checkout's static or
+    # slot-class build, or an older checkout's static one
+    if three:
+        lane = kernel == "rollout_driven" and fr.driven_build(state, build).kind
+        lane = lane if lane in ("static", "slots") else None
+    else:
+        lane = "static" if kernel == "rollout_driven" and hasattr(fr, "launch_driven_static") and (
+            build != "rollout" and fr.static_shape(state) is not None) else None
     buf0 = buf = None
-    if kernel == "rollout_driven" and new_api and not general:
+    if lane:
         inputs = fr._driven_inputs(state)
         out, out8, *_ = fr._driven_outputs(state, T)
-        go = lambda: fr.launch_driven_static(state, inputs, tab, lanec, actions, out, out8, ws)  # noqa: E731
+        if three:
+            b = fr.driven_build(state, lane)
+            go = lambda: fr._launch_driven_lane(b, state, inputs, tab, lanec, actions, out, out8, ws)  # noqa: E731
+        else:
+            go = lambda: fr.launch_driven_static(state, inputs, tab, lanec, actions, out, out8, ws)  # noqa: E731
     else:
         buf0 = fr._to_lanes(state, ws, vdt)
         buf = buf0.clone()
-        # an older checkout's launchers choose the build by `_general`; here
-        # the driven one is the general build only
-        force = {"_general": True} if general and not (new_api and kernel == "rollout_driven") else {}
         if kernel == "rollout_driven":
             rewards = torch.empty((T, B), dtype=torch.int32, device=dev)
             extra = (torch.empty_like(rewards),) if ends else ()
-            go = lambda: fr.launch_driven(state, buf, tab, lanec, actions, rewards, ws, *extra, **force)  # noqa: E731
+            go = lambda: fr.launch_driven(state, buf, tab, lanec, actions, rewards, ws, *extra)  # noqa: E731
         else:
+            # an older checkout's free launcher chooses the build by `_general`
+            force = {"build": build} if three else {"_general": build == "rollout"}
             st = torch.empty((4, B), dtype=torch.int64, device=dev)
             ret = torch.empty((B,), dtype=torch.float32, device=dev)
             go = lambda: fr.launch_free(state, buf, tab, lanec, bits, SEED, st, ret, T, vdt, **force)  # noqa: E731
@@ -1152,16 +1359,20 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def call_timer(fr, state, actions, T, ends=False, repeats=5):
+def call_timer(fr, state, actions, T, ends=False, repeats=5, build=None):
     """The whole ``fr.rollout_driven`` call, from the first input to the
-    returned state, in the build the batch takes: the mean device ms of
-    everything it enqueues (CUDA events around the call, the card kept busy
-    by a queued spin while the host issues it), the mean host ms of the call
-    itself, and the mean ms on the host clock synchronised before and after
-    (``sync_ms``: the caller's wall time)."""
+    returned state, in the build the batch takes (or ``build``'s, through
+    ``_driven_kernel``): the mean device ms of everything it enqueues (CUDA
+    events around the call, the card kept busy by a queued spin while the
+    host issues it), the mean host ms of the call itself, and the mean ms on
+    the host clock synchronised before and after (``sync_ms``: the caller's
+    wall time)."""
     import torch
 
-    go = lambda: fr.rollout_driven(state, actions, T, return_ends=ends)  # noqa: E731
+    if build is None:
+        go = lambda: fr.rollout_driven(state, actions, T, return_ends=ends)  # noqa: E731
+    else:
+        go = lambda: fr._driven_kernel(state, actions, T, fr._solution_mode(state), ends, build=build)  # noqa: E731
     go()  # warm-up
     dev_ms = host = wall = 0.0
     for _ in range(repeats):
@@ -1229,6 +1440,13 @@ def source(instances, name):
         return instances.get_instance_set([f"ta{i:02d}" for i in range(lo, hi + 1)])
     if name == "rand6x5":
         return instances.random_instance(6, 5, (1, 9), seed=3)
+    if name in LARGE_SPECS:
+        J, M, durations = LARGE_SPECS[name]
+        return instances.random_instance(J, M, durations, seed=J)
+    if name.startswith("mix"):  # random shapes (durations 1-9) padded to the largest
+        shapes = [tuple(map(int, s.split("x"))) for s in name[3:].split("+")]
+        return instances.stack_instances([instances.random_instance(j, m, (1, 9), seed=20 + i)
+                                          for i, (j, m) in enumerate(shapes)])
     if "+" in name:  # a batch of two shapes, padded to the larger
         return instances.get_instance_set(name.split("+"))
     return instances.get_instance(name)
@@ -1241,15 +1459,18 @@ def time_kernels_of(root: str, out: str) -> int:
     on each FULL config in the config's value dtype and of its driven kernel
     at the main shape (ta01, B=MAIN_B, T=1, the last step of a
     LOOP_STEPS-step policy loop run on the plain path), at the learner's
-    (ta01, B=LEARNER_B, light, T=1 with ends, after as many steps) and at the
-    first driven parity case's (ta01, B=1024, T=512 random-policy steps). A
-    checkout with a static build has each time of its general build under
-    the key an older checkout uses, and of its static build, on an unpadded
-    batch, under that key plus " static" (the launch call's host ms under
-    "... static host"). At each driven shape also the whole
-    ``rollout_driven`` call (``call_timer``): "<key> call" (device ms of all
-    it enqueues), "<key> call host" (the call's host ms) and "<key> call
-    sync" (the synchronised host clock)."""
+    (ta01, B=LEARNER_B, light, T=1 with ends, after as many steps), at the
+    padded policy loop's (ta01+ta11, B=8192, T=1 with ends, after as many
+    steps; "rollout_driven_padded") and at the first driven parity case's
+    (ta01, B=1024, T=512 random-policy steps). Each time of rollout.cu's
+    general build is under the key an older checkout uses; a checkout with a
+    static build has its static build's, on an unpadded batch, under that
+    key plus " static", and one with the slot-class build that build's
+    under the key plus " slots" (the launch call's host ms under "...
+    static host", "... slots host"). At each driven shape also the whole
+    ``rollout_driven`` call in the build the batch takes (``call_timer``):
+    "<key> call" (device ms of all it enqueues), "<key> call host" (the
+    call's host ms) and "<key> call sync" (the synchronised host clock)."""
     root_path = Path(root).resolve()
     sys.path.insert(0, str(root_path))
     import torch
@@ -1263,33 +1484,36 @@ def time_kernels_of(root: str, out: str) -> int:
         return 1
     dev = torch.device("cuda", 0)
     two_builds = hasattr(fr, "static_shape")
+    three = hasattr(fr, "Build")  # the slot-class build
+    batches = [None, *STATIC_SHAPES] + ([fr.Build("slots", (1, 1))] if three else [])
     t0 = time.perf_counter()
     if two_builds:
-        fr.build_kernels([None, *STATIC_SHAPES])
+        fr.build_kernels(batches)
     else:
         fr._lib()
     res = {"root": str(root_path), "build_s": time.perf_counter() - t0, "ptxas": _build.ptxas_report("rollout")}
     if hasattr(fr, "kernel_jobs"):  # a checkout with free_static.cu: one library per source and shape
-        res["ptxas"] = {" ".join(map(str, job)): _build.ptxas_report(*job)
-                        for job in fr.kernel_jobs([None, *STATIC_SHAPES])}
+        res["ptxas"] = {" ".join(map(str, job)): _build.ptxas_report(*job) for job in fr.kernel_jobs(batches)}
 
     def timed(key, kernel, state, T, **kw):
-        res[key] = launch_timer(fr, dev, kernel, state, T, general=two_builds, **kw)["ms"]
-        if two_builds and fr.static_shape(state) is not None:
-            row = launch_timer(fr, dev, kernel, state, T, **kw)
-            res[key + " static"] = row["ms"]
-            if kernel == "rollout_driven":
-                res[key + " static host"] = row["host_ms"]
+        res[key] = launch_timer(fr, dev, kernel, state, T, build="rollout" if two_builds else None, **kw)["ms"]
+        for build, on in (("static", two_builds and fr.static_shape(state) is not None),
+                          ("slots", three and fr.slot_class(state.jobs_pad, state.machines_pad) is not None)):
+            if on:
+                row = launch_timer(fr, dev, kernel, state, T, build=build if three else None, **kw)
+                res[f"{key} {build}"] = row["ms"]
+                if kernel == "rollout_driven":
+                    res[f"{key} {build} host"] = row["host_ms"]
 
     def called(key, state, actions, T, ends=False):
         row = call_timer(fr, state, actions, T, ends, repeats=10 if T == 1 else 3)
         res[key + " call"], res[key + " call host"], res[key + " call sync"] = row["ms"], row["host_ms"], row["sync_ms"]
 
-    def loop_state(B, light):
-        """ta01 at B lanes after LOOP_STEPS - 1 random-policy steps, and the
-        next step's actions."""
+    def loop_state(B, light, name="ta01"):
+        """``name`` at B lanes after LOOP_STEPS - 1 random-policy steps, and
+        the next step's actions."""
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        s = vector.make_batch(instances.get_instance("ta01"), B, device=dev)
+        s = vector.make_batch(source(instances, name), B, device=dev)
         s = vector.strip_solution(s) if light else s
         stats = vector.RolloutStats.zero(dev)
         for _ in range(LOOP_STEPS - 1):
@@ -1302,6 +1526,9 @@ def time_kernels_of(root: str, out: str) -> int:
     s, acts = loop_state(LEARNER_B, light=True)
     timed("rollout_driven_learner", "rollout_driven", s, 1, actions=acts, ends=True, repeats=20)
     called("rollout_driven_learner", s, acts, 1, ends=True)
+    s, acts = loop_state(PAD_LOOP[1], light=False, name=PAD_LOOP[0])
+    timed("rollout_driven_padded", "rollout_driven", s, 1, actions=acts, ends=True, repeats=20)
+    called("rollout_driven_padded", s, acts, 1, ends=True)
     # the first driven parity case's shape: T=512 steps of a random policy
     name, B, T, _ = DRIVEN_CASES[0]
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1337,18 +1564,30 @@ def turns_against(root: str, smi: str) -> dict:
         turns.append((tag, json.loads(out.read_text())))
         log(f"[7b] turn {i} ({tag}, {r}): " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in turns[-1][1].items() if k.startswith("rollout")))
-    # the change's keys, each against the parent's same key; a " static" key
-    # against a one-build parent's only build
-    keys = [k for k in turns[1][1] if k.startswith("rollout")]
+    # the change's keys, each against the parent's same key; a " static" or
+    # " slots" kernel time the parent lacks against the parent's build of
+    # that batch (rollout.cu's general build)
+    def parent_key(k, t):
+        if k in t:
+            return k
+        base = k.replace(" slots", "").replace(" static", "")
+        return base if base in t and not k.endswith(" host") else None
+
+    keys = [k for k in turns[1][1] if k.startswith("rollout") and parent_key(k, turns[0][1])]
     rows = {}
     for k in keys:
-        p = [t[k] if k in t else t[k.removesuffix(" static")] for tag, t in turns if tag == "parent"]
+        p = [t[parent_key(k, t)] for tag, t in turns if tag == "parent"]
         c = [t[k] for tag, t in turns if tag == "change"]
         rows[k] = {"parent_ms": p, "change_ms": c, "ratio": (sum(c) / 2) / (sum(p) / 2)}
         log(f"[7b] {k}: parent {p[0]:.4f}, {p[1]:.4f} ms; change {c[0]:.4f}, {c[1]:.4f} ms; "
             f"change/parent {rows[k]['ratio']:.4f} ({smi})")
-    return {"root": str(root), "rows": rows,
-            "ptxas": {tag: t["ptxas"] for tag, t in turns[:2]}}
+    # the -Xptxas -v lines (registers, stack, spills) of every build both
+    # checkouts made, parent against change
+    regs = lambda text: [ln.split(":", 1)[-1].strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]  # noqa: E731
+    ptx = {tag: t["ptxas"] for tag, t in turns[:2]}
+    same = {k: regs(v) == regs(ptx["change"][k]) for k, v in ptx["parent"].items() if k in ptx["change"]}
+    log("[7b] -Xptxas -v, parent against change: " + ", ".join(f"{k} {'same' if v else 'DIFFERENT'}" for k, v in same.items()))
+    return {"root": str(root), "rows": rows, "ptxas": ptx, "ptxas_same": same}
 
 
 def rule_phase(report: dict, dev, lanes: int, profile: bool) -> None:
@@ -1532,9 +1771,10 @@ def hold_driven(fr, state, snap, actions, T: int, got, tag: str) -> None:
     """A driven launch's results ``got`` = (new state, rewards[, ends]) on
     ``state`` and ``actions``: the input's fields still equal ``snap``, the
     new masks hold the bytes 0 and 1 only, and the new state (every field),
-    the rewards and the ends equal the plain twin's and, where the batch takes
-    the driven static build, the general build's on the same inputs. The
-    general build's launch is not counted in ``LAUNCHES``."""
+    the rewards and the ends equal the plain twin's and those of every other
+    build that takes the batch (``other_builds``: the slot-class build,
+    rollout.cu's) on the same inputs. Those launches are not counted in
+    ``LAUNCHES``."""
     import torch
 
     from jssenv_tpu_torch.core.state import FIELD_NAMES
@@ -1546,11 +1786,10 @@ def hold_driven(fr, state, snap, actions, T: int, got, tag: str) -> None:
     check(not bad, f"{tag}: mask bytes other than 0 and 1 in {bad}")
     actions = actions.to(torch.int32).contiguous()
     others = [("twin", fr.rollout_driven_reference(state, actions, T, return_ends=True))]
-    if fr.driven_build(state) is not None:
-        counts = dict(fr.LAUNCHES)
-        others.append(("general build", fr._driven_kernel(state, actions, T, fr._solution_mode(state), True,
-                                                          general=True)))
-        fr.LAUNCHES.update(counts)
+    counts = dict(fr.LAUNCHES)
+    for b in other_builds(fr, state, fr.driven_build(state).kind):
+        others.append((f"{b} build", fr._driven_kernel(state, actions, T, fr._solution_mode(state), True, build=b)))
+    fr.LAUNCHES.update(counts)
     for name, other in others:
         diff = [k for k in FIELD_NAMES if not torch.equal(getattr(new, k), getattr(other[0], k))]
         diff += [k for k, i in (("rewards", 1), ("ends", 2)) if i < len(got) and not torch.equal(got[i], other[i])]
@@ -2087,7 +2326,7 @@ def parallel_phase(report: dict, dev, quick: bool):
     rel = 0.0
     for r in ranks:
         fl = json.loads(str(r["free_launches"]))
-        key = free_key(fr.value_dtype(full), fr.static_shape(full) is not None)
+        key = free_key(fr.value_dtype(full), fr._key(fr.free_build(full)))
         check(fl[key] == 1 and sum(fl.values()) == 1, f"sharded free rollout launches {fl}")
         path[key] += 1
         for k in ("episodes", "total_makespan", "min_makespan", "identity_violations", "steps"):
@@ -2111,16 +2350,17 @@ def parallel_phase(report: dict, dev, quick: bool):
         shard = vector.make_lanes(src, torch.arange(Bo // 2, Bo), dev)
         check(vdt == torch.int32 or fr.value_dtype(shard) == torch.int16, f"{name} does not fit int16")
         k = fr._free_kernel(shard, To, SEED, None, vdt, lane_offset=Bo // 2)
-        g = fr._free_kernel(shard, To, SEED, None, vdt, lane_offset=Bo // 2, general=True)
+        g = {b: fr._free_kernel(shard, To, SEED, None, vdt, lane_offset=Bo // 2, build=b) for b in ("rollout", "slots")}
         w = fr._free_kernel(whole, To, SEED, None, vdt)
         t = fr.free_lane_stats_reference(shard, To, SEED, lane_offset=Bo // 2)
         for key_ in ("episodes", "mk_sum", "mk_min", "viol"):
             check(torch.equal(k[key_], t[key_]) and torch.equal(k[key_], w[key_][Bo // 2:]),
                   f"offset kernel {name} {vdt}: {key_} differs")
         check(torch.equal(k["ret"], w["ret"][Bo // 2:]), f"offset kernel {name} {vdt}: returns differ from the whole run's")
-        check(all(torch.equal(k[f], g[f]) for f in k), f"offset kernel {name} {vdt}: the static and general builds differ")
+        for b, gb in g.items():
+            check(all(torch.equal(k[f], gb[f]) for f in k), f"offset kernel {name} {vdt}: the static and {b} builds differ")
         ret_err = float((k["ret"] - t["ret"]).abs().max())
-        kk = free_key(vdt, fr.static_shape(shard) is not None)
+        kk = free_key(vdt, fr._key(fr.free_build(shard)))
         errs[kk] = max(errs[kk], ret_err)
         out["offset"][f"{name} {vdt}"] = {"B": Bo, "T": To, "episodes": int(k["episodes"].sum()),
                                           "ret_max_abs_err": ret_err}
@@ -2515,7 +2755,7 @@ def tools_phase(report: dict, dev, quick: bool, smi: str) -> dict:
     name, _, limit = smi.rpartition(",")
     for cfg, r in zip(names, records):
         n = 1 + len(r["runs"])  # the warm-up and the repeats
-        key = free_key(FULL_DTYPE[cfg], True)  # every configuration of the bench is unpadded
+        key = free_key(FULL_DTYPE[cfg], "_static")  # every configuration of the bench is unpadded
         check(r["engine"] == "cuda" and r["backend"] == "cuda" and r["value_dtype"] == FULL_DTYPE[cfg],
               f"bench {cfg}: engine {r['engine']}, backend {r['backend']}, dtype {r['value_dtype']}")
         check(r["launches"] == {k: (n if k == key else 0) for k in KERNELS}, f"bench {cfg}: launches {r['launches']}")

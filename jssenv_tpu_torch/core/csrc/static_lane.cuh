@@ -1,12 +1,14 @@
-// One env lane of a static-shape batch, held by one warp with its state in
-// registers: the step math shared by the two kernels built per shape,
-// free_static.cu (the free rollout) and driven_static.cu (the driven one).
+// One env lane held by one warp with its state in registers: the step math
+// shared by the kernels built per static shape, free_static.cu (the free
+// rollout) and driven_static.cu (the driven one), and by those built per slot
+// class for padded and mixed-shape batches, general_lane.cu (both).
 //
 // The counterpart of jssenv_tpu/core/pallas_rollout.py's _make_step (:243)
-// under _static_lane (:1018) and of _fresh_static (:503), field for field
-// jssenv_tpu_torch.core.engine.step. Thread r of the warp keeps its jobs
-// j = r, r + 32, ... (S = ceil(J/32) slots, a compile-time constant, so every
-// slot loop unrolls) and its machines m = r, r + 32 (K = ceil(M/32) slots):
+// and _fresh (:549), and under _static_lane (:1018) of _fresh_static (:503),
+// field for field jssenv_tpu_torch.core.engine.step. Thread r of the warp
+// keeps its jobs j = r, r + 32, ... (S = ceil(J/32) slots, a compile-time
+// constant, so every slot loop unrolls) and its machines m = r, r + 32
+// (K = ceil(M/32) slots):
 // job_busy_for, next_op, needed_machine and work_done; values cached from the
 // instance tables and refreshed when a job moves to its next op (the current
 // op's duration, the next op's machine, and the machines of the job's later
@@ -20,8 +22,22 @@
 //
 // The engine's counts are not always the words' popcounts (a no-op zeroes
 // nb_machine_legal but clears only the legal jobs' machines), so both are
-// kept; padding slots hold needed -1 and next_op M, so that no ballot sets
+// kept; padding slots hold needed -1 and next_op nm, so that no ballot sets
 // their bit.
+//
+// Bounds. The step math compares against the padded shape (J, M) and the
+// lane's own instance shape (nj, nm) through Bounds, a base of Lane, as
+// rollout.cu's Bounds<SJ, SM> does. A static build (-DJSS_STATIC_J=J
+// -DJSS_STATIC_M=M) fixes J and M and takes unpadded lanes only, nj == J and
+// nm == M, so every compare folds. A slot-class build (-DJSS_SLOTS_J=S
+// -DJSS_SLOTS_M=K, S in 1..4, K in 1..2) fixes only the slot counts: J and M
+// come with the launch (ceil(J/32) == S, ceil(M/32) == K) and nj, nm from the
+// lane constants. There a padded job (nj <= j < J) is a row of the state like
+// any other, held as it is and written back; it starts finished (next_op nm,
+// needed -1), is never legal and never allocated (the no-op id is nj), so no
+// ballot sets its bit. A padded machine (nm <= m < M) is never legal and its
+// idle time is not counted. "At the last op" is next_op == nm - 1, and the
+// op-chain mask stops before the lane's last op.
 //
 // Lane<false> is the free kernel's lane: no decision of a step reads
 // op_end_at, idle_frozen, idle_total_alloc, wait4 or the solution, and the
@@ -33,28 +49,33 @@
 // one thread only (a job's by its owner; a solution cell x by rank x % 32),
 // so program order keeps them right without a warp sync.
 //
-// Include once per translation unit, with JSS_STATIC_J and JSS_STATIC_M
-// defined.
+// Include once per translation unit, with JSS_STATIC_J and JSS_STATIC_M, or
+// JSS_SLOTS_J and JSS_SLOTS_M, defined.
 
 #pragma once
 #include <stdint.h>
 
 #include <type_traits>
 
-#if !defined(JSS_STATIC_J) || !defined(JSS_STATIC_M)
-#error "the static-lane kernels build for one shape: -DJSS_STATIC_J=J -DJSS_STATIC_M=M"
+#if defined(JSS_STATIC_J) && defined(JSS_STATIC_M)
+#define JSS_JOB_SLOTS ((JSS_STATIC_J + 31) / 32)
+#define JSS_MACHINE_WORDS ((JSS_STATIC_M + 31) / 32)
+#elif defined(JSS_SLOTS_J) && defined(JSS_SLOTS_M) && !defined(JSS_STATIC_J) && !defined(JSS_STATIC_M)
+#define JSS_JOB_SLOTS JSS_SLOTS_J
+#define JSS_MACHINE_WORDS JSS_SLOTS_M
+#else
+#error "a lane build is for one shape (-DJSS_STATIC_J=J -DJSS_STATIC_M=M) or one slot class (-DJSS_SLOTS_J=S -DJSS_SLOTS_M=K)"
 #endif
 #define JSS_I32_MAX 2147483647
 #define JSS_FULL 0xffffffffu
 
 namespace {
 
-constexpr int J = JSS_STATIC_J, M = JSS_STATIC_M, JM = J * M;
-constexpr int S = (J + 31) / 32;  // job slots a thread
-constexpr int K = (M + 31) / 32;  // machine slots a thread
-constexpr int kLanes = 4;         // lanes (warps) a block: fused_rollout.STATIC_LANES
-using MMask = std::conditional_t<(M <= 32), unsigned, unsigned long long>;
-static_assert(J >= 1 && M >= 1 && S <= 4 && K <= 2, "the static-lane kernels take J <= 128 and M <= 64");
+constexpr int S = JSS_JOB_SLOTS;      // job slots a thread
+constexpr int K = JSS_MACHINE_WORDS;  // machine slots a thread
+constexpr int kLanes = 4;             // lanes (warps) a block: fused_rollout.STATIC_LANES
+using MMask = std::conditional_t<(K == 1), unsigned, unsigned long long>;
+static_assert(S >= 1 && S <= 4 && K >= 1 && K <= 2, "the lane kernels take J <= 128 and M <= 64");
 
 // The instance tables, in the order of fused_rollout._TABLES.
 enum : int { T_OM = 0, T_OD = 1, T_OP = 2, T_CB = 3 };
@@ -63,9 +84,31 @@ enum : int { C_INST = 0, C_NJ, C_NM, C_MO, C_SO };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
 
-// Whether slot s of thread r holds a job: every thread in all slots but the
-// last, which is partial unless 32 divides J.
-__device__ __forceinline__ bool has_job(int s, int r) { return s < S - 1 || (S - 1) * 32 + r < J; }
+#if defined(JSS_STATIC_J)
+static_assert(JSS_STATIC_J >= 1 && JSS_STATIC_M >= 1, "a static build needs a positive shape");
+constexpr bool kStatic = true;
+constexpr int kMaxJobs = JSS_STATIC_J;  // the most jobs a lane of this build has
+// The static build's bounds: every lane unpadded.
+struct Bounds {
+  static constexpr int J = JSS_STATIC_J, M = JSS_STATIC_M, JM = J * M, nj = J, nm = M;
+  __device__ void bind(int, int, const int*, size_t, int) {}
+};
+#else
+constexpr bool kStatic = false;
+constexpr int kMaxJobs = 32 * S;
+// A slot class's bounds: the launch's padded shape and the lane's own.
+struct Bounds {
+  int J, M, JM, nj, nm;
+  // (J, M) of the launch; lane b's (nj, nm) from the (5, B) lane constants
+  __device__ void bind(int J_, int M_, const int* lanec, size_t B, int b) {
+    J = J_;
+    M = M_;
+    JM = J_ * M_;
+    nj = lanec[C_NJ * B + b];
+    nm = lanec[C_NM * B + b];
+  }
+};
+#endif
 
 #ifdef JSS_PASS_CLOCKS
 enum : int { PASS_DRAW = 0, PASS_ACT, PASS_FF, PASS_PRIO, PASS_NOOP, PASS_RESET, PASSES };
@@ -107,8 +150,8 @@ struct DrivenRows<true> {
 
 // One env lane as held by one thread of its warp.
 template <bool kDriven>
-struct Lane : DrivenRows<kDriven> {
-  // this thread's jobs j = r + 32 s (padding slots: jbf 0, next_op M, needed -1)
+struct Lane : Bounds, DrivenRows<kDriven> {
+  // this thread's jobs j = r + 32 s (padding slots: jbf 0, next_op nm, needed -1)
   int jbf[S], next_op[S], needed[S], work_done[S];
   int dur[S];    // op_dur[j][clamp(next_op)]: the current op's duration
   int m_next[S]; // clamp(op_machine[j][clamp(next_op + 1)]): the next op's machine
@@ -116,7 +159,7 @@ struct Lane : DrivenRows<kDriven> {
   MMask after[S];  // machines of the ops after next_op, the last op excepted
   // warp-uniform: bit r of word s is job r + 32 s's (machine r + 32 k's) flag
   unsigned legal[S], pin[S], ml[K];
-  unsigned last_op[S];  // jobs at their last op (next_op == M - 1)
+  unsigned last_op[S];  // jobs at their last op (next_op == nm - 1)
   int time, noop, nb_legal, nb_ml;
   const int* tab;  // this lane's (4, J, M) tables
   int mo, r;
@@ -124,10 +167,22 @@ struct Lane : DrivenRows<kDriven> {
   PassClock clk;
 #endif
 
+  // Whether slot s of this thread holds a row of the state (j < J): every
+  // slot but the last, which is partial unless 32 divides J. A slot class's
+  // J is above 32 (S - 1), as in a static build.
+  __device__ bool has_row(int s) const { return s < S - 1 || (S - 1) * 32 + r < J; }
+  // Whether it holds a job of the lane's instance (j < nj): a row, in a
+  // static build.
+  __device__ bool has_job(int s) const {
+    if constexpr (kStatic)
+      return has_row(s);
+    else
+      return r + 32 * s < nj;
+  }
   __device__ int tb(int which, int j, int x) const { return __ldg(tab + which * JM + j * M + x); }
   __device__ void load_after(int s) {
     after[s] = 0;
-    for (int p = next_op[s] + 1; p < M - 1; ++p) after[s] |= MMask(1) << clampi(tb(T_OM, r + 32 * s, p), 0, M - 1);
+    for (int p = next_op[s] + 1; p < nm - 1; ++p) after[s] |= MMask(1) << clampi(tb(T_OM, r + 32 * s, p), 0, M - 1);
   }
   __device__ void load_tables(int s) {
     const int j = r + 32 * s;
@@ -172,15 +227,16 @@ struct Lane : DrivenRows<kDriven> {
     return __reduce_min_sync(JSS_FULL, v);
   }
 
-  // engine._fresh_state for this lane (every job valid: _fresh_static)
+  // engine._fresh_state for this lane (a static build's every job valid:
+  // _fresh_static; a padded job starts finished)
   __device__ void fresh() {
     unsigned first[K] = {};
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      const bool valid = has_job(s, r);
+      const bool valid = has_job(s);
       jbf[s] = 0;
       work_done[s] = 0;
-      next_op[s] = valid ? 0 : M;
+      next_op[s] = valid ? 0 : nm;
       needed[s] = valid ? tb(T_OM, r + 32 * s, 0) : -1;
       after[s] = 0;
       if (valid) {
@@ -189,12 +245,12 @@ struct Lane : DrivenRows<kDriven> {
         set_bit(first, clampi(needed[s], 0, M - 1));
       }
       legal[s] = __ballot_sync(JSS_FULL, valid);
-      last_op[s] = M == 1 ? legal[s] : 0;
+      last_op[s] = nm == 1 ? legal[s] : 0;
       pin[s] = 0;
       if constexpr (kDriven) {
         this->op_end[s] = 0;
         this->idle_tot[s] = 0;
-        if (valid) this->idle_frozen[r + 32 * s] = this->wait4[r + 32 * s] = 0;
+        if (has_row(s)) this->idle_frozen[r + 32 * s] = this->wait4[r + 32 * s] = 0;
       }
     }
     if constexpr (kDriven) {
@@ -211,14 +267,14 @@ struct Lane : DrivenRows<kDriven> {
     }
     time = 0;
     noop = 0;
-    nb_legal = J;
+    nb_legal = nj;
   }
 
-  // engine.step up to fast_forward: allocate job `a` or wait (a >= J);
+  // engine.step up to fast_forward: allocate job `a` or wait (a >= nj);
   // returns the allocation's raw reward. `a` is uniform over the warp and
   // not negative.
   __device__ int act(int a) {
-    if (a >= J) {
+    if (a >= nj) {
       // no-op: pin every legal job; its machine loses legality
       unsigned clear[K] = {};
 #pragma unroll
@@ -302,7 +358,7 @@ struct Lane : DrivenRows<kDriven> {
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const bool running = jbf[s] > 0;
-      const bool cont = running && next_op[s] + 1 < M;
+      const bool cont = running && next_op[s] + 1 < nm;
       mc[s] = cont ? m_next[s] : clampi(needed[s], 0, M - 1);
       f[s] = t0 + mbf_at(mc[s]);
       const bool waiting = !running && needed[s] >= 0 && !((legal[s] >> r) & 1u) && !((pin[s] >> r) & 1u);
@@ -325,14 +381,14 @@ struct Lane : DrivenRows<kDriven> {
         if (t0 + v <= T_stop) {
           if constexpr (kDriven) this->op_end[s] = t0 + v;
           const int no = ++next_op[s];
-          if (no < M) {
+          if (no < nm) {
             // a job that continues took the cont branch above: f is its
             // next machine's free time
             if constexpr (kDriven) this->wait4[r + 32 * s] = max(0, f[s] - (t0 + v));
             needed[s] = m_next[s];
             after[s] &= ~(MMask(1) << m_next[s]);
             load_tables(s);
-          } else if (no == M) {
+          } else if (no == nm) {
             needed[s] = -1;
             finished = true;
           }
@@ -344,7 +400,7 @@ struct Lane : DrivenRows<kDriven> {
       const unsigned become = __ballot_sync(JSS_FULL, cand);
       nb_legal += __popc(become) - __popc(drop);
       legal[s] = (legal[s] & ~drop) | become;
-      last_op[s] = __ballot_sync(JSS_FULL, next_op[s] == M - 1);
+      last_op[s] = __ballot_sync(JSS_FULL, next_op[s] == nm - 1);
     }
     warp_or(add);
     int holes = 0;
@@ -352,7 +408,7 @@ struct Lane : DrivenRows<kDriven> {
     for (int k = 0; k < K; ++k) {
       nb_ml += __popc(add[k] & ~ml[k]);
       ml[k] |= add[k];
-      if (r + 32 * k < M) holes += span - min(mbf[k], span);
+      if (r + 32 * k < nm) holes += span - min(mbf[k], span);
       mbf[k] = max(0, mbf[k] - span);
     }
     time = T_stop;
@@ -370,7 +426,7 @@ struct Lane : DrivenRows<kDriven> {
     unsigned fin[S], any = 0;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      const bool f = needed[s] >= 0 && next_op[s] == M - 1 && bit_of(ml, clampi(needed[s], 0, M - 1));
+      const bool f = needed[s] >= 0 && next_op[s] == nm - 1 && bit_of(ml, clampi(needed[s], 0, M - 1));
       fin[s] = __ballot_sync(JSS_FULL, f) & legal[s];
       any |= fin[s];
     }
@@ -391,7 +447,7 @@ struct Lane : DrivenRows<kDriven> {
 #pragma unroll
         for (int s = 0; s < S; ++s)
           if (((legal[s] >> r) & 1u) && needed[s] >= 0 && clampi(needed[s], 0, M - 1) == m &&
-              next_op[s] != M - 1 && free_next[s])
+              next_op[s] != nm - 1 && free_next[s])
             v = min(v, dur[s]);
         const int min_nf = __reduce_min_sync(JSS_FULL, v);
 #pragma unroll
@@ -424,10 +480,10 @@ struct Lane : DrivenRows<kDriven> {
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const int wait_m = mbf_at(clampi(needed[s], 0, M - 1));
-      const bool illegal = has_job(s, r) && !((legal[s] >> r) & 1u);
-      const bool case1 = illegal && jbf[s] > 0 && next_op[s] + 1 < M;
-      const bool case2 = illegal && !case1 && !((pin[s] >> r) & 1u) && next_op[s] < M;
-      const MMask here = next_op[s] < M - 1 ? MMask(1) << clampi(needed[s], 0, M - 1) : MMask(0);
+      const bool illegal = has_job(s) && !((legal[s] >> r) & 1u);
+      const bool case1 = illegal && jbf[s] > 0 && next_op[s] + 1 < nm;
+      const bool case2 = illegal && !case1 && !((pin[s] >> r) & 1u) && next_op[s] < nm;
+      const MMask here = next_op[s] < nm - 1 ? MMask(1) << clampi(needed[s], 0, M - 1) : MMask(0);
       cand[s] = case1 ? after[s] : case2 ? after[s] | here : MMask(0);
       base[s] = case1 ? t - work_done[s] : t + wait_m - work_done[s];
     }
@@ -503,9 +559,9 @@ struct Lane : DrivenRows<kDriven> {
 };
 
 // At one or two job slots ptxas takes the registers it needs (55-56 in the
-// free kernel, 9 blocks an SM); at three or four, 6 blocks an SM cap them at
-// 80.
-#if (JSS_STATIC_J + 31) / 32 >= 3
+// static free kernel, 9 blocks an SM); at three or four, 6 blocks an SM cap
+// them at 80.
+#if JSS_JOB_SLOTS >= 3
 #define JSS_LANE_BOUNDS __launch_bounds__(kLanes * 32, 6)
 #else
 #define JSS_LANE_BOUNDS __launch_bounds__(kLanes * 32)

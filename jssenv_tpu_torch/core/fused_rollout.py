@@ -20,21 +20,30 @@ state each runs its plain twin (``rollout_driven_reference`` /
 ``rollout_free_reference``), built on ``core.engine`` and ``vector``. Nothing
 falls back from one to the other.
 
-Kernel builds: a batch whose every lane is unpadded (``static_shape``) and
-whose shape is within ``STATIC_MAX_J`` jobs and ``STATIC_MAX_M`` machines
-(``static_fits``; all of the repo's instances) launches the static build of
-its shape (J, M), compiled at the first use of that shape, in which every
-bound is a compile-time constant: the counterpart of the JAX package's
-``_static_lane`` / ``_fresh_static``. Those builds hold a lane's state in
-registers and its boolean rows as warp-wide bitmasks (``csrc/static_lane.cuh``):
-``csrc/driven_static.cu`` for the driven kernel (``driven_build``), which reads
-the ``EnvState``'s own tensors and writes a new state, and
-``csrc/free_static.cu`` for the free kernel (``free_build``). Every other
-batch (padded, mixed-shape, or past those limits) launches the general build
-of ``csrc/rollout.cu``, as the JAX package keeps ``static_lane=None`` for
-padded batches: a routing rule, not a fallback. The answer is computed once
-per batch, with the lane inputs (``_lane_inputs``), and costs a launch no host
-read.
+Kernel builds (``Build``; ``driven_build`` and ``free_build`` name the one a
+batch takes, or check the one a caller asks for), all compiled at first use:
+
+* ``"static"``: a batch whose every lane is unpadded (``static_shape``) and
+  whose shape is within ``STATIC_MAX_J`` jobs and ``STATIC_MAX_M`` machines
+  (``static_fits``; all of the repo's instances) launches the static build of
+  its shape (J, M), in which every bound is a compile-time constant: the
+  counterpart of the JAX package's ``_static_lane`` / ``_fresh_static``.
+  ``csrc/driven_static.cu`` for the driven kernel, ``csrc/free_static.cu``
+  for the free one.
+* ``"slots"``: any other batch within those limits (padded, or lanes of
+  several shapes) launches ``csrc/general_lane.cu`` built for its slot class
+  (``slot_class``: ceil(J/32) job slots and ceil(M/32) machine words a
+  thread, at most 4 and 2), with the padded shape and each lane's own read at
+  run time: the counterpart of the JAX kernels with ``static_lane=None``.
+* ``"rollout"``: a batch past those limits launches the general build of
+  ``csrc/rollout.cu`` (a lane's state in shared memory); the tests and the
+  smoke also run it on any batch as a comparator.
+
+The static and slot-class builds share their lane (``csrc/static_lane.cuh``:
+a lane's state in registers, its boolean rows as warp-wide bitmasks) and
+their kernel bodies (``csrc/driven_lane.cuh``, ``csrc/free_lane.cuh``). The
+choice is a routing rule, not a fallback: it is computed once per batch, with
+the lane inputs (``_lane_inputs``), and costs a launch no host read.
 
 Random bits: with ``bits=None`` the free rollout draws one 32-bit Philox4x32-10
 word per (step, lane), keyed by ``seed`` with counter (t, lane_offset + lane);
@@ -47,18 +56,20 @@ stored value fits (``value_dtype``, the JAX package's int16 mode) and then
 launches the int16 instantiation of its kernel; the driven rollout stays
 int32, as in the JAX package.
 
-Host plumbing: the general build takes the dynamic state in one batch-last
-(R, B) int32 (or int16) buffer (``_to_lanes`` / ``_from_lanes``, rows in
-``_ROWS`` order), as the free static build does; the driven static build
-takes the state's fields as they are (``_driven_inputs``) and writes the new
-state into two allocations (``_driven_outputs``). The static tables go to one
+Host plumbing: every free launch takes the light dynamic state in one
+batch-last (R, B) int32 (or int16) buffer (``_to_lanes``, rows in ``_ROWS``
+order), built once a rollout; the driven static and slot-class builds take
+the state's fields as they are (``_driven_inputs``) and write the new state
+into two allocations (``_driven_outputs``), and only ``rollout.cu``'s driven
+launch packs and unpacks the whole state (``_to_lanes`` / ``_from_lanes``).
+The static tables go to one
 (n_inst, 4, J, M) int32 stack of the batch's distinct instances with a
 per-lane instance index, so ragged batches need no lane grouping; the stack
 is built once per batch and cached (``_lane_inputs``). ``launch_geometry``
 sizes the launch of ``csrc/rollout.cu``: a warp per lane, each block's lanes
 with their state in shared memory; ``static_geometry`` that of the static
-builds: a warp per lane, ``STATIC_LANES`` lanes a block, the state in
-registers.
+and slot-class builds: a warp per lane, ``STATIC_LANES`` lanes a block, the
+state in registers.
 """
 
 from __future__ import annotations
@@ -78,11 +89,12 @@ _I32 = torch.int32
 # Kernel launches per kernel: each wrapper adds one where it launches.
 # "rollout_free_i16" counts the free kernel's int16 instantiation; a
 # "_static" key the static build of that kernel (any shape: csrc/driven_static.cu
-# and csrc/free_static.cu), the others the general build (csrc/rollout.cu).
+# and csrc/free_static.cu), a "_slots" key its slot-class build (any slot
+# class: csrc/general_lane.cu), the others csrc/rollout.cu's general build.
 LAUNCHES: Dict[str, int] = {
-    "rollout_driven": 0, "rollout_driven_static": 0,
-    "rollout_free": 0, "rollout_free_static": 0,
-    "rollout_free_i16": 0, "rollout_free_i16_static": 0,
+    "rollout_driven": 0, "rollout_driven_static": 0, "rollout_driven_slots": 0,
+    "rollout_free": 0, "rollout_free_static": 0, "rollout_free_slots": 0,
+    "rollout_free_i16": 0, "rollout_free_i16_static": 0, "rollout_free_i16_slots": 0,
 }
 
 
@@ -206,7 +218,7 @@ def static_shape(state: EnvState) -> Optional[Tuple[int, int]]:
     jobs_pad`` and ``num_machines == machines_pad``): the kernels then
     launch their static build for that shape where it is within
     ``STATIC_MAX_J`` and ``STATIC_MAX_M`` (``driven_build``, ``free_build``).
-    None otherwise (padded or mixed-shape lanes): the general build.
+    None otherwise (padded or mixed-shape lanes): the slot-class build.
 
     The port's form of the JAX package's ``_static_lane``
     (``jssenv_tpu/core/pallas_rollout.py:1018``), which also asks for a
@@ -307,11 +319,12 @@ def launch_geometry(J: int, M: int, vdt: torch.dtype = _I32) -> Geometry:
     return Geometry(_WARP, lanes, lanes * _WARP, state_words * 4 // item, scratch, lanes * lane_bytes)
 
 
-# The static builds (csrc/driven_static.cu, csrc/free_static.cu, on
-# csrc/static_lane.cuh): a warp a lane with its state in registers,
-# STATIC_LANES lanes a block, no shared memory; ceil(J/32) job slots and
-# ceil(M/32) machine words a thread, at most 4 and 2.
-STATIC_LANES = 4  # kLanes in static_lane.cuh; each library's jss_*_static_lanes()
+# The static and slot-class builds (csrc/driven_static.cu,
+# csrc/free_static.cu, csrc/general_lane.cu, on csrc/static_lane.cuh): a warp
+# a lane with its state in registers, STATIC_LANES lanes a block, no shared
+# memory; ceil(J/32) job slots and ceil(M/32) machine words a thread, at most
+# 4 and 2, so at most STATIC_MAX_J jobs and STATIC_MAX_M machines (padded).
+STATIC_LANES = 4  # kLanes in static_lane.cuh; each library's jss_*_lanes()
 STATIC_MAX_J = 128
 STATIC_MAX_M = 64
 
@@ -334,6 +347,20 @@ def static_fits(shape: Optional[Tuple[int, int]]) -> bool:
     return shape is not None and shape[0] <= STATIC_MAX_J and shape[1] <= STATIC_MAX_M
 
 
+def slot_class(J: int, M: int) -> Optional[Tuple[int, int]]:
+    """(S, K) = (ceil(J/32), ceil(M/32)): the job slots and machine words a
+    thread of the slot-class build holds for the padded shape (J, M); None
+    past ``STATIC_MAX_J`` or ``STATIC_MAX_M``."""
+    if not (1 <= J <= STATIC_MAX_J and 1 <= M <= STATIC_MAX_M):
+        return None
+    return -(-J // _WARP), -(-M // _WARP)
+
+
+def slot_defines(slots: Tuple[int, int]) -> Tuple[str, str]:
+    """The nvcc defines of ``csrc/general_lane.cu``'s build for a slot class."""
+    return f"JSS_SLOTS_J={slots[0]}", f"JSS_SLOTS_M={slots[1]}"
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The built general ``csrc/rollout.cu`` (both kernels) with its C
@@ -351,10 +378,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_built(lib: ctypes.CDLL, name: str, shape, lanes: Optional[str] = None) -> None:
-    for fn in (lib.jss_static_j, lib.jss_static_m):
+def _check_built(lib: ctypes.CDLL, name: str, shape, lanes: Optional[str] = None,
+                 dims: Tuple[str, str] = ("jss_static_j", "jss_static_m")) -> None:
+    fns = [getattr(lib, d) for d in dims]
+    for fn in fns:
         fn.argtypes, fn.restype = [], ctypes.c_int
-    built = (lib.jss_static_j(), lib.jss_static_m())
+    built = tuple(fn() for fn in fns)
     if built != (tuple(shape) if shape else (0, 0)):
         raise RuntimeError(f"the {name} library for shape {shape} was built for {built}")
     if lanes is not None:
@@ -390,65 +419,125 @@ def _driven_lib(shape: Tuple[int, int]) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _general_lib(slots: Tuple[int, int]) -> ctypes.CDLL:
+    """The built ``csrc/general_lane.cu`` (both kernels) for the slot class
+    ``slots`` with its C signatures declared, built at its first use."""
+    lib = _build.load("general_lane", None, slot_defines(slots))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.jss_driven_general.argtypes = [P] * 22 + [I, I, I, I, I, P]  # as jss_driven_static
+    lib.jss_driven_general.restype = I
+    for fn in (lib.jss_free_general, lib.jss_free_general_i16):
+        fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, P]
+        fn.restype = I
+    _check_built(lib, "general_lane", slots, "jss_general_lanes", ("jss_slots_j", "jss_slots_m"))
+    return lib
+
+
+class Build(NamedTuple):
+    """A build of the rollout kernels: ``kind`` ``"static"`` (``shape`` the
+    unpadded (J, M): ``csrc/driven_static.cu``, ``csrc/free_static.cu``),
+    ``"slots"`` (``shape`` the slot class (S, K): ``csrc/general_lane.cu``)
+    or ``"rollout"`` (``shape`` None: ``csrc/rollout.cu``'s general build)."""
+
+    kind: str
+    shape: Optional[Tuple[int, int]] = None
+
+
+BUILDS = ("static", "slots", "rollout")
+
+
+def _choose(state: EnvState, kind: Optional[str]) -> Build:
+    """The build of ``kind`` for ``state``, or (``kind`` None) the one the
+    batch takes: static where ``static_fits``, else its slot class where it
+    has one, else ``rollout.cu``'s. Raises ``ValueError`` where the asked
+    build cannot take the batch."""
+    if kind not in (None, *BUILDS):
+        raise ValueError(f"unknown build {kind!r}; one of {BUILDS}")
+    shape = static_shape(state)
+    slots = slot_class(state.jobs_pad, state.machines_pad)
+    if kind is None:
+        kind = "static" if static_fits(shape) else "slots" if slots else "rollout"
+    if kind == "static":
+        if not static_fits(shape):
+            raise ValueError(f"the static build takes an unpadded batch of at most {STATIC_MAX_J} jobs and "
+                             f"{STATIC_MAX_M} machines")
+        return Build("static", shape)
+    if kind == "slots":
+        if slots is None:
+            raise ValueError(f"the slot-class build takes at most {STATIC_MAX_J} jobs and {STATIC_MAX_M} machines, "
+                             f"padded; got ({state.jobs_pad}, {state.machines_pad})")
+        return Build("slots", slots)
+    return Build("rollout")
+
+
+def driven_build(state: EnvState, kind: Optional[str] = None) -> Build:
+    """The build a driven launch on ``state`` takes (``kind`` None), or the
+    build of ``kind`` checked against the batch (the tests and the smoke run
+    every build on one batch)."""
+    return _choose(state, kind)
+
+
+def free_build(state: EnvState, kind: Optional[str] = None) -> Build:
+    """The same for a free launch: the free and the driven kernel have the
+    same three builds and limits."""
+    return _choose(state, kind)
+
+
+def build_job(kernel: str, build: Build) -> tuple:
+    """The ``_build`` job of ``build`` for ``kernel`` ("driven" or "free"):
+    (source, shape) or (source, None, defines)."""
+    if build.kind == "static":
+        return f"{kernel}_static", tuple(build.shape)
+    if build.kind == "slots":
+        return "general_lane", None, slot_defines(build.shape)
+    return "rollout", None
+
+
 def kernel_jobs(shapes=(None,)):
-    """The (source, shape) builds that launches on the given shapes need:
-    both static builds of a shape they take, else (``None``, or a shape past
-    their limits) the general build."""
+    """The ``_build`` jobs that launches on the given batches need. Each
+    entry is ``None`` (``rollout.cu``'s build), an unpadded shape (J, M) (both
+    static builds where they take it, else ``rollout.cu``'s) or a ``Build``
+    (a padded batch's: ``driven_build(state)``)."""
     jobs = []
     for s in shapes:
-        s = None if s is None else tuple(s)
-        jobs += [("driven_static", s), ("free_static", s)] if static_fits(s) else [("rollout", None)]
+        if not isinstance(s, Build):
+            s = Build("rollout") if s is None or not static_fits(tuple(s)) else Build("static", tuple(s))
+        jobs += [build_job("driven", s), build_job("free", s)]
     return list(dict.fromkeys(jobs))
 
 
 def build_kernels(shapes=(None,)) -> None:
-    """Build what launches on the given shapes need (``kernel_jobs``) and is
-    not built yet, every nvcc process started together, and load it."""
+    """Build what launches on the given batches need (``kernel_jobs``) and
+    is not built yet, every nvcc process started together, and load it."""
     jobs = kernel_jobs(shapes)
     _build.build_jobs(jobs)
-    for name, s in jobs:
+    for name, s, *defines in jobs:
         if name == "rollout":
             _lib()
         elif name == "free_static":
             _free_lib(s)
-        else:
+        elif name == "driven_static":
             _driven_lib(s)
+        else:
+            _general_lib(tuple(int(d.split("=")[1]) for d in defines[0]))
 
 
-def _variant(state: EnvState, general: bool) -> Optional[Tuple[int, int]]:
-    """The static shape of ``state`` where its kernels' static builds take
-    it, else None: the general build, also when ``general`` forces it (the
-    tests and the smoke run both builds on one batch)."""
-    shape = None if general else static_shape(state)
-    return shape if static_fits(shape) else None
+def free_kernel_job(state: EnvState) -> tuple:
+    """The ``_build`` job of the free kernel ``state`` launches."""
+    return build_job("free", free_build(state))
 
 
-def driven_build(state: EnvState, general: bool = False) -> Optional[Tuple[int, int]]:
-    """The build a driven launch on ``state`` takes: the static shape where
-    ``csrc/driven_static.cu`` takes it, else None (the general build)."""
-    return _variant(state, general)
-
-
-def free_build(state: EnvState, general: bool = False) -> Optional[Tuple[int, int]]:
-    """The build a free launch on ``state`` takes: the static shape where
-    ``csrc/free_static.cu`` takes it, else None (the general build)."""
-    return _variant(state, general)
-
-
-def free_kernel_job(state: EnvState) -> Tuple[str, Optional[Tuple[int, int]]]:
-    """The (source, shape) build of the free kernel ``state`` launches."""
-    shape = free_build(state)
-    return ("rollout", None) if shape is None else ("free_static", shape)
-
-
-def _tag(shape) -> str:
+def _tag(build: Build) -> str:
     """The build's suffix in a kernel's name."""
-    return "" if shape is None else f"<static {shape[0]}x{shape[1]}>"
+    if build.kind == "rollout":
+        return ""
+    return f"<{build.kind} {build.shape[0]}x{build.shape[1]}>"
 
 
-def _key(shape) -> str:
+def _key(build: Build) -> str:
     """The build's suffix in its ``LAUNCHES`` key."""
-    return "" if shape is None else "_static"
+    return "" if build.kind == "rollout" else "_" + build.kind
 
 
 def _geometry_args(geo: Geometry):
@@ -477,8 +566,8 @@ def launch_driven(
     """One launch of the general build's ``rollout_driven_kernel``
     (``csrc/rollout.cu``) on prepared buffers (``buf`` is updated in place,
     ``rewards`` (T, B) and, unless None, ``ends`` (T, B) written) on the
-    current stream: the driven launch of a batch that ``driven_build`` does
-    not take static, or of any batch when a caller forces the general build."""
+    current stream: the driven launch of a batch past the register lane's
+    limits, or of any batch when a caller asks for the ``"rollout"`` build."""
     _check_kernel_inputs(state, buf, tab, lanec, actions, rewards, *(() if ends is None else (ends,)))
     T, B = actions.shape
     if rewards.shape != (T, B) or (ends is not None and ends.shape != (T, B)):
@@ -495,9 +584,10 @@ def launch_driven(
     LAUNCHES["rollout_driven"] += 1
 
 
-# The driven static build's state fields, in the order of csrc/driven_static.cu's
-# DrivenIO and Out / Out8: the int32 fields (the solution last, (B, 0, M) when
-# light), then the masks (torch.bool, one byte each).
+# The driven register-lane builds' state fields, in the order of
+# csrc/driven_lane.cuh's DrivenIO and Out / Out8: the int32 fields (the
+# solution last, (B, 0, M) when light), then the masks (torch.bool, one byte
+# each).
 _DRIVEN_I32 = ("time", "nb_legal", "nb_machine_legal", "machine_busy_for", "job_busy_for", "next_op",
                "work_done", "needed_machine", "op_end_at", "idle_frozen", "idle_total_alloc", "wait4", "solution")
 _DRIVEN_U8 = ("noop_legal", "legal", "noop_pin", "machine_legal")
@@ -520,7 +610,8 @@ def _driven_inputs(state: EnvState) -> list:
 
 
 def _driven_outputs(state: EnvState, T: int):
-    """The driven static build's outputs: one int32 allocation holding the
+    """The driven static and slot-class builds' outputs: one int32 allocation
+    holding the
     new state's int32 fields (``_DRIVEN_I32``: the three (B,) counters, the
     (B, M) busy times, the eight (B, J) job rows, the solution), then the
     (T, B) rewards and the (T, B) ends, and one uint8 allocation holding its
@@ -547,38 +638,46 @@ def launch_driven_static(state: EnvState, inputs, tab, lanec, actions, out, out8
     for the batch's static shape) on the current stream: T steps on
     ``actions`` (T, B) from the state's fields ``inputs``
     (``_driven_inputs``, read only) into the allocations ``out`` and
-    ``out8`` (``_driven_outputs``). Refuses a batch that ``driven_build``
-    does not take static."""
-    shape = driven_build(state)
-    if shape is None:
-        raise ValueError("the driven static build takes an unpadded batch of at most "
-                         f"{STATIC_MAX_J} jobs and {STATIC_MAX_M} machines")
+    ``out8`` (``_driven_outputs``). Refuses a batch that the static build
+    does not take."""
+    _launch_driven_lane(driven_build(state, "static"), state, inputs, tab, lanec, actions, out, out8, with_solution)
+
+
+def _launch_driven_lane(build: Build, state: EnvState, inputs, tab, lanec, actions, out, out8,
+                        with_solution: bool) -> None:
+    """``launch_driven_static``'s launch in ``build``, static or slot class
+    (``driven_general_kernel`` of ``csrc/general_lane.cu``)."""
     _check_kernel_inputs(state, tab, lanec, actions, out)
     _check_kernel_inputs(state, out8, dtype=torch.uint8)
     T, B = actions.shape
+    if build.kind == "static":
+        fn, name = _driven_lib(build.shape).jss_driven_static, "driven_static_kernel"
+    else:
+        fn, name = _general_lib(build.shape).jss_driven_general, "driven_general_kernel"
     with torch.cuda.device(state.device):
-        err = _driven_lib(shape).jss_driven_static(
+        err = fn(
             *[t.data_ptr() for t in inputs], tab.data_ptr(), lanec.data_ptr(), actions.data_ptr(),
             out.data_ptr(), out8.data_ptr(), B, state.jobs_pad, state.machines_pad, T, int(with_solution),
             torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(err, "driven_static_kernel" + _tag(shape), static_geometry(B))
-    LAUNCHES["rollout_driven_static"] += 1
+    _check_launch(err, name + _tag(build), static_geometry(B))
+    LAUNCHES["rollout_driven" + _key(build)] += 1
 
 
 def launch_free(
     state: EnvState, buf, tab, lanec, bits, seed: int, stats, ret, T: int, vdt: torch.dtype = _I32,
-    lane_offset: int = 0, _general: bool = False,
+    lane_offset: int = 0, build: Optional[str] = None,
 ) -> None:
     """One free-kernel launch on a light ``buf`` (no solution rows), which
     it reads and does not write: per-lane stats (4, B) int64 and returns
     (B,) float32 written. ``vdt`` picks the instantiation (int32 or int16)
     and must be ``buf``'s dtype: a buffer is never converted here.
-    ``lane_offset``: the global index of lane 0 in the Philox counter. A
-    batch that ``free_build`` takes static launches ``free_static_kernel``
-    of ``csrc/free_static.cu``, built for its shape; any other batch launches
-    ``rollout_free_kernel``, the general build of ``csrc/rollout.cu``.
-    ``_general`` forces the general build."""
+    ``lane_offset``: the global index of lane 0 in the Philox counter. The
+    build is ``free_build(state, build)``'s: ``free_static_kernel`` of
+    ``csrc/free_static.cu`` built for the batch's static shape,
+    ``free_general_kernel`` of ``csrc/general_lane.cu`` built for its slot
+    class, or ``rollout_free_kernel``, the general build of
+    ``csrc/rollout.cu``."""
     if vdt not in (_I32, torch.int16):
         raise ValueError(f"the free kernel stores int32 or int16, not {vdt}")
     if buf.dtype != vdt:
@@ -588,24 +687,30 @@ def launch_free(
     if stats.dtype != torch.int64 or ret.dtype != torch.float32:
         raise ValueError("stats must be int64 and ret float32")
     i16 = vdt == torch.int16
-    shape = free_build(state, _general)
+    b = free_build(state, build)
     args = (buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), None if bits is None else bits.data_ptr(),
             seed & (2**64 - 1), stats.data_ptr(), ret.data_ptr(), state.batch_size, state.jobs_pad,
             state.machines_pad, T, int(lane_offset))
-    if shape is None:
+    extra = ()
+    if b.kind == "rollout":
         geo = launch_geometry(state.jobs_pad, state.machines_pad, vdt)  # refuses what cannot fit, before a build
         lib = _lib()
         fn = lib.jss_rollout_free_i16 if i16 else lib.jss_rollout_free
         name, extra = "rollout_free_kernel", _geometry_args(geo)
+    elif b.kind == "static":
+        geo = static_geometry(state.batch_size)
+        lib = _free_lib(b.shape)
+        fn = lib.jss_free_static_i16 if i16 else lib.jss_free_static
+        name = "free_static_kernel"
     else:
         geo = static_geometry(state.batch_size)
-        lib = _free_lib(shape)
-        fn = lib.jss_free_static_i16 if i16 else lib.jss_free_static
-        name, extra = "free_static_kernel", ()
+        lib = _general_lib(b.shape)
+        fn = lib.jss_free_general_i16 if i16 else lib.jss_free_general
+        name = "free_general_kernel"
     with torch.cuda.device(state.device):
         err = fn(*args, *extra, torch.cuda.current_stream().cuda_stream)
-    _check_launch(err, name + ("<int16>" if i16 else "") + _tag(shape), geo)
-    LAUNCHES[("rollout_free_i16" if i16 else "rollout_free") + _key(shape)] += 1
+    _check_launch(err, name + ("<int16>" if i16 else "") + _tag(b), geo)
+    LAUNCHES[("rollout_free_i16" if i16 else "rollout_free") + _key(b)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -659,12 +764,13 @@ def rollout_driven(state: EnvState, actions: torch.Tensor, num_steps: int, retur
 
 
 def _driven_kernel(state: EnvState, actions: torch.Tensor, T: int, with_solution: bool, with_ends: bool,
-                   general: bool = False):
-    """One driven launch: the static build where ``driven_build`` takes the
-    batch (the state's own tensors in, a new state out), else the general
-    build on the lane buffer; ``general`` forces the general build."""
+                   build: Optional[str] = None):
+    """One driven launch in ``driven_build(state, build)``: the static or
+    slot-class build on the state's own tensors (a new state out), or
+    ``rollout.cu``'s on the lane buffer."""
     tab, lanec = _lane_inputs(state)
-    if driven_build(state, general) is None:
+    b = driven_build(state, build)
+    if b.kind == "rollout":
         buf = _to_lanes(state, with_solution)
         rewards = torch.empty((T, state.batch_size), dtype=_I32, device=state.device)
         ends = torch.empty_like(rewards) if with_ends else None
@@ -672,7 +778,7 @@ def _driven_kernel(state: EnvState, actions: torch.Tensor, T: int, with_solution
         new = _from_lanes(buf, state, with_solution)
     else:  # the kernel always writes the ends
         out, out8, new, rewards, ends = _driven_outputs(state, T)
-        launch_driven_static(state, _driven_inputs(state), tab, lanec, actions, out, out8, with_solution)
+        _launch_driven_lane(b, state, _driven_inputs(state), tab, lanec, actions, out, out8, with_solution)
     return (new, rewards, ends) if with_ends else (new, rewards)
 
 
@@ -802,18 +908,18 @@ def free_lane_stats(
 
 
 def _free_kernel(state: EnvState, T: int, seed: int, bits, vdt: Optional[torch.dtype] = None,
-                 lane_offset: int = 0, general: bool = False):
+                 lane_offset: int = 0, build: Optional[str] = None):
     """One free-kernel launch in the storage dtype ``vdt`` (by default
     ``value_dtype``'s; an explicit int32 runs a batch that fits int16 in the
-    int32 instantiation, to hold the two against each other); ``general``
-    forces the general build on an unpadded batch."""
+    int32 instantiation, to hold the two against each other), in
+    ``free_build(state, build)``."""
     B = state.batch_size
     vdt = value_dtype(state) if vdt is None else vdt
     buf = _to_lanes(state, with_solution=False, vdt=vdt)
     tab, lanec = _lane_inputs(state)
     stats = torch.empty((4, B), dtype=torch.int64, device=state.device)
     ret = torch.empty((B,), dtype=torch.float32, device=state.device)
-    launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T, vdt, lane_offset, _general=general)
+    launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T, vdt, lane_offset, build=build)
     return {"episodes": stats[0], "mk_sum": stats[1], "mk_min": stats[2], "viol": stats[3], "ret": ret}
 
 

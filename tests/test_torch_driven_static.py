@@ -3,14 +3,15 @@ its host plumbing and, on a card, its results.
 
 * The routing: which build each driven batch of ``chip_smoke.py`` and of
   the main paths takes, the shape limits, the launch's arguments (a
-  stand-in library records the call), the general build for padded, mixed
-  and forced batches, a refused launch, and the builds
+  stand-in library records the call), the slot-class build
+  (``csrc/general_lane.cu``) for padded and mixed batches and the three
+  builds on request, a refused launch, and the builds
   ``fused_rollout.build_kernels`` starts together.
 * The plumbing: the new state's fields are views of two fresh allocations
   (nothing of the input is written or shared), the inputs as the kernel
   reads them, the ends dropped when not asked for.
-* On a card only (``-m cuda``): the kernel against the twin and the general
-  build, field by field, from fresh and mid-episode states, full and light,
+* On a card only (``-m cuda``): the kernel against the twin and the other
+  two builds, field by field, from fresh and mid-episode states, full and light,
   at T = 0, 1 and 40, with the input unchanged and the masks' bytes 0 or 1;
   a library of another shape refuses the batch. Whether a card is present
   is decided inside the fixture.
@@ -62,16 +63,18 @@ def _actions(state, T, seed):
 def test_every_driven_batch_of_the_smoke_takes_its_build():
     """The main paths' driven batches (the policy loop's ta01, the learner's
     light ta01, serving's and distillation's ta41) take the new kernel; the
-    padded policy loop and the padded parity case the general build."""
+    padded policy loop and the padded parity case the slot-class build; any
+    of them rollout.cu's when asked for."""
     smoke = _module(ROOT / "chip_smoke.py", "chip_smoke_for_driven_tests")
     for name in ("ta01", "ta41", "ta41-ta50", "ta71", "rand6x5", smoke.PAD_LOOP[0]):
         state = tv.make_batch(smoke.source(ti, name), 20, device="cpu")
-        want = None if name == smoke.PAD_LOOP[0] else (state.jobs_pad, state.machines_pad)
+        J, M = state.jobs_pad, state.machines_pad
+        want = fr.Build("slots", (1, 1)) if name == smoke.PAD_LOOP[0] else fr.Build("static", (J, M))
         assert fr.driven_build(state) == want, name
         assert fr.driven_build(tv.strip_solution(state)) == want, name
-        assert fr.driven_build(state, general=True) is None
+        assert fr.driven_build(state, "rollout") == fr.Build("rollout")
     padded = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu", jobs_pad=16, machines_pad=16)
-    assert fr.driven_build(padded) is None
+    assert fr.driven_build(padded) == fr.Build("slots", (1, 1))
     assert all(fr.static_fits(s) for s in smoke.STATIC_SHAPES)
 
 
@@ -80,17 +83,19 @@ def test_every_driven_batch_of_the_smoke_takes_its_build():
 def test_driven_shape_limits(shape, fits):
     state = tv.make_batch(ti.random_instance(*shape, (1, 9), seed=2), 2, device="cpu")
     assert fr.static_shape(state) == shape
-    assert fr.driven_build(state) == (shape if fits else None)
+    assert fr.driven_build(state) == (fr.Build("static", shape) if fits else fr.Build("rollout"))
+    assert fr.slot_class(*shape) == ((-(-shape[0] // 32), -(-shape[1] // 32)) if fits else None)
 
 
 @pytest.fixture
 def fake_card(monkeypatch):
     """The driven launchers on CPU tensors with stand-in libraries: the
     checks for a CUDA state and the stream are stubbed; nothing runs."""
-    libs = types.SimpleNamespace(driven=_FakeLib(), general=_FakeLib(), shapes=[])
+    libs = types.SimpleNamespace(driven=_FakeLib(), general=_FakeLib(), slots=_FakeLib(), shapes=[], classes=[])
     monkeypatch.setattr(fr, "_check_kernel_inputs", lambda *a, **k: None)
     monkeypatch.setattr(fr, "_driven_lib", lambda shape: libs.shapes.append(shape) or libs.driven)
     monkeypatch.setattr(fr, "_lib", lambda: libs.general)
+    monkeypatch.setattr(fr, "_general_lib", lambda slots: libs.classes.append(slots) or libs.slots)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=7))
     return libs
@@ -104,7 +109,7 @@ def test_an_unpadded_launch_calls_the_new_kernel(fake_card, light):
     fr.reset_launch_counts()
     new, rewards, ends = fr._driven_kernel(state, acts, 3, not light, True)
     (name, args), = fake_card.driven.calls
-    assert not fake_card.general.calls and fake_card.shapes == [(15, 15)]
+    assert not fake_card.general.calls and not fake_card.slots.calls and fake_card.shapes == [(15, 15)]
     assert name == "jss_driven_static"
     inputs = fr._driven_inputs(state)
     tab, lanec = fr._lane_inputs(state)
@@ -165,7 +170,11 @@ def test_inputs_are_the_fields_or_contiguous_copies():
 
 
 @pytest.mark.parametrize("pad", ["padded", "mixed", "forced"])
-def test_padded_mixed_and_forced_launches_call_the_general_build(fake_card, pad):
+def test_padded_mixed_and_forced_launches_call_the_general_build(fake_card, pad, monkeypatch):
+    """A padded or mixed batch launches its slot class's build on the
+    state's own tensors (no lane buffer: ``_to_lanes`` is not called), as
+    ``slots`` does on an unpadded one when asked for; ``rollout`` launches
+    rollout.cu's general build on the lane buffer, on any batch."""
     if pad == "padded":
         state = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu", jobs_pad=16, machines_pad=16)
     elif pad == "mixed":
@@ -173,13 +182,28 @@ def test_padded_mixed_and_forced_launches_call_the_general_build(fake_card, pad)
     else:
         state = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
     acts = _actions(state, 2, 3)
+    J, M = state.jobs_pad, state.machines_pad
     fr.reset_launch_counts()
-    new, rewards, ends = fr._driven_kernel(state, acts, 2, True, True, general=pad == "forced")
-    assert not fake_card.driven.calls and [c[0] for c in fake_card.general.calls] == ["jss_rollout_driven"]
-    geo = fr.launch_geometry(state.jobs_pad, state.machines_pad)
-    assert fake_card.general.calls[0][1][6:] == (4, state.jobs_pad, state.machines_pad, 2, 1, geo.lanes,
-                                                 geo.state_stride, geo.scratch_stride, geo.shared_bytes, 7)
-    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rollout_driven=1)
+    real_to_lanes = fr._to_lanes
+    monkeypatch.setattr(fr, "_to_lanes", lambda *a, **k: pytest.fail("the slot-class launch packed the state"))
+    new, rewards, ends = fr._driven_kernel(state, acts, 2, True, True, build="slots" if pad == "forced" else None)
+    (name, args), = fake_card.slots.calls
+    assert name == "jss_driven_general" and fake_card.classes == [(1, 1)] and not fake_card.driven.calls
+    inputs = fr._driven_inputs(state)
+    assert list(args[:17]) == [t.data_ptr() for t in inputs]
+    # B, J, M, T, with_solution, stream
+    assert args[22:] == (4, J, M, 2, 1, 7)
+    assert rewards.shape == ends.shape == (2, 4) and new.solution.shape == state.solution.shape
+    monkeypatch.setattr(fr, "_to_lanes", real_to_lanes)
+    fr._driven_kernel(state, acts, 2, True, True, build="rollout")
+    assert [c[0] for c in fake_card.general.calls] == ["jss_rollout_driven"]
+    geo = fr.launch_geometry(J, M)
+    assert fake_card.general.calls[0][1][6:] == (4, J, M, 2, 1, geo.lanes, geo.state_stride, geo.scratch_stride,
+                                                 geo.shared_bytes, 7)
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rollout_driven=1, rollout_driven_slots=1)
+    if pad != "forced":
+        with pytest.raises(ValueError, match="unpadded batch"):
+            fr._driven_kernel(state, acts, 2, True, True, build="static")
 
 
 def test_a_batch_past_the_limits_runs_the_general_build(fake_card):
@@ -189,15 +213,20 @@ def test_a_batch_past_the_limits_runs_the_general_build(fake_card):
     assert not fake_card.driven.calls and fr.LAUNCHES["rollout_driven"] == 1
     with pytest.raises(ValueError, match="unpadded batch of at most 128 jobs"):
         fr.launch_driven_static(state, *([None] * 7))
-    assert fr.LAUNCHES["rollout_driven_static"] == 0
+    with pytest.raises(ValueError, match="at most 128 jobs"):
+        fr._driven_kernel(state, _actions(state, 1, 4), 1, True, False, build="slots")
+    assert fr.LAUNCHES["rollout_driven_static"] == fr.LAUNCHES["rollout_driven_slots"] == 0
 
 
 def test_a_refused_driven_launch_raises_and_counts_nothing(fake_card):
-    fake_card.driven.rc = 1  # cudaErrorInvalidValue
+    fake_card.driven.rc = fake_card.slots.rc = 1  # cudaErrorInvalidValue
     state = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
+    padded = tv.make_batch(ti.get_instance_set(["ta01", "ta11"]), 4, device="cpu")
     fr.reset_launch_counts()
     with pytest.raises(RuntimeError, match=r"driven_static_kernel<static 15x15>: CUDA launch refused or failed"):
         fr._driven_kernel(state, _actions(state, 1, 5), 1, True, True)
+    with pytest.raises(RuntimeError, match=r"driven_general_kernel<slots 1x1>: CUDA launch refused or failed"):
+        fr._driven_kernel(padded, _actions(padded, 1, 5), 1, True, True)
     assert not any(fr.LAUNCHES.values())
 
 
@@ -262,22 +291,24 @@ def test_new_driven_kernel_matches_twin_and_general_on_card(cuda_dev, case, ligh
         state = driven_start(state, steps, 0)
     state = ts.from_numpy(ts.to_numpy(state), device=cuda_dev)
     state = tv.strip_solution(state) if light else state
-    assert fr.driven_build(state) == (state.jobs_pad, state.machines_pad)
+    assert fr.driven_build(state) == fr.Build("static", (state.jobs_pad, state.machines_pad))
     acts = _actions(state, 40, 9)
     for T in (0, 1, 40):
         a = acts[:T].contiguous()
         before = {k: v.clone() for k, v in state.dynamic_fields().items()}
         counts = dict(fr.LAUNCHES)
         new, raw, ends = fr._driven_kernel(state, a, T, not light, True)
-        gen, g_raw, g_ends = fr._driven_kernel(state, a, T, not light, True, general=True)
         assert fr.LAUNCHES["rollout_driven_static"] == counts["rollout_driven_static"] + 1
+        others = [fr._driven_kernel(state, a, T, not light, True, build=b) for b in ("rollout", "slots")]
         ref, r_raw, r_ends = fr.rollout_driven_reference(state, a, T, return_ends=True)
         torch.cuda.synchronize()
-        assert torch.equal(raw, r_raw) and torch.equal(ends, r_ends) and torch.equal(g_raw, raw)
-        assert torch.equal(g_ends, ends)
+        assert torch.equal(raw, r_raw) and torch.equal(ends, r_ends)
+        for gen, g_raw, g_ends in others:
+            assert torch.equal(g_raw, raw) and torch.equal(g_ends, ends)
+            for k in ts.FIELD_NAMES:
+                assert torch.equal(getattr(gen, k), getattr(new, k)), (T, k)
         for k in ts.FIELD_NAMES:
             assert torch.equal(getattr(new, k), getattr(ref, k)), (T, k)
-            assert torch.equal(getattr(gen, k), getattr(new, k)), (T, k)
         for k, v in before.items():
             assert torch.equal(getattr(state, k), v), (T, k)
         for k in fr._DRIVEN_U8:

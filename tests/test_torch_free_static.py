@@ -108,15 +108,19 @@ def smoke():
 
 def test_every_full_config_takes_its_build(smoke):
     """Every unpadded FULL config of the smoke runs the new kernel, each
-    padded one the general build, in the value dtype the smoke expects."""
+    padded one the slot-class build, in the value dtype the smoke expects;
+    each can be asked for rollout.cu's build."""
     for name, _, _ in smoke.FULL:
         src = smoke.source(ti, name)
         state = tv.make_batch(src, 2 * max(1, len(getattr(src, "names", [0]))), device="cpu")
-        want = None if name in smoke.PADDED else (state.jobs_pad, state.machines_pad)
+        J, M = state.jobs_pad, state.machines_pad
+        want = fr.Build("slots", (1, 1)) if name in smoke.PADDED else fr.Build("static", (J, M))
         assert fr.free_build(state) == want, name
-        assert fr.free_build(state, general=True) is None
+        assert fr.free_build(state, "rollout") == fr.Build("rollout")
+        assert fr.free_build(state, "slots") == fr.Build("slots", fr.slot_class(J, M))
         assert str(fr.value_dtype(state)).removeprefix("torch.") == smoke.FULL_DTYPE[name], name
-        assert fr.free_kernel_job(state) == (("rollout", None) if want is None else ("free_static", want))
+        assert fr.free_kernel_job(state) == (("general_lane", None, ("JSS_SLOTS_J=1", "JSS_SLOTS_M=1"))
+                                             if name in smoke.PADDED else ("free_static", (J, M)))
     assert all(fr.static_fits(s) for s in smoke.STATIC_SHAPES)
 
 
@@ -144,8 +148,11 @@ def test_shape_limits(shape, fits):
 
 def test_a_static_batch_past_the_limits_runs_the_general_build():
     state = tv.make_batch(ti.random_instance(130, 3, (1, 9), seed=1), 2, device="cpu")
-    assert fr.static_shape(state) == (130, 3) and fr.free_build(state) is None
+    assert fr.static_shape(state) == (130, 3) and fr.free_build(state) == fr.Build("rollout")
     assert fr.free_kernel_job(state) == ("rollout", None)
+    for kind in ("static", "slots"):
+        with pytest.raises(ValueError, match="at most 128 jobs"):
+            fr.free_build(state, kind)
 
 
 @pytest.mark.parametrize("B", [1, 4, 5, 37, 16384])
@@ -171,21 +178,22 @@ class _FakeLib:
 def fake_card(monkeypatch):
     """``launch_free`` on CPU tensors with stand-in libraries: the checks for
     a CUDA state and the stream are stubbed; nothing runs."""
-    libs = types.SimpleNamespace(free=_FakeLib(), general=_FakeLib())
+    libs = types.SimpleNamespace(free=_FakeLib(), general=_FakeLib(), slots=_FakeLib(), classes=[])
     monkeypatch.setattr(fr, "_check_kernel_inputs", lambda *a, **k: None)
     monkeypatch.setattr(fr, "_free_lib", lambda shape: libs.free)
     monkeypatch.setattr(fr, "_lib", lambda: libs.general)
+    monkeypatch.setattr(fr, "_general_lib", lambda slots: libs.classes.append(slots) or libs.slots)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=7))
     return libs
 
 
-def _launch(state, vdt, general=False, lane_offset=0, T=9):
+def _launch(state, vdt, build=None, lane_offset=0, T=9):
     buf = fr._to_lanes(state, with_solution=False, vdt=vdt)
     tab, lanec = fr._lane_inputs(state)
     stats = torch.empty((4, state.batch_size), dtype=torch.int64)
     ret = torch.empty((state.batch_size,), dtype=torch.float32)
-    fr.launch_free(state, buf, tab, lanec, None, 11, stats, ret, T, vdt, lane_offset, _general=general)
+    fr.launch_free(state, buf, tab, lanec, None, 11, stats, ret, T, vdt, lane_offset, build=build)
 
 
 @pytest.mark.parametrize("vdt", [torch.int32, torch.int16], ids=["int32", "int16"])
@@ -194,7 +202,7 @@ def test_an_unpadded_launch_calls_the_new_kernel(fake_card, vdt):
     fr.reset_launch_counts()
     _launch(state, vdt, lane_offset=64)
     (name, args), = fake_card.free.calls
-    assert not fake_card.general.calls
+    assert not fake_card.general.calls and not fake_card.slots.calls
     assert name == ("jss_free_static_i16" if vdt == torch.int16 else "jss_free_static")
     # state, tab, lanec, bits, seed, stats, ret, B, J, M, T, lane_offset, stream
     assert args[3] is None and args[4] == 11 and args[7:] == (37, 15, 15, 9, 64, 7)
@@ -203,24 +211,41 @@ def test_an_unpadded_launch_calls_the_new_kernel(fake_card, vdt):
 
 
 def test_padded_and_forced_launches_call_the_general_build(fake_card):
+    """A padded batch launches its slot class's build, int32 and int16; the
+    slot-class and rollout.cu builds run on any batch when asked for."""
     padded = tv.make_batch(ti.get_instance_set(["ta01", "ta41"]), 4, device="cpu")
+    padded16 = tv.make_batch(ti.get_instance_set(["ta01", "ta11"]), 4, device="cpu")
     unpadded = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
     fr.reset_launch_counts()
-    _launch(padded, torch.int32)
-    _launch(unpadded, torch.int32, general=True)
-    assert not fake_card.free.calls and [c[0] for c in fake_card.general.calls] == ["jss_rollout_free"] * 2
+    _launch(padded, torch.int32, lane_offset=3)
+    _launch(padded16, torch.int16)
+    _launch(unpadded, torch.int32, build="slots")
+    _launch(padded, torch.int32, build="rollout")
+    _launch(unpadded, torch.int32, build="rollout")
+    assert not fake_card.free.calls and fake_card.classes == [(1, 1)] * 3
+    assert [c[0] for c in fake_card.slots.calls] == ["jss_free_general", "jss_free_general_i16", "jss_free_general"]
+    # state, tab, lanec, bits, seed, stats, ret, B, J, M, T, lane_offset, stream
+    assert [c[1][7:] for c in fake_card.slots.calls] == [(4, 30, 20, 9, 3, 7), (4, 20, 15, 9, 0, 7),
+                                                         (4, 15, 15, 9, 0, 7)]
+    assert [c[0] for c in fake_card.general.calls] == ["jss_rollout_free"] * 2
     geo = fr.launch_geometry(30, 20)
     assert fake_card.general.calls[0][1][12:] == (geo.lanes, geo.state_stride, geo.scratch_stride,
                                                   geo.shared_bytes, 7)
-    assert fr.LAUNCHES["rollout_free"] == 2 and sum(fr.LAUNCHES.values()) == 2
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rollout_free=2, rollout_free_slots=2,
+                               rollout_free_i16_slots=1)
+    with pytest.raises(ValueError, match="unpadded batch"):
+        _launch(padded, torch.int32, build="static")
 
 
 def test_a_refused_launch_raises_and_counts_nothing(fake_card):
-    fake_card.free.rc = 1  # cudaErrorInvalidValue
+    fake_card.free.rc = fake_card.slots.rc = 1  # cudaErrorInvalidValue
     state = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
+    padded = tv.make_batch(ti.get_instance_set(["ta01", "ta11"]), 4, device="cpu")
     fr.reset_launch_counts()
     with pytest.raises(RuntimeError, match=r"free_static_kernel<static 15x15>: CUDA launch refused or failed"):
         _launch(state, torch.int32)
+    with pytest.raises(RuntimeError, match=r"free_general_kernel<int16><slots 1x1>: CUDA launch refused or failed"):
+        _launch(padded, torch.int16)
     assert not any(fr.LAUNCHES.values())
 
 
@@ -237,7 +262,7 @@ def test_the_kernels_build_together(tmp_path, monkeypatch):
             self.cmd, self.returncode = cmd, 0
 
         def communicate(self, timeout=None):
-            assert len(started) == 3  # every process started before the first is waited for
+            assert len(started) == 4  # every process started before the first is waited for
             Path(self.cmd[self.cmd.index("-o") + 1]).write_bytes(b"")
             return "ptxas info    : Used 40 registers\n", None
 
@@ -247,10 +272,14 @@ def test_the_kernels_build_together(tmp_path, monkeypatch):
     monkeypatch.setattr(fr, "_lib", lambda: None)
     monkeypatch.setattr(fr, "_free_lib", lambda shape: None)
     monkeypatch.setattr(fr, "_driven_lib", lambda shape: None)
-    fr.build_kernels([None, (15, 15), (200, 5)])
-    got = sorted((Path(c[-1]).name, tuple(x for x in c if x.startswith("-DJSS_STATIC"))) for c in started)
+    monkeypatch.setattr(fr, "_general_lib", lambda slots: None)
+    fr.build_kernels([None, (15, 15), (200, 5), fr.Build("slots", (2, 1))])
+    got = sorted((Path(c[-1]).name, tuple(x for x in c if x.startswith(("-DJSS_STATIC", "-DJSS_SLOTS")))) for c in started)
     s15 = ("-DJSS_STATIC_J=15", "-DJSS_STATIC_M=15")
-    assert got == sorted([("rollout.cu", ()), ("driven_static.cu", s15), ("free_static.cu", s15)])
+    assert got == sorted([("rollout.cu", ()), ("driven_static.cu", s15), ("free_static.cu", s15),
+                          ("general_lane.cu", ("-DJSS_SLOTS_J=2", "-DJSS_SLOTS_M=1"))])
+    slots = _build.library_path("general_lane", None, fr.slot_defines((2, 1)))
+    assert slots.name.startswith("libgeneral_lane_slots_j2_slots_m1_")
     plain = _build.library_path("free_static", (15, 15))
     clocks = _build.library_path("free_static", (15, 15), ("JSS_PASS_CLOCKS",))
     assert plain != clocks and "_pass_clocks_" in clocks.name and plain.name.startswith("libfree_static_15x15_")
@@ -293,8 +322,8 @@ def test_new_kernel_matches_twin_and_general_on_card(cuda_dev, case, mode):
     ref = fr.free_lane_stats_reference(state, T, 21, bits, lane_offset=B + 3)
     runs = []
     for vdt in (torch.int32, torch.int16) if fr.value_dtype(state) == torch.int16 else (torch.int32,):
-        for general in (False, True):
-            runs.append(fr._free_kernel(state, T, 21, bits, vdt, lane_offset=B + 3, general=general))
+        for build in fr.BUILDS:
+            runs.append(fr._free_kernel(state, T, 21, bits, vdt, lane_offset=B + 3, build=build))
     torch.cuda.synchronize()
     for got in runs:
         for f in ref:

@@ -1,9 +1,11 @@
 """The CUDA sources of the rollouts, run on the CPU through a shim.
 
 ``csrc/free_static.cu`` and ``csrc/driven_static.cu`` (the static builds of
-the free and the driven kernel, one library per shape, on
-``csrc/static_lane.cuh``) and the general build of ``csrc/rollout.cu``'s free
-kernel are compiled as C++ (``g++ -std=c++20``) against ``SHIM`` below: every CUDA
+the free and the driven kernel, one library per shape), ``csrc/general_lane.cu``
+(both kernels for padded and mixed-shape batches, one library per slot
+class: ``SLOT_CLASSES``), all on ``csrc/static_lane.cuh``, and the general
+build of ``csrc/rollout.cu``'s free kernel are compiled as C++
+(``g++ -std=c++20``) against ``SHIM`` below: every CUDA
 thread of a block is a fiber of one host thread, the blocks of a grid run
 one after another, and per warp a barrier of its 32 fibers around a 32-slot
 array stands for ``__syncwarp`` and every vote, shuffle and reduction; the
@@ -27,7 +29,12 @@ ends bit for bit against ``fused_rollout.rollout_driven_reference`` at T = 0,
 1 and 40 on the full and the light state, fresh and mid-episode, at every
 job-slot and machine-slot count, and checks that the input state is
 unchanged and that the new masks hold the bytes 0 and 1 only; one of them
-also against the JAX package's ``rollout_driven`` in interpret mode."""
+also against the JAX package's ``rollout_driven`` in interpret mode. The
+``g-`` driven cases and the ``slots`` free runs do the same for
+``general_lane.cu`` on padded and mixed-shape batches (ta01+ta11, ta01+ta41,
+a padded ta01, random instance sets), every slot class S in 1..4, K in 1..2
+met; one padded case of B = 1024 also against the JAX package's
+``rollout_driven`` (``static_lane=None``)."""
 
 import ctypes
 import os
@@ -211,13 +218,13 @@ extern "C" int shim_free(const void* state, const void* tab, const void* lanec, 
   const int grid = (B + kLanes - 1) / kLanes;
   if (i16)
     launch(grid, kLanes * 32, [=] {
-      free_static_kernel<int16_t>((const int16_t*)state, (const int*)tab, (const int*)lanec,
-                                  (const uint32_t*)bits, seed, (long long*)stats, (float*)ret, B, T, lane_offset);
+      free_static_kernel<int16_t>((const int16_t*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits,
+                                  seed, (long long*)stats, (float*)ret, B, Bounds::J, Bounds::M, T, lane_offset);
     });
   else
     launch(grid, kLanes * 32, [=] {
-      free_static_kernel<int32_t>((const int32_t*)state, (const int*)tab, (const int*)lanec,
-                                  (const uint32_t*)bits, seed, (long long*)stats, (float*)ret, B, T, lane_offset);
+      free_static_kernel<int32_t>((const int32_t*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits,
+                                  seed, (long long*)stats, (float*)ret, B, Bounds::J, Bounds::M, T, lane_offset);
     });
   return kLanes;
 }
@@ -232,6 +239,34 @@ extern "C" int shim_driven(const void* const* p, int B, int T, int with_solution
                     (const uint8_t*)p[14], (const uint8_t*)p[15], (const uint8_t*)p[16], (const int*)p[17],
                     (const int*)p[18], (const int*)p[19], (int*)p[20], (uint8_t*)p[21], B, T, with_solution};
   launch((B + kLanes - 1) / kLanes, kLanes * 32, [=] { driven_static_kernel(io); });
+  return kLanes;
+}
+"""
+
+LANE_ENTRY = r"""
+extern "C" int shim_free(const void* state, const void* tab, const void* lanec, const void* bits,
+                         unsigned long long seed, void* stats, void* ret, int B, int J, int M, int T, int lane_offset,
+                         int i16) {
+  const int grid = (B + kLanes - 1) / kLanes;
+  if (i16)
+    launch(grid, kLanes * 32, [=] {
+      free_general_kernel<int16_t>((const int16_t*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits,
+                                   seed, (long long*)stats, (float*)ret, B, J, M, T, lane_offset);
+    });
+  else
+    launch(grid, kLanes * 32, [=] {
+      free_general_kernel<int32_t>((const int32_t*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits,
+                                   seed, (long long*)stats, (float*)ret, B, J, M, T, lane_offset);
+    });
+  return kLanes;
+}
+extern "C" int shim_driven(const void* const* p, int B, int J, int M, int T, int with_solution) {
+  const DrivenIO io{(const int*)p[0], (const int*)p[1], (const int*)p[2], (const int*)p[3], (const int*)p[4],
+                    (const int*)p[5], (const int*)p[6], (const int*)p[7], (const int*)p[8], (const int*)p[9],
+                    (const int*)p[10], (const int*)p[11], (const int*)p[12], (const uint8_t*)p[13],
+                    (const uint8_t*)p[14], (const uint8_t*)p[15], (const uint8_t*)p[16], (const int*)p[17],
+                    (const int*)p[18], (const int*)p[19], (int*)p[20], (uint8_t*)p[21], B, T, with_solution, J, M};
+  launch((B + kLanes - 1) / kLanes, kLanes * 32, [=] { driven_general_kernel(io); });
   return kLanes;
 }
 """
@@ -257,15 +292,42 @@ extern "C" int shim_free(const void* state, const void* tab, const void* lanec, 
 }
 """
 
-# case -> (instance source, B, T, static shape or None (a padded batch: the
-# general build only), the runs: (build, storage type, random words)); Philox
-# words are drawn with lane_offset 5. Together the runs cover both builds in
-# int32 and int16, Philox and bits.
+# The slot classes of csrc/general_lane.cu: (job slots S, machine words K).
+SLOT_CLASSES = tuple((s, k) for s in range(1, 5) for k in range(1, 3))
+
+
+def _mixed(*shapes, jobs_pad=None, machines_pad=None):
+    """A source of random instances of the given (J, M) shapes (durations 1-9,
+    seeds 20, 21, ...), stacked and padded to the largest (or to the pads)."""
+    return lambda: ti.stack_instances([ti.random_instance(j, m, (1, 9), seed=20 + i) for i, (j, m) in enumerate(shapes)],
+                                      jobs_pad=jobs_pad, machines_pad=machines_pad)
+
+
+# padded and mixed-shape sources of the slot-class build, at least one a slot
+# class; each -> its padded slot class
+ta01_11 = lambda: ti.get_instance_set(["ta01", "ta11"])  # noqa: E731
+MIXED = {
+    "ta01+ta11": (ta01_11, (1, 1)),
+    "pad16": (lambda: ti.stack_instances([ti.get_instance("ta01")], jobs_pad=16, machines_pad=16), (1, 1)),
+    "mix6x40+2x35": (_mixed((6, 40), (2, 35)), (1, 2)),
+    "mix40x3+3x5": (_mixed((40, 3), (3, 5)), (2, 1)),
+    "mix40x3+2x40": (_mixed((40, 3), (2, 40)), (2, 2)),
+    "mix70x4+3x3": (_mixed((70, 4), (3, 3)), (3, 1)),
+    "mix70x4+2x33": (_mixed((70, 4), (2, 33)), (3, 2)),
+    "mix100x3+3x5": (_mixed((100, 3), (3, 5)), (4, 1)),
+    "mix100x3+2x40": (_mixed((100, 3), (2, 40)), (4, 2)),
+}
+
+# case -> (instance source, B, T, static shape or None (a padded batch), the
+# runs: (build, storage type, random words)); Philox words are drawn with
+# lane_offset 5. Together the runs cover the three builds ("static",
+# "slots": general_lane.cu, "general": rollout.cu) in int32 and int16,
+# Philox and bits, and every slot class on a padded batch.
 I32, I16 = torch.int32, torch.int16
 CASES = {
     "ta01": (lambda: ti.get_instance("ta01"), 8, 300, (15, 15),
              (("static", I16, "philox"), ("static", I32, "bits"), ("general", I16, "bits"),
-              ("general", I32, "philox"))),
+              ("general", I32, "philox"), ("slots", I16, "philox"))),
     "rand6x5": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 8, 300, (6, 5),
                 (("static", I32, "philox"), ("static", I16, "bits"), ("general", I16, "philox"))),
     "2x2": (lambda: ti.random_instance(2, 2, (1, 9), seed=5), 8, 60, (2, 2),
@@ -277,15 +339,24 @@ CASES = {
     "rand3x40": (lambda: ti.random_instance(3, 40, (1, 9), seed=8), 4, 300, (3, 40), (("static", I16, "bits"),)),
     # a ragged batch of two shapes, padded
     "ta01+ta41": (lambda: ti.get_instance_set(["ta01", "ta41"]), 4, 300, None,
-                  (("general", I32, "philox"), ("general", I32, "bits"))),
+                  (("general", I32, "philox"), ("general", I32, "bits"), ("slots", I32, "philox"),
+                   ("slots", I32, "bits"))),
+    "ta01+ta11": (ta01_11, 8, 300, None, (("slots", I16, "philox"), ("slots", I32, "bits"), ("general", I16, "bits"))),
+    "pad16": (MIXED["pad16"][0], 8, 300, None, (("slots", I32, "philox"), ("slots", I16, "bits"))),
+    # every other slot class, on a batch of two random shapes
+    **{name: (MIXED[name][0], 4, 300, None, (("slots", I16, "philox"), ("slots", I32, "bits")))
+       for name in MIXED if name.startswith("mix")},
     # mid-episode starts (START)
     "ta01-mid": (lambda: ti.get_instance("ta01"), 8, 300, (15, 15), (("static", I16, "philox"), ("static", I32, "bits"))),
     "ta41-mid": (lambda: ti.get_instance("ta41"), 4, 300, (30, 20), (("static", I32, "philox"),)),
     "rand6x5-mid": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 8, 300, (6, 5), (("static", I16, "bits"),)),
+    "ta01+ta11-mid": (ta01_11, 8, 300, None, (("slots", I16, "philox"), ("slots", I32, "bits"))),
+    "mix100x3+2x40-mid": (MIXED["mix100x3+2x40"][0], 4, 300, None, (("slots", I16, "bits"),)),
 }
 # case -> (driven steps, seed of the random legal actions) before the free
 # rollout starts: every lane mid-episode, with no-op pins in some
-START = {"ta01-mid": (150, 0), "ta41-mid": (450, 1), "rand6x5-mid": (47, 0)}
+START = {"ta01-mid": (150, 0), "ta41-mid": (450, 1), "rand6x5-mid": (47, 0), "ta01+ta11-mid": (150, 2),
+         "mix100x3+2x40-mid": (160, 3)}
 TIME_LIMIT_S = 90  # a case's process; each takes 2-8 s alone
 LANE_OFFSET = 5
 
@@ -306,8 +377,18 @@ DRIVEN = {
     "d-rand70x4-mid": (lambda: ti.random_instance(70, 4, (1, 9), seed=9), 4, 265, 7, "legal"),
     "d-rand100x3-mid": (lambda: ti.random_instance(100, 3, (1, 9), seed=10), 4, 285, 8, "legal"),
     "d-rand6x40-mid": (lambda: ti.random_instance(6, 40, (1, 9), seed=11), 4, 225, 9, "legal"),
+    # the slot-class build (general_lane.cu) on padded and mixed batches
+    "g-ta01+ta11": (ta01_11, 8, 0, 11, "legal"),
+    "g-ta01+ta11-mid": (ta01_11, 8, 235, 12, "legal"),
+    "g-ta01+ta41-mid": (lambda: ti.get_instance_set(["ta01", "ta41"]), 4, 250, 13, "legal"),
+    "g-pad16-any": (MIXED["pad16"][0], 6, 20, 14, "any"),
+    **{f"g-{name}-mid": (MIXED[name][0], 4, 120, 15 + i, "legal") for i, name in enumerate(MIXED)
+       if name.startswith("mix")},
 }
 DRIVEN_T = (0, 1, 40)
+# the padded driven case held against the JAX package at B >= 1024: a mixed
+# set of two small shapes, so that every lane ends episodes in the window
+JAX_PADDED = (_mixed((4, 3), (3, 2)), 1024, 30)
 
 
 def _source(name):
@@ -318,8 +399,15 @@ def _source(name):
 
 
 def _driven_shape(case):
+    """The static shape of a driven case, or the slot class of a ``g-`` one."""
     spec = DRIVEN[case][0]()
+    if case.startswith("g-"):
+        return fr.slot_class(*np.asarray(spec.op_dur).shape[1:])
     return spec.num_jobs, spec.num_machines
+
+
+def _lib_name(name, shape):
+    return f"lib{name}_{shape[0]}x{shape[1]}.so"
 
 
 def build(libdir: Path) -> dict:
@@ -333,11 +421,15 @@ def build(libdir: Path) -> dict:
         if shape is not None:
             jobs["free_static", shape] = STATIC_ENTRY
     for case in DRIVEN:
-        jobs["driven_static", _driven_shape(case)] = DRIVEN_ENTRY
+        if not case.startswith("g-"):
+            jobs["driven_static", _driven_shape(case)] = DRIVEN_ENTRY
+    for slots in SLOT_CLASSES:
+        jobs["general_lane", slots] = LANE_ENTRY
     procs, out = [], {}
     for (name, shape), entry in jobs.items():
         tag = "general" if shape is None else f"{shape[0]}x{shape[1]}"
-        defs = [] if shape is None else [f"-DJSS_STATIC_J={shape[0]}", f"-DJSS_STATIC_M={shape[1]}"]
+        defs = [] if shape is None else [f"-D{d}" for d in fr.slot_defines(shape)] if name == "general_lane" else [
+            f"-DJSS_STATIC_J={shape[0]}", f"-DJSS_STATIC_M={shape[1]}"]
         cpp, lib = libdir / f"{name}_{tag}.cpp", libdir / f"lib{name}_{tag}.so"
         cpp.write_text(_source(name) + entry)
         cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{CSRC}", *defs, "-o", str(lib), str(cpp)]
@@ -349,9 +441,10 @@ def build(libdir: Path) -> dict:
     return out
 
 
-def _run_lib(lib, state, T, vdt, seed, bits, lane_offset, general):
-    """One launch of the shim library on the port's kernel inputs; per-lane
-    stats as ``fused_rollout._free_kernel`` returns them."""
+def _run_lib(lib, state, T, vdt, seed, bits, lane_offset, build):
+    """One launch of the shim library of ``build`` ("static", "slots" or
+    "general": rollout.cu) on the port's kernel inputs; per-lane stats as
+    ``fused_rollout._free_kernel`` returns them."""
     B = state.batch_size
     buf = fr._to_lanes(state, with_solution=False, vdt=vdt)
     tab, lanec = fr._lane_inputs(state)
@@ -361,10 +454,12 @@ def _run_lib(lib, state, T, vdt, seed, bits, lane_offset, general):
     args = [buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), None if bits is None else bits.data_ptr(),
             seed & (2**64 - 1), stats.data_ptr(), ret.data_ptr(), B]
     i16 = int(vdt == torch.int16)
-    if general:
+    if build == "general":
         geo = fr.launch_geometry(state.jobs_pad, state.machines_pad, vdt)
         args += [state.jobs_pad, state.machines_pad, T, lane_offset, geo.lanes, geo.state_stride,
                  geo.scratch_stride, i16]
+    elif build == "slots":
+        args += [state.jobs_pad, state.machines_pad, T, lane_offset, i16]
     else:
         args += [T, lane_offset, i16]
     lib.shim_free.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P] + [I] * (len(args) - 7)
@@ -373,19 +468,20 @@ def _run_lib(lib, state, T, vdt, seed, bits, lane_offset, general):
     return {"episodes": stats[0], "mk_sum": stats[1], "mk_min": stats[2], "viol": stats[3], "ret": ret}
 
 
-def _run_driven(lib, state, actions, T):
-    """One launch of the shim's driven library on the port's kernel inputs
-    and output allocations; returns (new state, rewards, ends, the uint8
-    allocation of the masks)."""
+def _run_driven(lib, state, actions, T, slots=False):
+    """One launch of the shim's driven library (static, or a slot class's) on
+    the port's kernel inputs and output allocations; returns (new state,
+    rewards, ends, the uint8 allocation of the masks)."""
     B = state.batch_size
     tab, lanec = fr._lane_inputs(state)
     inputs = fr._driven_inputs(state)
     out, out8, new, rewards, ends = fr._driven_outputs(state, T)
     ptrs = [t.data_ptr() for t in inputs] + [tab.data_ptr(), lanec.data_ptr(), actions.data_ptr(),
                                              out.data_ptr(), out8.data_ptr()]
-    lib.shim_driven.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    dims = [state.jobs_pad, state.machines_pad] if slots else []
+    lib.shim_driven.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * (3 + len(dims))
     lib.shim_driven.restype = ctypes.c_int
-    lib.shim_driven((ctypes.c_void_p * len(ptrs))(*ptrs), B, T, int(fr._solution_mode(state)))
+    lib.shim_driven((ctypes.c_void_p * len(ptrs))(*ptrs), B, *dims, T, int(fr._solution_mode(state)))
     return new, rewards, ends, out8
 
 
@@ -417,14 +513,16 @@ def run_driven_case(libdir: str, case: str) -> None:
     on the full and the light state, each against the twin."""
     torch.set_num_threads(1)
     start, acts = driven_window(case)
-    lib = ctypes.CDLL(str(Path(libdir) / "libdriven_static_{}x{}.so".format(*_driven_shape(case))))
-    assert fr.driven_build(start) == _driven_shape(case)
+    slots = case.startswith("g-")
+    build = fr.driven_build(start)
+    assert build == fr.Build("slots" if slots else "static", _driven_shape(case)), build
+    lib = ctypes.CDLL(str(Path(libdir) / _lib_name("general_lane" if slots else "driven_static", build.shape)))
     ended = 0
     for state in (start, tv.strip_solution(start)):
         for T in DRIVEN_T:
             a = acts[:T].contiguous()
             before = {k: v.clone() for k, v in state.dynamic_fields().items()}
-            new, rewards, ends, out8 = _run_driven(lib, state, a, T)
+            new, rewards, ends, out8 = _run_driven(lib, state, a, T, slots)
             ref, ref_raw, ref_ends = fr.rollout_driven_reference(state, a, T, return_ends=True)
             tag = f"{case} T={T} {'light' if state.solution.shape[1] == 0 else 'full'}"
             assert torch.equal(rewards, ref_raw), f"{tag}: rewards {rewards.tolist()} != {ref_raw.tolist()}"
@@ -439,20 +537,31 @@ def run_driven_case(libdir: str, case: str) -> None:
     assert ended > 0 or DRIVEN[case][2] == 0 and case != "d-rand6x5", f"{case}: no episode ended in the window"
 
 
-def run_driven_jax_case(libdir: str, out: str) -> None:
-    """The d-rand6x5 case at T = 40 on the full state: the shim's results,
+def run_driven_jax_case(libdir: str, out: str, padded: bool = False) -> None:
+    """The d-rand6x5 case at T = 40 on the full state (``padded``: the
+    ``JAX_PADDED`` batch through the slot-class build): the shim's results,
     saved to ``out`` (npz) for the test process to hold against JAX."""
     torch.set_num_threads(1)
-    state, acts = driven_window("d-rand6x5")
-    lib = ctypes.CDLL(str(Path(libdir) / "libdriven_static_6x5.so"))
-    new, rewards, ends, _ = _run_driven(lib, state, acts.contiguous(), acts.shape[0])
+    if padded:
+        src, B, T = JAX_PADDED
+        state = tv.make_batch(src(), B, device="cpu")
+        acts = _window_actions(state, T, 7, "legal")
+        lib = ctypes.CDLL(str(Path(libdir) / _lib_name("general_lane", fr.driven_build(state).shape)))
+    else:
+        state, acts = driven_window("d-rand6x5")
+        lib = ctypes.CDLL(str(Path(libdir) / "libdriven_static_6x5.so"))
+    new, rewards, ends, _ = _run_driven(lib, state, acts.contiguous(), acts.shape[0], padded)
     np.savez(out, actions=acts.numpy(), rewards=rewards.numpy(), ends=ends.numpy(),
              **{f"state_{k}": v for k, v in ts.to_numpy(new).items()})
 
 
-def _lib(libdir, general, shape):
-    tag = "rollout_general" if general else f"free_static_{shape[0]}x{shape[1]}"
-    return ctypes.CDLL(str(Path(libdir) / f"lib{tag}.so"))
+def _lib(libdir, build, state):
+    """The shim library of ``build`` ("static", "slots", "general") for
+    ``state``."""
+    if build == "general":
+        return ctypes.CDLL(str(Path(libdir) / "librollout_general.so"))
+    b = fr.free_build(state, build)
+    return ctypes.CDLL(str(Path(libdir) / _lib_name("free_static" if build == "static" else "general_lane", b.shape)))
 
 
 def run_case(libdir: str, case: str) -> None:
@@ -474,7 +583,7 @@ def run_case(libdir: str, case: str) -> None:
             # a mid-episode start's first episode misses the rewards before it
             assert case in START or int(refs[mode]["viol"].sum()) == 0
         ref = refs[mode]
-        got = _run_lib(_lib(libdir, build_ == "general", shape), state, T, vdt, *words[mode], build_ == "general")
+        got = _run_lib(_lib(libdir, build_, state), state, T, vdt, *words[mode], build_)
         tag = f"{case} {build_} {vdt} {mode}"
         for f in ref:
             assert torch.equal(got[f], ref[f]), f"{tag}: {f} {got[f].tolist()} != {ref[f].tolist()}"
@@ -488,13 +597,13 @@ def run_dead_fields(libdir: str) -> None:
     mid-episode: it reads none of them."""
     torch.set_num_threads(1)
     fresh = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
-    lib = _lib(libdir, False, (15, 15))
+    lib = _lib(libdir, "static", fresh)
     for state in (fresh, driven_start(fresh, *START["ta01-mid"])):
-        want = _run_lib(lib, state, 120, torch.int32, 3, None, 0, general=False)
+        want = _run_lib(lib, state, 120, torch.int32, 3, None, 0, "static")
         g = torch.Generator().manual_seed(1)
         junk = {f: torch.randint(-999, 999, getattr(state, f).shape, dtype=torch.int32, generator=g)
                 for f in ("op_end_at", "idle_frozen", "idle_total_alloc", "wait4")}
-        got = _run_lib(lib, state.replace(**junk), 120, torch.int32, 3, None, 0, general=False)
+        got = _run_lib(lib, state.replace(**junk), 120, torch.int32, 3, None, 0, "static")
         assert all(torch.equal(got[f], want[f]) for f in want)
         ref = fr.free_lane_stats_reference(state, 120, 3, None, 0)
         assert all(torch.equal(want[f], ref[f]) for f in ref)
@@ -520,9 +629,15 @@ def libdir(tmp_path_factory):
 def test_shim_builds_one_library_per_shape(libdir):
     names = sorted(p.name for p in libdir.glob("*.so"))
     shapes = sorted({f"{c[3][0]}x{c[3][1]}" for c in CASES.values() if c[3]})
-    driven = sorted({"{}x{}".format(*_driven_shape(c)) for c in DRIVEN})
+    driven = sorted({"{}x{}".format(*_driven_shape(c)) for c in DRIVEN if not c.startswith("g-")})
     assert names == sorted(["librollout_general.so"] + [f"libfree_static_{s}.so" for s in shapes]
-                           + [f"libdriven_static_{s}.so" for s in driven])
+                           + [f"libdriven_static_{s}.so" for s in driven]
+                           + [_lib_name("general_lane", s) for s in SLOT_CLASSES])
+    # the padded cases meet every slot class, and each case's its own
+    for name, (src, slots) in MIXED.items():
+        assert fr.driven_build(tv.make_batch(src(), 2, device="cpu")) == fr.Build("slots", slots), name
+    assert sorted(s for _, s in MIXED.values())[1:] == sorted(SLOT_CLASSES)
+    assert {_driven_shape(c) for c in DRIVEN if c.startswith("g-")} == set(SLOT_CLASSES)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -560,6 +675,32 @@ def test_driven_kernel_source_matches_jax_on_cpu(libdir, tmp_path):
         np.testing.assert_array_equal(got[f"state_{k}"], np.asarray(v), err_msg=k)
 
 
+def test_padded_driven_kernel_source_matches_jax_on_cpu(libdir, tmp_path):
+    """The slot-class build on ``JAX_PADDED`` (two shapes padded to one, B =
+    1024, episodes ending in the window) equals the JAX package's
+    ``rollout_driven`` in interpret mode, which takes ``static_lane=None`` on
+    such a batch: rewards and every field of the final state, exactly."""
+    pytest.importorskip("flax")
+    import jax
+
+    from jssenv_tpu import instances as ji
+    from jssenv_tpu import vector as jv
+    from jssenv_tpu.core import pallas_rollout
+
+    out = tmp_path / "driven_padded.npz"
+    _in_process(libdir, "driven-jax-padded", str(out))
+    got = dict(np.load(out))
+    _, B, T = JAX_PADDED
+    js = jv.make_batch(ji.stack_instances([ji.random_instance(4, 3, (1, 9), seed=20),
+                                           ji.random_instance(3, 2, (1, 9), seed=21)]), B)
+    jfinal, jraw = pallas_rollout.rollout_driven(js, jax.numpy.asarray(got["actions"]), T, tile=B // 2,
+                                                 interpret=True)
+    np.testing.assert_array_equal(got["rewards"], np.asarray(jraw))
+    assert int((got["ends"] > 0).sum()) > B
+    for k, v in vars(jax.device_get(jfinal)).items():
+        np.testing.assert_array_equal(got[f"state_{k}"], np.asarray(v), err_msg=k)
+
+
 def test_static_kernel_reads_no_dead_field_on_cpu(libdir):
     _in_process(libdir, "dead-fields")
 
@@ -587,6 +728,8 @@ if __name__ == "__main__":
         run_dead_fields(sys.argv[1])
     elif sys.argv[2] == "driven-jax":
         run_driven_jax_case(sys.argv[1], sys.argv[3])
+    elif sys.argv[2] == "driven-jax-padded":
+        run_driven_jax_case(sys.argv[1], sys.argv[3], padded=True)
     elif sys.argv[2] in DRIVEN:
         run_driven_case(sys.argv[1], sys.argv[2])
     else:

@@ -507,8 +507,8 @@ CARD_CASES = {
 
 def _launch_key(kernel, state):
     """The ``LAUNCHES`` key a launch on ``state`` counts under: the static
-    build where every lane is unpadded, else the general one."""
-    return kernel + ("_static" if fr.static_shape(state) else "")
+    build where every lane is unpadded, else the slot-class one."""
+    return kernel + ("_static" if fr.static_shape(state) else "_slots")
 
 
 @pytest.mark.cuda
@@ -518,7 +518,7 @@ def test_driven_kernel_matches_twin_on_card(cuda_dev, case):
     state = tv.make_batch(src(), B, device=cuda_dev, **pad)
     acts = _port_actions(state, T, seed=1)
     key = _launch_key("rollout_driven", state)
-    assert (key == "rollout_driven") == (case in ("padded", "ragged", "2x2"))
+    assert (key == "rollout_driven_slots") == (case in ("padded", "ragged", "2x2"))
     before = fr.LAUNCHES[key]
     final, raw = fr.rollout_driven(state, acts, T)
     assert fr.LAUNCHES[key] == before + 1
@@ -620,10 +620,10 @@ def test_kernel_wrappers_refuse_bad_inputs_on_card(cuda_dev):
 def test_refused_launch_raises_on_card(cuda_dev, monkeypatch, refused):
     """A geometry the card refuses (too many threads a block, more shared
     memory than a block may have) raises; nothing runs in its place. Both
-    halves run a padded batch, which takes the general build: the static
-    builds (csrc/driven_static.cu, csrc/free_static.cu) have no shared
-    memory and a block of their own, so no geometry of launch_geometry
-    reaches them."""
+    halves run a padded batch in rollout.cu's general build: the static and
+    slot-class builds (csrc/driven_static.cu, csrc/free_static.cu,
+    csrc/general_lane.cu) have no shared memory and a block of their own, so
+    no geometry of launch_geometry reaches them."""
     padded = tv.make_batch(ti.get_instance_set(["ta01", "ta41"]), 16, device=cuda_dev)
     plain = fr.launch_geometry
 
@@ -634,10 +634,11 @@ def test_refused_launch_raises_on_card(cuda_dev, monkeypatch, refused):
         return geo._replace(shared_bytes=240000)
 
     monkeypatch.setattr(fr, "launch_geometry", bad)
-    assert fr.free_build(padded) is None and fr.driven_build(padded) is None
+    assert fr.free_build(padded, "rollout") == fr.driven_build(padded, "rollout") == fr.Build("rollout")
     before = dict(fr.LAUNCHES)
     with pytest.raises(RuntimeError, match="rollout_driven_kernel.*refused or failed"):
-        fr.rollout_driven(padded, torch.zeros((2, 16), dtype=torch.int32, device=cuda_dev), 2)
+        fr._driven_kernel(padded, torch.zeros((2, 16), dtype=torch.int32, device=cuda_dev), 2, True, False,
+                          build="rollout")
     with pytest.raises(RuntimeError, match="rollout_free_kernel.*refused or failed"):
-        fr.free_lane_stats(padded, 2, seed=1)
+        fr._free_kernel(padded, 2, 1, None, build="rollout")
     assert fr.LAUNCHES == before

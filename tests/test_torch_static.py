@@ -128,8 +128,10 @@ def test_static_shape_is_computed_once_per_batch(monkeypatch):
     stepped, _ = fr.rollout_driven(state, _port_actions(state, 3, 0), 3)
     assert fr.static_shape(stepped) == (7, 4) and fr._lane_inputs(stepped)[0] is fr._lane_inputs(state)[0]
     assert len(calls) == 1
-    # the private switch of the launchers forces the general build
-    assert fr._variant(state, general=False) == (7, 4) and fr._variant(state, general=True) is None
+    # the launchers' build choice: the static one unless another is asked for
+    assert fr.driven_build(state) == fr.Build("static", (7, 4)) == fr.free_build(state, "static")
+    assert fr.driven_build(state, "rollout") == fr.Build("rollout")
+    assert fr.free_build(state, "slots") == fr.Build("slots", (1, 1))
     # an in-place write to a bound is a new batch
     state.num_jobs[0] -= 1
     assert fr.static_shape(state) is None and len(calls) == 2
@@ -413,16 +415,19 @@ def test_static_driven_kernel_matches_twin_and_general_on_card(cuda_dev, case, e
     for s in (state, tv.strip_solution(state)):
         before = dict(fr.LAUNCHES)
         static = fr._driven_kernel(s, acts, T, fr._solution_mode(s), ends)
-        general = fr._driven_kernel(s, acts, T, fr._solution_mode(s), ends, general=True)
-        assert _delta(before) == {"rollout_driven_static": 1, "rollout_driven": 1}
+        general = fr._driven_kernel(s, acts, T, fr._solution_mode(s), ends, build="rollout")
+        slots = fr._driven_kernel(s, acts, T, fr._solution_mode(s), ends, build="slots")
+        assert _delta(before) == {"rollout_driven_static": 1, "rollout_driven": 1, "rollout_driven_slots": 1}
         torch.cuda.synchronize()
-        assert torch.equal(static[1], ref[1]) and torch.equal(general[1], ref[1])
+        assert torch.equal(static[1], ref[1]) and torch.equal(general[1], ref[1]) and torch.equal(slots[1], ref[1])
         if ends:
             assert torch.equal(static[2], ref[2]) and torch.equal(general[2], ref[2])
+            assert torch.equal(slots[2], ref[2])
         for k in ts.FIELD_NAMES:
             if k != "solution" or s is state:
                 assert torch.equal(getattr(static[0], k), getattr(ref[0], k)), k
                 assert torch.equal(getattr(general[0], k), getattr(static[0], k)), k
+                assert torch.equal(getattr(slots[0], k), getattr(static[0], k)), k
     assert int((ref[2] > 0).sum()) > 0 or case in ("ta71", "33x64")
 
 
@@ -439,12 +444,14 @@ def test_static_free_kernel_matches_twin_and_general_on_card(cuda_dev, case, mod
     key = "rollout_free_i16" if vdt == torch.int16 else "rollout_free"
     before = dict(fr.LAUNCHES)
     static = fr._free_kernel(state, T, 13, bits, vdt, lane_offset=B)
-    general = fr._free_kernel(state, T, 13, bits, vdt, lane_offset=B, general=True)
-    assert _delta(before) == {key + "_static": 1, key: 1}
+    general = fr._free_kernel(state, T, 13, bits, vdt, lane_offset=B, build="rollout")
+    slots = fr._free_kernel(state, T, 13, bits, vdt, lane_offset=B, build="slots")
+    assert _delta(before) == {key + "_static": 1, key: 1, key + "_slots": 1}
     ref = fr.free_lane_stats_reference(state, T, 13, bits, lane_offset=B)
     for f in ref:
         assert torch.equal(static[f], ref[f]), f
         assert torch.equal(general[f], static[f]), f
+        assert torch.equal(slots[f], static[f]), f
     assert int(static["viol"].sum()) == 0
 
 
@@ -462,7 +469,7 @@ def test_padded_batches_keep_the_general_kernel_on_card(cuda_dev, pad):
     final, raw, ends = fr.rollout_driven(state, acts, T, return_ends=True)
     lanes = fr.free_lane_stats(state, T, seed=3)
     key = "rollout_free_i16" if fr.value_dtype(state) == torch.int16 else "rollout_free"
-    assert _delta(before) == {"rollout_driven": 1, key: 1}
+    assert _delta(before) == {"rollout_driven_slots": 1, key + "_slots": 1}
     ref, ref_raw, ref_ends = fr.rollout_driven_reference(state, acts, T, return_ends=True)
     assert torch.equal(raw, ref_raw) and torch.equal(ends, ref_ends)
     for k in ts.FIELD_NAMES:

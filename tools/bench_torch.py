@@ -14,10 +14,12 @@ env-steps/s, B*T over the host-clock seconds from the launch to the stats
 read back on the host (as ``bench.py`` times its runs). ``vs_baseline``
 divides it by the reference env's single-core throughput (BASELINE.md).
 
-Each config runs ``fused_rollout.rollout_free`` (the free kernel of
-``core/csrc/rollout.cu`` on a CUDA state, in the storage dtype
-``value_dtype`` picks, in its static build for the batch's shape where every
-lane is unpadded; its plain twin on a CPU state): a warm-up at the full step
+Each config runs ``fused_rollout.rollout_free`` (on a CUDA state the free
+kernel in the storage dtype ``value_dtype`` picks and the build
+``fused_rollout.free_build`` picks: ``core/csrc/free_static.cu`` for an
+unpadded batch of its shape, as every config here is,
+``core/csrc/general_lane.cu`` for a padded or mixed one; its plain twin on a
+CPU state): a warm-up at the full step
 count (seed 0, which also builds the kernel with nvcc on first use;
 ``cold_build`` says whether it did), then ``--repeats`` runs at seeds 1, 2,
 ..., each from the same freshly reset batch, built before the clock starts.
