@@ -15,13 +15,16 @@ Phases (any failure raises and the script exits non-zero):
    state in registers), with the instrumented static free kernels of
    rollout.cu and free_static.cu (``-DJSS_PASS_CLOCKS``, read in phase 7c),
    every nvcc started together, and print each build's ``-Xptxas -v``
-   report (registers, stack, spills), the launch geometry of each FULL
-   config (``fused_rollout.launch_geometry``: a warp a lane, lanes a block,
-   shared bytes), and the resident warps an SM and waves of the driven
-   static build at each shape, of the free one at each unpadded FULL config
-   and of both slot-class kernels in each class. A batch whose every lane is
-   unpadded launches the static builds of its shape, a padded or mixed one
-   its slot class's, one past 128 jobs or 64 machines rollout.cu's
+   report (registers, stack, spills), the launch geometry of each FULL and
+   WIDE config (``fused_rollout.launch_geometry``: a warp a lane, lanes a
+   block, shared bytes, machine slots), and the resident warps an SM and
+   waves of the driven static build at each shape, of the free one at each
+   unpadded FULL config and of both slot-class kernels in each class. A
+   batch whose every lane is unpadded launches the static builds of its
+   shape, a padded or mixed one its slot class's, one past 128 jobs or 64
+   machines rollout.cu's of its machine-slot class (``fused_rollout.
+   machine_slots``: ceil(M/32) machines a thread, at least two; the classes
+   the run meets, ``WIDE_CLASSES``, are built beside the two-slot one)
    (``fused_rollout.static_shape``, ``driven_build``, ``free_build``);
 3. driven parity: the plain twin (``vector.step_autoreset``'s two calls,
    under ``random_legal_actions``) on the card records actions, raw rewards,
@@ -41,7 +44,13 @@ Phases (any failure raises and the script exits non-zero):
    reward-identity violations. Where a case's values fit int16, both
    instantiations of the free kernel (int32 and int16) are held against the
    same twin; each in every build that takes the batch (static, slot class,
-   rollout.cu), bit-equal lane by lane; a padded case too;
+   rollout.cu), bit-equal lane by lane; a padded case too; then past 64
+   machines (``WIDE_PARITY``: random 20x100, 150x70 and 12x70 instances,
+   rollout.cu's builds of four and three machine slots a thread) from a
+   fresh and a mid-episode start, the driven kernel (full and light, ends,
+   ``hold_driven``) and the free kernel in Philox from a non-zero
+   ``lane_offset`` and in bits mode, int32 and (12x70) int16, each lane by
+   lane against the twin;
 5. the main path at full width, launch counts zeroed just before: a
    policy-in-the-loop rollout (``random_legal_actions`` outside, the env step
    in the driven kernel) on ta01 with B=16384, and the free Philox rollout on
@@ -56,7 +65,13 @@ Phases (any failure raises and the script exits non-zero):
    other builds (``hold_driven``, uncounted); and the instances past the
    register lane's 128 jobs (``LARGE``: random 160x5 and 140x20 instances,
    B=1024, the free rollout in int16 and int32 and a 64-step policy loop),
-   which launch rollout.cu's build, each held against its twin;
+   which launch rollout.cu's build, each held against its twin; and the
+   instances past 64 machines (``WIDE``): a 64-step policy loop on 20x100
+   at B=4096 (every 8th step held), a driven launch on 150x70 (T=128) and
+   on 12x70 (T=1024, across its episode ends, each lane's reward identity
+   held from the kernel's ends), each held against the twin, and the free
+   Philox rollout of each at B=4096, 1024, 1024, T=512, held lane by lane
+   (rollout.cu's builds of four and three machine slots);
 6. the plain twin on the same full-width inputs and seed: lane by lane equal
    to the kernel in every build that takes the batch (every stat and the
    float32 return), and on an
@@ -64,7 +79,9 @@ Phases (any failure raises and the script exits non-zero):
    whole run's; then the kernel in bits mode at full width, in both builds
    lane by lane against the twin on the same bits, its mean makespan within
    1% of the Philox run's; then, on the unpadded int16 batches, the int16
-   kernel against the int32 one lane by lane on the same Philox seed;
+   kernel against the int32 one lane by lane on the same Philox seed; then
+   each WIDE config's lanes [B/2, B) from their lane_offset against the
+   whole run's, and its bits mode against the twin;
 7. kernel times (CUDA events, after warm-up, the card kept busy by a queued
    spin while the host issues each launch, so that the events time the
    kernel and not the launch call, whose host time is kept beside) on each
@@ -80,7 +97,11 @@ Phases (any failure raises and the script exits non-zero):
    too (on the padded policy loop's step, ta01+ta11 B=8192 T=1, in the
    slot-class build and in rollout.cu's); their bound counts the bytes of
    the state's fields each way at their own dtypes, the tables, the
-   actions, rewards and ends;
+   actions, rewards and ends; and rollout.cu's kernels on the LARGE and
+   WIDE configs (the free kernel in ns a lane-step beside big140x20's, the
+   driven kernel at the wide policy loop's step and on each WIDE_DRIVEN
+   batch, the whole call beside it); ``--against`` times the LARGE and WIDE
+   kernels in turns too (a parent that refuses a WIDE shape says so);
 7c. where a step's cycles go in the static free kernel, in both designs
    (rollout.cu's and free_static.cu's), on each unpadded FULL config:
    the instrumented builds' clock64 per pass (the draw, the action's update,
@@ -92,7 +113,9 @@ Phases (any failure raises and the script exits non-zero):
    allocations, the input fields, the launch); the padded policy loop's
    T=1 call under ``torch.profiler``: one device kernel, the slot-class
    build's, and nothing else (rollout.cu's call beside it, its layout
-   copies counted); with ``--profile`` also the device's busy share;
+   copies counted); the wide policy loop's T=1 call likewise (rollout.cu's
+   kernel once, with its layout copies); with ``--profile`` also the
+   device's busy share;
 9. the dispatching-rule sweep: all 7 rules on ragged ta01-ta10, 10240 lanes
    per rule, through ``compare_rules_batched`` on the card, timed per rule.
    Each rule's episodes are also run with every chosen action checked
@@ -186,10 +209,11 @@ build). ``--out`` writes every measured number as JSON. On an H100 the run
 takes about 9 minutes (``--quick`` about 4); ``--against`` adds about 3. The
 last stdout lines are the ``nvidia-smi`` line, one ``{"kernels": [...]}``
 line and ``{"ok": true, "device": {...}}``. The kernels line has each
-kernel in each build (``KERNELS``: rollout.cu's general build, static, slot
-class), its time at the main shape of its kind (rollout.cu's on the same
-unpadded batch as the static build's, the slot-class build's at the padded
-batch of its kind), and its ``launches``: the driven kernel's sum phases 5,
+kernel in each build (``KERNELS``: rollout.cu's general build of two, three
+and four machine slots, static, slot class), its time at the main shape of
+its kind (rollout.cu's two-slot build's on the same unpadded batch as the
+static build's, its wider classes' on the WIDE batches, the slot-class
+build's at the padded batch of its kind), and its ``launches``: the driven kernel's sum phases 5,
 12, 13, 14 (both ranks' too), 15 and 18, the free kernels' phases 5, 14 and
 18, each path counted from zero (phase 18's from its processes' own counts)
 and listed in ``launches_by_path``. Every build must have been launched on
@@ -258,6 +282,21 @@ LARGE = (("big160x5", 1024, 512), ("big140x20", 1024, 512))
 LARGE_SPECS = {"big160x5": (160, 5, (1, 9)), "big140x20": (140, 20, (1, 99))}  # jobs, machines, durations
 LARGE_DTYPE = {"big160x5": "int16", "big140x20": "int32"}
 LARGE_LOOP = ("big140x20", 1024, 64, 16)
+# instances past the 64 machines of rollout.cu's two-slot build, which launch
+# its builds of three and four machine slots a thread (WIDE_CLASSES) on the
+# main path: (config, B, T) of the free rollout (Taillard's durations 1-99
+# store int32; 12x70 with durations 1-9 fits int16), the driven launches'
+# (config, B, T: 12x70's long enough for its random-policy episodes, about
+# 860 steps, to end) and the policy loop's (config, B, steps, steps between
+# holds); WIDE_PARITY / QUICK_WIDE (config, B, T) of phase 4's holds
+WIDE = (("wide20x100", 4096, 512), ("wide150x70", 1024, 512), ("wide12x70", 1024, 512))
+WIDE_SPECS = {"wide20x100": (20, 100, (1, 99)), "wide150x70": (150, 70, (1, 99)), "wide12x70": (12, 70, (1, 9))}
+WIDE_DTYPE = {"wide20x100": "int32", "wide150x70": "int32", "wide12x70": "int16"}
+WIDE_CLASSES = {"wide20x100": 4, "wide150x70": 3, "wide12x70": 3}
+WIDE_DRIVEN = (("wide150x70", 1024, 128), ("wide12x70", 1024, 1024))
+WIDE_LOOP = ("wide20x100", 4096, 64, 8)
+WIDE_PARITY = (("wide20x100", 512, 192), ("wide150x70", 256, 128), ("wide12x70", 256, 512))
+QUICK_WIDE = (("wide20x100", 128, 64), ("wide150x70", 64, 48), ("wide12x70", 128, 450))
 # the static shapes (J, M) the run meets: ta01 and ta01-ta10, ta41-ta50
 # (and ta41, ta42, ta45), ta71, the 6x5 random instance; built in phase 2
 # with the general kernels, every nvcc started together
@@ -344,8 +383,18 @@ KERNELS = {
                            GENERAL_SOURCE),
     "rollout_free_i16_slots": ("free_general_kernel<int16_t> (slot class S,K)",
                                "jssenv_tpu/core/pallas_rollout.py:653", GENERAL_SOURCE),
+    # rollout.cu's builds of more machine slots a thread (past 64 machines)
+    "rollout_driven_m3": ("rollout_driven_kernel (3 machine slots)", "jssenv_tpu/core/pallas_rollout.py:598", SOURCE),
+    "rollout_driven_m4": ("rollout_driven_kernel (4 machine slots)", "jssenv_tpu/core/pallas_rollout.py:598", SOURCE),
+    "rollout_free_m3": ("rollout_free_kernel<int32_t> (3 machine slots)", "jssenv_tpu/core/pallas_rollout.py:653",
+                        SOURCE),
+    "rollout_free_m4": ("rollout_free_kernel<int32_t> (4 machine slots)", "jssenv_tpu/core/pallas_rollout.py:653",
+                        SOURCE),
+    "rollout_free_i16_m3": ("rollout_free_kernel<int16_t> (3 machine slots)", "jssenv_tpu/core/pallas_rollout.py:653",
+                            SOURCE),
 }
-DRIVEN_KEYS = ("rollout_driven", "rollout_driven_static", "rollout_driven_slots")
+DRIVEN_KEYS = ("rollout_driven", "rollout_driven_static", "rollout_driven_slots", "rollout_driven_m3",
+               "rollout_driven_m4")
 # the passes of the instrumented free kernels (-DJSS_PASS_CLOCKS), in the
 # sources' order: the draw, the action's update, fast_forward,
 # prioritization, check_no_op, the episode's bookkeeping and reset
@@ -366,7 +415,7 @@ def driven(counts) -> int:
 def free_key(vdt, build="") -> str:
     """The LAUNCHES key of the free kernel in storage dtype ``vdt`` (a torch
     dtype or its name) in the build of key suffix ``build`` ("", "_static",
-    "_slots")."""
+    "_slots", "_m3", ...)."""
     return ("rollout_free_i16" if "int16" in str(vdt) else "rollout_free") + build
 
 
@@ -488,13 +537,15 @@ def main() -> int:
     t0 = time.perf_counter()
     clock_jobs = [] if args.quick else [(name, sh, CLOCKS) for sh in STATIC_SHAPES
                                         for name in ("rollout", "free_static")]
-    batches = [None, *STATIC_SHAPES, *(fr.Build("slots", c) for c in SLOT_CLASSES)]
+    batches = [None, *STATIC_SHAPES, *(fr.Build("slots", c) for c in SLOT_CLASSES),
+               *(fr.Build("rollout", k) for k in sorted(set(WIDE_CLASSES.values())))]
     jobs = fr.kernel_jobs(batches) + clock_jobs
     _build.build_jobs(jobs)
     fr.build_kernels(batches)
     report["build_s"] = time.perf_counter() - t0
     report["ptxas"] = {job_tag(job): _build.ptxas_report(*job) for job in jobs}
-    log(f"[2] built {SOURCE} (general), {DRIVEN_SOURCE} and {FREE_SOURCE} (static) for {list(STATIC_SHAPES)}, "
+    log(f"[2] built {SOURCE} (general; machine-slot classes 2 and {sorted(set(WIDE_CLASSES.values()))}), "
+        f"{DRIVEN_SOURCE} and {FREE_SOURCE} (static) for {list(STATIC_SHAPES)}, "
         f"{GENERAL_SOURCE} for the slot classes {list(SLOT_CLASSES)}"
         f"{', and the instrumented static free kernels' if clock_jobs else ''}: {len(jobs)} nvcc processes "
         f"started together, {report['build_s']:.1f}s")
@@ -516,7 +567,8 @@ def main() -> int:
     # the launch geometry (fused_rollout.launch_geometry) of each FULL config
     # in its value dtype, and of the driven kernel's main shape
     report["geometry"] = {}
-    for name, vdt in [(n, FULL_DTYPE[n]) for n, _, _ in FULL] + [("ta01", "int32")]:
+    for name, vdt in ([(n, FULL_DTYPE[n]) for n, _, _ in FULL] + [("ta01", "int32")]
+                      + [(n, WIDE_DTYPE[n]) for n, _, _ in WIDE] + [("wide12x70", "int32")]):
         few = make(name, 10)
         geo = fr.launch_geometry(few.jobs_pad, few.machines_pad, getattr(torch, vdt))
         report["geometry"][f"{name} {vdt}"] = geo._asdict()
@@ -795,6 +847,54 @@ def main() -> int:
             f"rollout.cu's build {row}")
     check({r["slots"] for r in report["slot_parity"].values()} | {(1, 1)} == set(SLOT_CLASSES), "a slot class was not run")
 
+    # past 64 machines: rollout.cu's builds of three and four machine slots a
+    # thread (WIDE_CLASSES). From a fresh state and from the twin's state T
+    # random-policy steps later (mid-episode; 12x70's window crosses its
+    # episode ends), the driven kernel on the twin's next T actions, full and
+    # light with ends (hold_driven: input unchanged, mask bytes, the twin),
+    # and the free kernel in Philox from a non-zero lane_offset and in bits
+    # mode, int32 and (12x70) int16, each lane by lane against the twin. A
+    # mid-episode start's first episode misses the rewards before it, so the
+    # identity is held on the fresh starts only.
+    report["wide_parity"] = {}
+    for i, (name, B, T) in enumerate(QUICK_WIDE if args.quick else WIDE_PARITY):
+        state = make(name, B)
+        build = fr.driven_build(state)
+        check(build == fr.free_build(state) == fr.Build("rollout", WIDE_CLASSES[name]), f"{name}: {build}")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 500 + i)
+        acts, s = [], state
+        for t in range(2 * T):
+            if t == T:
+                mid = s
+            acts.append(vector.random_legal_actions(gen, s).to(torch.int32))
+            s, _ = fr.rollout_driven_reference(s, acts[-1][None], 1)
+        acts = torch.stack(acts)
+        row = {"machine_slots": build.shape, "B": B, "T": T, "driven_episodes": 0, "free_episodes": 0}
+        for start, window, tag in ((state, acts[:T], "fresh"), (mid, acts[T:], "mid-episode")):
+            for st in (start, vector.strip_solution(start)):
+                snap = snapshot(st)
+                got = fr.rollout_driven(st, window, T, return_ends=True)
+                hold_driven(fr, st, snap, window, T, got, f"driven {name} {tag} {'full' if st is start else 'light'}")
+            row["driven_episodes"] += int((got[2] > 0).sum())
+            bits = rand_bits(T, B, SEED + 600 + i)
+            for vdt in (torch.int32, torch.int16) if fr.value_dtype(state) == torch.int16 else (torch.int32,):
+                for seed, b, off in ((SEED, None, B + 7), (0, bits, 0)):
+                    key = KEY[vdt] + variant(state)
+                    k = free_kernel(start, T, vdt, seed, b, lane_offset=off)
+                    r = fr.free_lane_stats_reference(start, T, seed, b, off)
+                    mode = "bits" if b is not None else "philox"
+                    same_lanes(k, r, f"free {key} {name} {tag} {mode}: kernel and twin")
+                    kerr[key] = max(kerr[key], float((k["ret"] - r["ret"]).abs().max()))
+                    check(tag != "fresh" or int(k["viol"].sum()) == 0, f"free {key} {name}: identity violations")
+                    row["free_episodes"] += int(k["episodes"].sum())
+        report["wide_parity"][name] = row
+        log(f"[4] rollout.cu past 64 machines, {name} ({build.shape} machine slots): driven (full, light, ends) and "
+            f"free (Philox from lane_offset {B + 7}, bits; {WIDE_DTYPE[name]}) kernels equal to the twin from a fresh "
+            f"and a mid-episode start {row}")
+    check(sum(r["driven_episodes"] for r in report["wide_parity"].values()) > 0
+          and sum(r["free_episodes"] for r in report["wide_parity"].values()) > 0,
+          f"no wide episode ended: {report['wide_parity']}")
+
     if args.quick:
         # the Philox words of the kernel and of the twin, in both instantiations
         state = make("rand6x5", 128)
@@ -887,17 +987,78 @@ def main() -> int:
         if snap is not None:
             hold_driven(fr, s_in, snap, a[None], 1, (s, rew, ends), f"{name} policy loop step {t}")
     report["policy_loop_large"] = {"config": name, "B": B, "T": T, "held": -(-T // every)}
+    plain_wide = {}  # the twins' ms on the main path's LARGE and WIDE inputs
     for name, B, T in LARGE:
         state = make(name, B)
         vdt = getattr(torch, LARGE_DTYPE[name])
         check(fr.value_dtype(state) == vdt and variant(state) == "", f"{name}: {fr.value_dtype(state)}, "
               f"{fr.driven_build(state)}")
         k = fr.free_lane_stats(state, T, seed=SEED)
-        same_lanes(k, fr.free_lane_stats_reference(state, T, seed=SEED), f"free {name}: kernel and twin")
+        plain = Events()
+        with plain:
+            r = fr.free_lane_stats_reference(state, T, seed=SEED)
+        same_lanes(k, r, f"free {name}: kernel and twin")
+        plain_wide[f"free {name}"] = plain.ms()
         red = {key: v.item() for key, v in fr._reduce_stats(k, T, B).items()}
         check(red["identity_violations"] == 0, f"free {name}: {red}")
         report.setdefault("large", {})[name] = dict(red, B=B, T=T, value_dtype=LARGE_DTYPE[name])
         log(f"[5] free philox {name} (rollout.cu's build, {LARGE_DTYPE[name]}): equal to the twin lane by lane, {red}")
+    # past 64 machines (WIDE): rollout.cu's builds of three and four machine
+    # slots a thread. The policy loop on wide20x100 (every WIDE_LOOP[3]-th
+    # step held against the twin), one driven launch on each WIDE_DRIVEN
+    # batch on the twin's random-policy actions (held; the reward identity of
+    # each lane at its episode ends, from the kernel's rewards and ends), and
+    # the free Philox rollout of each WIDE config, held lane by lane
+    name, B, T, every = WIDE_LOOP
+    s = make(name, B)
+    check(variant(s) == f"_m{WIDE_CLASSES[name]}", f"policy loop {name}: {fr.driven_build(s)}")
+    for t in range(T):
+        a = vector.random_legal_actions(gen, s)
+        s_in, snap = s, (snapshot(s) if t % every == 0 else None)
+        s, rew, ends = fr.rollout_driven(s, a[None], 1, return_ends=True)
+        if snap is not None:
+            hold_driven(fr, s_in, snap, a[None], 1, (s, rew, ends), f"{name} policy loop step {t}")
+    report["policy_loop_wide"] = {"config": name, "B": B, "T": T, "held": -(-T // every)}
+    recorded["wide_loop"] = (s_in, a[None].to(torch.int32).contiguous(), int((ends > 0).sum()))
+    for name, B, T in WIDE_DRIVEN:
+        state = make(name, B)
+        check(variant(state) == f"_m{WIDE_CLASSES[name]}", f"driven {name}: {fr.driven_build(state)}")
+        gen_w = torch.Generator(device=dev).manual_seed(SEED + 9)
+        acts, s_p, plain = [], state, Events()
+        for _ in range(T):
+            acts.append(vector.random_legal_actions(gen_w, s_p).to(torch.int32))
+            with plain:
+                s_p, _ = fr.rollout_driven_reference(s_p, acts[-1][None], 1)
+        acts = torch.stack(acts)
+        snap = snapshot(state)
+        fin, rew, ends = fr.rollout_driven(state, acts, T, return_ends=True)
+        hold_driven(fr, state, snap, acts, T, (fin, rew, ends), f"driven {name}")
+        ep_raw = torch.cumsum(rew.to(torch.int64), dim=0)  # no lane ends twice in T
+        done = ends > 0
+        bad = int((done & (ep_raw != 2 * state.sum_op - state.num_machines * ends)).sum())
+        check(bad == 0 and (name != "wide12x70" or int(done.sum()) > 0),
+              f"driven {name}: {int(done.sum())} episode ends, {bad} reward-identity violations")
+        check(int(done.sum(0).max()) <= 1, f"driven {name}: a lane ended twice in {T} steps")
+        plain_wide[f"driven {name}"] = plain.ms() * T
+        recorded[f"wide {name}"] = (state, acts, int(done.sum()))
+        log(f"[5] driven {name} B={B} T={T} ({fr.driven_build(state).shape} machine slots): equal to the twin, "
+            f"{int(done.sum())} episode ends, each lane's reward identity held")
+    for name, B, T in WIDE:
+        state = make(name, B)
+        vdt = getattr(torch, WIDE_DTYPE[name])
+        check(fr.value_dtype(state) == vdt and variant(state) == f"_m{WIDE_CLASSES[name]}",
+              f"{name}: {fr.value_dtype(state)}, {fr.driven_build(state)}")
+        k = fr.free_lane_stats(state, T, seed=SEED)
+        plain = Events()
+        with plain:
+            r = fr.free_lane_stats_reference(state, T, seed=SEED)
+        same_lanes(k, r, f"free {name}: kernel and twin")
+        plain_wide[f"free {name}"] = plain.ms()
+        red = {key: v.item() for key, v in fr._reduce_stats(k, T, B).items()}
+        check(red["identity_violations"] == 0, f"free {name}: {red}")
+        report.setdefault("wide", {})[name] = dict(red, B=B, T=T, value_dtype=WIDE_DTYPE[name])
+        log(f"[5] free philox {name} (rollout.cu's {fr.free_build(state).shape} machine slots, {WIDE_DTYPE[name]}): "
+            f"equal to the twin lane by lane, {red}")
 
     def free_run(name, B, T):
         state = make(name, B)
@@ -929,7 +1090,13 @@ def main() -> int:
         want[free_key(FULL_DTYPE[name], "_slots" if name in PADDED else "_static")] += 1
     for name, _, _ in LARGE:
         want[free_key(LARGE_DTYPE[name])] += 1
-    check(launches == want and all(launches.values()), f"the main path's launches: {launches}, expected {want}")
+    want[f"rollout_driven_m{WIDE_CLASSES[WIDE_LOOP[0]]}"] += WIDE_LOOP[2]
+    for name, _, _ in WIDE_DRIVEN:
+        want[f"rollout_driven_m{WIDE_CLASSES[name]}"] += 1
+    for name, _, _ in WIDE:
+        want[free_key(WIDE_DTYPE[name], f"_m{WIDE_CLASSES[name]}")] += 1
+    check(launches == want and all(launches[k] for k in KERNELS),
+          f"the main path's launches: {launches}, expected {want}")
     I16_FULL = [(name, B, T) for name, B, T in FULL if FULL_DTYPE[name] == "int16" and name not in PADDED]
 
     # ---- 6. plain twin at full width; bits mode at full width --------------
@@ -992,6 +1159,23 @@ def main() -> int:
         free_main[name]["int16_vs_int32_max_abs_err"] = max(diff.values())
         log(f"[6] int16 vs int32 {name} B={B} T={T}: per-lane stats equal "
             f"({int(k16['episodes'].sum())} episodes, 0 identity violations)")
+
+    # the wide configs at full width: lanes [B/2, B) alone with their
+    # lane_offset equal to the whole run's, and bits mode against the twin
+    for name, B, T in WIDE:
+        state = make(name, B)
+        vdt = getattr(torch, WIDE_DTYPE[name])
+        key = KEY[vdt] + free_variant(state)
+        whole = free_kernel(state, T, vdt, seed=SEED)
+        src = instances.stack_instances([source(instances, name)])
+        half = free_kernel(vector.make_lanes(src, torch.arange(B // 2, B), dev), T, vdt, seed=SEED, lane_offset=B // 2)
+        same_lanes(half, {f: v[B // 2:] for f, v in whole.items()}, f"{key} {name}: offset {B // 2}")
+        bits = rand_bits(T, B, SEED + 700)
+        kb = free_kernel(state, T, vdt, bits=bits)
+        same_lanes(kb, fr.free_lane_stats_reference(state, T, bits=bits), f"{key} {name} bits: kernel and twin")
+        check(int(kb["viol"].sum()) == 0, f"{key} {name} bits: identity violations")
+        log(f"[6] {key} {name} B={B} T={T}: lanes [{B // 2}, {B}) from lane_offset {B // 2} equal to the whole run's, "
+            "bits mode equal to the twin lane by lane")
 
     # ---- 7. kernel times and bounds ----------------------------------------
     # each row in turns on one batch (CUDA events; the launch_timer calls in
@@ -1084,6 +1268,52 @@ def main() -> int:
               f"{row['bound_by']}; plain {row['plain_ms']:.0f} ms")
     for key in ("rollout_driven", "rollout_driven_T512", "rollout_driven_padded"):
         log_driven_row(key, timings[key], smi)
+    # rollout.cu past 64 machines, and the LARGE instances beside them: the
+    # free kernel on each config (its build: the batch's machine-slot class)
+    # and ns a lane-step; the driven kernel at the wide policy loop's step
+    # (T=1 with ends, the whole call beside it) and on each WIDE_DRIVEN batch
+    wide_keys = []
+    for name, B, T in LARGE + WIDE:
+        state = make(name, B)
+        vdt = fr.value_dtype(state)
+        row = launch_timer(fr, dev, "rollout_free", state, T, repeats=3, vdt=vdt)
+        slots = fr.launch_geometry(state.jobs_pad, state.machines_pad).machine_slots
+        row.update(shape=f"{name} B={B} T={T}", build=f"rollout {slots} machine slots",
+                   ns_per_lane_step=row["ms"] * 1e6 / (B * T), env_steps_per_s=B * T / (row["ms"] / 1e3),
+                   plain_ms=plain_wide.get(f"free {name}"))
+        wide_keys.append(f"{KEY[vdt]} {name}")
+        timings[wide_keys[-1]] = row
+    base = timings["rollout_free big140x20"]["ns_per_lane_step"]
+    for key in wide_keys:
+        row = timings[key]
+        row["to_big140x20_per_lane_step"] = row["ns_per_lane_step"] / base
+        log(f"[7] {key} ({row['build']}): {row['ms']:.4f} ms, {row['ns_per_lane_step']:.4f} ns a lane-step "
+            f"({row['to_big140x20_per_lane_step']:.3f}x big140x20's), {row['env_steps_per_s']:.4g} env-steps/s; "
+            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}; plain "
+            + (f"{row['plain_ms']:.0f} ms" if row["plain_ms"] else "not timed") + f" ({smi})")
+    state, acts, resets = recorded["wide_loop"]
+    plain = Events()
+    for _ in range(3):
+        with plain:
+            fr.rollout_driven_reference(state, acts, 1, return_ends=True)
+    row = launch_timer(fr, dev, "rollout_driven", state, 1, actions=acts, ends=True, repeats=20)
+    timings["rollout_driven_wide"] = dict(
+        row, resets=resets, plain_ms=plain.ms(), build=f"rollout {WIDE_CLASSES[WIDE_LOOP[0]]} machine slots",
+        shape=f"{WIDE_LOOP[0]} B={WIDE_LOOP[1]} T=1 with ends (step {WIDE_LOOP[2]} of the wide policy loop)",
+        call=call_timer(fr, state, acts, 1, True, repeats=10))
+    for name, B, T in WIDE_DRIVEN:
+        state, acts, resets = recorded[f"wide {name}"]
+        row = launch_timer(fr, dev, "rollout_driven", state, T, actions=acts, ends=True, repeats=3)
+        timings[f"rollout_driven {name}"] = dict(
+            row, resets=resets, plain_ms=plain_wide[f"driven {name}"], shape=f"{name} B={B} T={T} with ends",
+            build=f"rollout {WIDE_CLASSES[name]} machine slots", call=call_timer(fr, state, acts, T, True, repeats=3))
+    for key in ["rollout_driven_wide"] + [f"rollout_driven {n}" for n, _, _ in WIDE_DRIVEN]:
+        r, c = timings[key], timings[key]["call"]
+        log(f"[7] {key} {r['shape']} ({r['build']}): kernel {r['ms']:.4f} ms (host ms of the launch call "
+            f"{r['host_ms']:.4f}); the whole rollout_driven call {c['ms']:.4f} ms on the card, its host call "
+            f"{c['host_ms']:.4f} ms, {c['sync_ms']:.4f} ms on the synchronised host clock ({smi}); bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']} (the call's: {r['call_bound_ms']:.5f} ms); plain "
+            f"{r['plain_ms']:.2f} ms")
     report["timings"] = timings
 
     # ---- 7c. where a step's cycles go: the instrumented static free kernels
@@ -1180,6 +1410,17 @@ def main() -> int:
           f"the padded T=1 call enqueues more than its kernel: {ops['slots']}")
     log(f"[8] padded policy loop, one T=1 rollout_driven call under torch.profiler: device ops {ops['slots']}; "
         f"rollout.cu's call on the same inputs: {sum(ops['rollout'].values())} device ops {ops['rollout']}")
+    # the wide policy loop's T=1 call (rollout.cu's four-slot build): the
+    # kernel and the layout copies of _to_lanes / _from_lanes around it
+    state, acts, _ = recorded["wide_loop"]
+    wide_call = lambda: fr.rollout_driven(state, acts, 1, return_ends=True)  # noqa: E731
+    wide_call()
+    wide_ops = device_ops(wide_call)
+    report["wide_call_device_ops"] = wide_ops
+    check(sum(n for k, n in wide_ops.items() if "rollout_driven_kernel" in k) == 1,
+          f"the wide T=1 call did not launch rollout_driven_kernel once: {wide_ops}")
+    log(f"[8] wide policy loop ({WIDE_LOOP[0]} B={WIDE_LOOP[1]}), one T=1 rollout_driven call under torch.profiler: "
+        f"{sum(wide_ops.values())} device ops {wide_ops}")
 
     # ---- 9-11. rules, replay, wrappers -------------------------------------
     fr.reset_launch_counts()
@@ -1239,11 +1480,17 @@ def main() -> int:
                  "rollout_free_i16": timings["rollout_free_i16 ta01"],
                  "rollout_driven_slots": timings["rollout_driven_padded"],
                  "rollout_free_slots": timings["rollout_free ta01+ta41"],
-                 "rollout_free_i16_slots": timings["rollout_free_i16 ta01+ta11"]}
+                 "rollout_free_i16_slots": timings["rollout_free_i16 ta01+ta11"],
+                 "rollout_driven_m3": timings["rollout_driven wide12x70"],
+                 "rollout_driven_m4": timings["rollout_driven_wide"],
+                 "rollout_free_m3": timings["rollout_free wide150x70"],
+                 "rollout_free_m4": timings["rollout_free wide20x100"],
+                 "rollout_free_i16_m3": timings["rollout_free_i16 wide12x70"]}
     kernels = []
     for n in KERNELS:
         row = main_rows.get(n, main_rows[n.removesuffix("_static")])
-        general = not n.endswith(("_static", "_slots"))  # rollout.cu's build
+        # rollout.cu's two-slot build, timed on the static build's batch
+        general = n in ("rollout_driven", "rollout_free", "rollout_free_i16")
         kernels.append({
             "name": KERNELS[n][0], "route": "cuda", "source": KERNELS[n][2], "replaces": KERNELS[n][1],
             "launches": total[n], "max_abs_err": kerr[n], "ms": row["general_ms"] if general else row["ms"],
@@ -1343,9 +1590,15 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
         # the bytes of the EnvState fields the call must read and write, at
         # their own dtypes (a full state's solution included), the tables, the
         # actions, the rewards and, where asked for, the ends: the same work
-        # for every design of the kernel
+        # for every design of the kernel that writes a new state. rollout.cu's
+        # kernel updates the lane buffer in place: its own bound counts the
+        # light rows each way and leaves out the solution rows, of which a
+        # step writes at most one word a lane (``call_bound_ms`` keeps the
+        # fields' bound, which the whole call's copies must meet)
         fields = sum(t.numel() * t.element_size() for t in state.dynamic_fields().values())
-        nbytes = 2 * fields + 4 * tab.numel() + (3 if ends else 2) * 4 * T * B
+        steps = 4 * tab.numel() + (3 if ends else 2) * 4 * T * B
+        call_bytes = 2 * fields + steps
+        nbytes = call_bytes if buf is None else 2 * 4 * (4 + 10 * J + 2 * M) * B + steps
         ops_per = 4 * J + 2 * M
     else:
         # the light state rows in the storage dtype, read once; the tables,
@@ -1355,8 +1608,11 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
         ops_per = 5 * J + 2 * M + (0 if bits is not None else 100)
     nops = T * B * ops_per
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
-    return {"ms": total / repeats, "host_ms": host / repeats * 1e3, "bytes": nbytes, "int_ops": nops,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    out = {"ms": total / repeats, "host_ms": host / repeats * 1e3, "bytes": nbytes, "int_ops": nops,
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if kernel == "rollout_driven":
+        out["call_bound_ms"] = max(call_bytes / HBM_BYTES_PER_S * 1e3, t_ops)
+    return out
 
 
 def call_timer(fr, state, actions, T, ends=False, repeats=5, build=None):
@@ -1443,6 +1699,9 @@ def source(instances, name):
     if name in LARGE_SPECS:
         J, M, durations = LARGE_SPECS[name]
         return instances.random_instance(J, M, durations, seed=J)
+    if name in WIDE_SPECS:
+        J, M, durations = WIDE_SPECS[name]
+        return instances.random_instance(J, M, durations, seed=J + M)
     if name.startswith("mix"):  # random shapes (durations 1-9) padded to the largest
         shapes = [tuple(map(int, s.split("x"))) for s in name[3:].split("+")]
         return instances.stack_instances([instances.random_instance(j, m, (1, 9), seed=20 + i)
@@ -1470,7 +1729,13 @@ def time_kernels_of(root: str, out: str) -> int:
     static host", "... slots host"). At each driven shape also the whole
     ``rollout_driven`` call in the build the batch takes (``call_timer``):
     "<key> call" (device ms of all it enqueues), "<key> call host" (the
-    call's host ms) and "<key> call sync" (the synchronised host clock)."""
+    call's host ms) and "<key> call sync" (the synchronised host clock).
+    Then rollout.cu's kernels past 128 jobs or 64 machines: the free kernel
+    on each LARGE and WIDE config ("rollout_free <config>") and the driven
+    kernel at T=1 with ends on LARGE_LOOP's and WIDE_LOOP's batch after one
+    random-policy step ("rollout_driven <config>"); where the checkout's
+    ``launch_geometry`` refuses the shape (a parent without its machine-slot
+    class), the key holds "refused: <its message>" instead of a time."""
     root_path = Path(root).resolve()
     sys.path.insert(0, str(root_path))
     import torch
@@ -1486,6 +1751,8 @@ def time_kernels_of(root: str, out: str) -> int:
     two_builds = hasattr(fr, "static_shape")
     three = hasattr(fr, "Build")  # the slot-class build
     batches = [None, *STATIC_SHAPES] + ([fr.Build("slots", (1, 1))] if three else [])
+    if hasattr(fr, "rollout_build"):  # rollout.cu's machine-slot classes
+        batches += [fr.Build("rollout", k) for k in sorted(set(WIDE_CLASSES.values()))]
     t0 = time.perf_counter()
     if two_builds:
         fr.build_kernels(batches)
@@ -1545,6 +1812,26 @@ def time_kernels_of(root: str, out: str) -> int:
         state = vector.make_batch(source(instances, name), B, device=dev)
         vdt = fr.value_dtype(state)
         timed(f"rollout_free {name}", "rollout_free", state, T, repeats=2, vdt=vdt)
+    this = root_path == Path(__file__).resolve().parent
+    for kernel, cases in (("rollout_free", LARGE + WIDE), ("rollout_driven", (LARGE_LOOP[:3], WIDE_LOOP[:3]))):
+        for name, B, T in cases:
+            state = vector.make_batch(source(instances, name), B, device=dev)
+            vdt = fr.value_dtype(state) if kernel == "rollout_free" else torch.int32
+            try:
+                fr.launch_geometry(state.jobs_pad, state.machines_pad, vdt)
+            except ValueError as e:  # only another checkout may refuse it
+                check(not this, f"{name}: {e}")
+                res[f"{kernel} {name}"] = f"refused: {e}"
+                continue
+            if kernel == "rollout_free":
+                res[f"{kernel} {name}"] = launch_timer(fr, dev, kernel, state, T, repeats=2, vdt=vdt)["ms"]
+            else:
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                stats = vector.RolloutStats.zero(dev)
+                state, _, stats = vector.step_autoreset(state, vector.random_legal_actions(gen, state), stats)
+                acts = vector.random_legal_actions(gen, state)[None].to(torch.int32).contiguous()
+                res[f"{kernel} {name}"] = launch_timer(fr, dev, kernel, state, 1, actions=acts, ends=True,
+                                                       repeats=20)["ms"]
     Path(out).write_text(json.dumps(res))
     return 0
 
@@ -1563,7 +1850,8 @@ def turns_against(root: str, smi: str) -> dict:
                        check=True, timeout=900)
         turns.append((tag, json.loads(out.read_text())))
         log(f"[7b] turn {i} ({tag}, {r}): " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in turns[-1][1].items() if k.startswith("rollout")))
+            f"{k} {v:.4f} ms" if isinstance(v, float) else f"{k} {v}"
+            for k, v in turns[-1][1].items() if k.startswith("rollout")))
     # the change's keys, each against the parent's same key; a " static" or
     # " slots" kernel time the parent lacks against the parent's build of
     # that batch (rollout.cu's general build)
@@ -1578,6 +1866,10 @@ def turns_against(root: str, smi: str) -> dict:
     for k in keys:
         p = [t[parent_key(k, t)] for tag, t in turns if tag == "parent"]
         c = [t[k] for tag, t in turns if tag == "change"]
+        if isinstance(p[0], str):  # a shape the parent refuses: no time to compare
+            rows[k] = {"parent": p[0], "change_ms": c}
+            log(f"[7b] {k}: parent {p[0]}; change {c[0]:.4f}, {c[1]:.4f} ms ({smi})")
+            continue
         rows[k] = {"parent_ms": p, "change_ms": c, "ratio": (sum(c) / 2) / (sum(p) / 2)}
         log(f"[7b] {k}: parent {p[0]:.4f}, {p[1]:.4f} ms; change {c[0]:.4f}, {c[1]:.4f} ms; "
             f"change/parent {rows[k]['ratio']:.4f} ({smi})")
@@ -1849,7 +2141,7 @@ def serving_phase(report: dict, dev, quick: bool) -> dict:
     from jssenv_tpu_torch.parallel import learner
 
     runs = SERVING_QUICK if quick else SERVING
-    rows, launches = [], dict.fromkeys(KERNELS, 0)
+    rows, launches = [], dict.fromkeys(fr.LAUNCHES, 0)
     for name, spec_name, dtype, lanes, want in runs:
         arch, hidden, features = CHECKPOINT_CONFIG[name]
         cfg = learner.LearnerConfig(arch=arch, hidden=hidden, features=features,
@@ -1912,7 +2204,7 @@ def training_phase(report: dict, dev, quick: bool, profile: bool):
     from jssenv_tpu_torch.core import fused_rollout as fr
     from jssenv_tpu_torch.parallel import learner
 
-    out, launches = {}, dict.fromkeys(KERNELS, 0)
+    out, launches = {}, dict.fromkeys(fr.LAUNCHES, 0)
     last_call = {}
     runs = TRAIN_QUICK if quick else TRAIN
     for tag, spec_name, B, updates, extra in runs:
@@ -2196,7 +2488,7 @@ def parallel_phase(report: dict, dev, quick: bool):
     fr.reset_launch_counts()
     nccl = learner_run(dev, cfg, B, updates, mesh, snaps=(ru, updates))
     launches = dict(fr.LAUNCHES)
-    check(launches == dict.fromkeys(KERNELS, 0) | {"rollout_driven_static": updates * T},
+    check(launches == dict.fromkeys(fr.LAUNCHES, 0) | {"rollout_driven_static": updates * T},
           f"1-rank NCCL learner launches {launches}")
     for k, v in launches.items():
         path[k] += v
@@ -2758,7 +3050,8 @@ def tools_phase(report: dict, dev, quick: bool, smi: str) -> dict:
         key = free_key(FULL_DTYPE[cfg], "_static")  # every configuration of the bench is unpadded
         check(r["engine"] == "cuda" and r["backend"] == "cuda" and r["value_dtype"] == FULL_DTYPE[cfg],
               f"bench {cfg}: engine {r['engine']}, backend {r['backend']}, dtype {r['value_dtype']}")
-        check(r["launches"] == {k: (n if k == key else 0) for k in KERNELS}, f"bench {cfg}: launches {r['launches']}")
+        check(r["launches"] == {k: (n if k == key else 0) for k in r["launches"]} and key in r["launches"],
+              f"bench {cfg}: launches {r['launches']}")
         # at --quick's 512 steps no ta71 episode (2000 operations) ends
         check(all(run["identity_violations"] == 0 and (run["episodes"] > 0 or quick) for run in r["runs"]),
               f"bench {cfg}: runs {r['runs']}")

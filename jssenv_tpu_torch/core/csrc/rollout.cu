@@ -16,7 +16,12 @@
 // for field; the plain twins in core/fused_rollout.py hold the kernels to them.
 //
 // Design. One env lane is run by one warp. Lane r of the warp owns jobs
-// j = r, r + 32, ... and machines m = r, r + 32 (at most two: M <= JSS_MAX_M).
+// j = r, r + 32, ... and machines m = r, r + 32, ..., JSS_MACHINE_SLOTS of
+// them: a library is built for one machine-slot class, ceil(M/32) slots a
+// thread (nvcc -DJSS_MACHINE_SLOTS=K, K from 3 to JSS_MAX_MACHINE_SLOTS =
+// 32, so M <= 1024; the default build's two slots take M <= 64). The count is
+// a compile-time constant: the machine passes unroll over it and check_no_op's
+// per-slot horizons stay in registers.
 // Ownership is strided, so a ballot over one slot of jobs is in job-index
 // order and the warp's accesses to a state row hit consecutive banks. The TPU
 // kernel kept J in its vector registers and reduced over it; here every pass
@@ -29,7 +34,9 @@
 // data-dependent branches and run in turn, and partial masks cost every sync
 // and reduction a convergence check.
 //
-// The state lives in shared memory for the whole launch. A block of `lanes`
+// The state lives in shared memory for the whole launch (a lane's 4 + 10J +
+// 2M state rows and 2M scratch words within a block's 227 KB: the launch
+// checks it). A block of `lanes`
 // lanes copies its (R, lanes) slice of the batch-last (R, B) buffer
 // (fused_rollout._to_lanes; rows in Layout's order) into shared memory,
 // coalesced along the lane axis and stored lane-major, each lane's rows
@@ -55,15 +62,18 @@
 // thread, 14382 cycles, check_no_op 52% and fast_forward 28%. The kernels
 // are held to 48 registers a thread (JSS_MIN_BLOCKS, 40 warps an SM), which
 // shared memory allows (a lane's state and scratch: 0.5 KB at ta01 in
-// int16, 4.4 KB at ta71).
+// int16, 4.4 KB at ta71). The classes of three and four machine slots keep
+// that cap and spill 28-40 bytes a thread (-Xptxas -v), against 0-20 at two;
+// their wide lanes (7.3 KB at 150x70) fit three blocks an SM at most.
 //
 // Two builds of this one source, as the JAX package compiles each kernel in
 // two variants (pallas_rollout.py _static_lane, :1018, passed as static_lane
 // to _driven_kernel / _free_kernel). The general build (both kernels) reads
 // the padded shape (J, M) from the launch and each lane's own (nj, nm) from
-// its lane constants, so padded and mixed-shape batches run: every batch that
-// the static builds of driven_static.cu and free_static.cu (a lane's state in
-// registers) do not take. The static build (-DJSS_STATIC_J=J -DJSS_STATIC_M=M,
+// its lane constants, so padded and mixed-shape batches run: every batch past
+// the register lane's 128 jobs or 64 machines (driven_static.cu,
+// free_static.cu and general_lane.cu take the others), one library per
+// machine-slot class. The static build (-DJSS_STATIC_J=J -DJSS_STATIC_M=M,
 // core/_build.py), in which J, M, nj, nm, every row offset, the strides and
 // the slot counts are compile-time constants and the reset is the counterpart
 // of _fresh_static (:503), is built only with -DJSS_PASS_CLOCKS: the
@@ -74,11 +84,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define JSS_MAX_M 64
 #define JSS_I32_MAX 2147483647
 #define JSS_WARP 32
 #define JSS_FULL 0xffffffffu
-#define JSS_MACHINE_SLOTS 2  // machines per thread in the general build: M <= 64
+// machines a thread in the general build (fused_rollout.machine_slots): M <= 32 K
+#ifndef JSS_MACHINE_SLOTS
+#define JSS_MACHINE_SLOTS 2
+#endif
+#define JSS_MAX_MACHINE_SLOTS 32  // fast_forward keeps a bit a slot in 32 bits
+#define JSS_MAX_M (JSS_WARP * JSS_MACHINE_SLOTS)
+#define JSS_MAX_SHARED 232448  // a block's shared bytes on Hopper (fused_rollout._SMEM_LIMIT)
 #define JSS_MAX_THREADS 256  // a block's threads (fused_rollout._BLOCK_THREADS)
 #define JSS_MIN_BLOCKS 5     // blocks an SM (40 warps): at most 48 registers a thread
 
@@ -90,6 +105,7 @@
 #define JSS_STATIC_M 0
 #endif
 static_assert((JSS_STATIC_J > 0) == (JSS_STATIC_M > 0), "a static build fixes both J and M");
+static_assert(JSS_MACHINE_SLOTS >= 2 && JSS_MACHINE_SLOTS <= JSS_MAX_MACHINE_SLOTS, "bad machine-slot class");
 static_assert(JSS_STATIC_J >= 0 && JSS_STATIC_M >= 0 && JSS_STATIC_M <= JSS_MAX_M, "bad static shape");
 #if JSS_STATIC_J > 0 && !defined(JSS_PASS_CLOCKS)
 #error "a static build of rollout.cu is the instrumented free kernel only (-DJSS_PASS_CLOCKS)"
@@ -265,7 +281,7 @@ __device__ int fast_forward(Grp& g) {
   const int M = g.M, nm = g.nm, mbf = g.L.mbf();
   const int t0 = g.at(g.L.time());
   int busy_min = JSS_I32_MAX, busy_max = -JSS_I32_MAX - 1;
-  int ml_entry = 0;  // bit k: machine_legal of machine slot k on entry
+  unsigned ml_entry = 0;  // bit k: machine_legal of machine slot k on entry
 #pragma unroll
   for (int k = 0; k < Grp::kMachineSlots; ++k) {
     const int m = g.machine(k);
@@ -273,7 +289,7 @@ __device__ int fast_forward(Grp& g) {
     const int v = g.row(mbf, m);
     if (v > 0) busy_min = min(busy_min, v);
     busy_max = max(busy_max, v);
-    if (g.row(g.L.ml(), m)) ml_entry |= 1 << k;
+    if (g.row(g.L.ml(), m)) ml_entry |= 1u << k;
   }
   // no machine is busy iff the least busy time is I32_MAX (a duration of
   // I32_MAX would overflow the clock first)
@@ -356,7 +372,7 @@ __device__ int fast_forward(Grp& g) {
     const int v = g.row(mbf, m);
     if (m < nm) holes += span - min(v, span);
     g.row(mbf, m) = max(0, v - span);
-    if (!((ml_entry >> k) & 1) && g.row(g.L.ml(), m)) ++new_ml;
+    if (!((ml_entry >> k) & 1u) && g.row(g.L.ml(), m)) ++new_ml;
   }
   holes = g.sum(holes);
   d_legal = g.sum(d_legal);
@@ -854,7 +870,7 @@ template <typename V, typename K>
 static int launch_check(K kernel, int J, int M, int lanes, int stride, int scr_stride, int smem) {
   const int R = 4 + 10 * J + 2 * M, item = (int)sizeof(V);
   if (lanes < 1 || lanes * JSS_WARP > JSS_MAX_THREADS || M > JSS_MAX_M || stride < R ||
-      (stride * item) % 4 || scr_stride < 2 * M ||
+      (stride * item) % 4 || scr_stride < 2 * M || smem > JSS_MAX_SHARED ||
       (long long)lanes * ((long long)stride * item + 4LL * scr_stride) > smem)
     return (int)cudaErrorInvalidValue;
   using S = StaticStrides<V, JSS_STATIC_J, JSS_STATIC_M>;
@@ -892,6 +908,8 @@ extern "C" {
 // checks it against the batch it launches.
 int jss_static_j(void) { return JSS_STATIC_J; }
 int jss_static_m(void) { return JSS_STATIC_M; }
+// The machine-slot class: the wrapper checks it against the batch's.
+int jss_machine_slots(void) { return JSS_MACHINE_SLOTS; }
 
 #if JSS_STATIC_J == 0
 // Each returns 0 when the kernel launched, else the CUDA error (a geometry

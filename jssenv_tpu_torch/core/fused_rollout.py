@@ -36,8 +36,10 @@ batch takes, or check the one a caller asks for), all compiled at first use:
   thread, at most 4 and 2), with the padded shape and each lane's own read at
   run time: the counterpart of the JAX kernels with ``static_lane=None``.
 * ``"rollout"``: a batch past those limits launches the general build of
-  ``csrc/rollout.cu`` (a lane's state in shared memory); the tests and the
-  smoke also run it on any batch as a comparator.
+  ``csrc/rollout.cu`` (a lane's state in shared memory) for its machine-slot
+  class (``machine_slots``: ceil(M/32) machines a thread, at least 2, at most
+  ``ROLLOUT_MAX_SLOTS``; one library a class); the tests and the smoke also
+  run it on any batch as a comparator.
 
 The static and slot-class builds share their lane (``csrc/static_lane.cuh``:
 a lane's state in registers, its boolean rows as warp-wide bitmasks) and
@@ -66,8 +68,8 @@ The static tables go to one
 (n_inst, 4, J, M) int32 stack of the batch's distinct instances with a
 per-lane instance index, so ragged batches need no lane grouping; the stack
 is built once per batch and cached (``_lane_inputs``). ``launch_geometry``
-sizes the launch of ``csrc/rollout.cu``: a warp per lane, each block's lanes
-with their state in shared memory; ``static_geometry`` that of the static
+sizes the launch of ``csrc/rollout.cu`` and names its machine-slot class: a
+warp per lane, each block's lanes with their state in shared memory; ``static_geometry`` that of the static
 and slot-class builds: a warp per lane, ``STATIC_LANES`` lanes a block, the
 state in registers.
 """
@@ -76,7 +78,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -90,7 +92,9 @@ _I32 = torch.int32
 # "rollout_free_i16" counts the free kernel's int16 instantiation; a
 # "_static" key the static build of that kernel (any shape: csrc/driven_static.cu
 # and csrc/free_static.cu), a "_slots" key its slot-class build (any slot
-# class: csrc/general_lane.cu), the others csrc/rollout.cu's general build.
+# class: csrc/general_lane.cu), the others csrc/rollout.cu's general build: a
+# "_m<K>" key its build of K > 2 machine slots a thread, added when that
+# library is loaded, no suffix its two-slot build (at most 64 machines).
 LAUNCHES: Dict[str, int] = {
     "rollout_driven": 0, "rollout_driven_static": 0, "rollout_driven_slots": 0,
     "rollout_free": 0, "rollout_free_static": 0, "rollout_free_slots": 0,
@@ -278,8 +282,10 @@ def _lane_inputs_uncached(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
 # rows and 2M int32 scratch words in shared memory.
 _WARP = 32  # threads a lane (JSS_WARP in the source)
 _BLOCK_THREADS = 256  # a block's threads at most (JSS_MAX_THREADS in the source)
-_SMEM_LIMIT = 232448  # shared bytes a block can have on Hopper (227 KB)
-_MAX_M = 64  # JSS_MAX_M: at most two machines a thread
+_SMEM_LIMIT = 232448  # shared bytes a block can have on Hopper (227 KB; JSS_MAX_SHARED)
+_MACHINE_SLOTS = 2  # machines a thread in the default build (JSS_MACHINE_SLOTS): M <= 64
+ROLLOUT_MAX_SLOTS = 32  # JSS_MAX_MACHINE_SLOTS: the classes reach M <= 1024
+ROLLOUT_MAX_M = _WARP * ROLLOUT_MAX_SLOTS
 
 
 class Geometry(NamedTuple):
@@ -289,6 +295,7 @@ class Geometry(NamedTuple):
     state_stride: int  # a lane's state slice, in elements of the storage dtype
     scratch_stride: int  # a lane's scratch slice, in int32 words
     shared_bytes: int  # dynamic shared memory of a block
+    machine_slots: int  # machines a thread: the library's class (machine_slots)
 
 
 def _bank_pad(words: int) -> int:
@@ -297,14 +304,30 @@ def _bank_pad(words: int) -> int:
     return words + (1 - words) % 32
 
 
+def machine_slots(M: int) -> int:
+    """The machine-slot class of ``csrc/rollout.cu``'s general build for M
+    (padded) machines: ceil(M/32) machines a thread, at least the default
+    build's two. Past ``ROLLOUT_MAX_SLOTS`` no library is built for it:
+    ``launch_geometry`` refuses the batch."""
+    return max(_MACHINE_SLOTS, -(-M // _WARP))
+
+
+def rollout_defines(slots: int) -> Tuple[str, ...]:
+    """The nvcc defines of ``csrc/rollout.cu``'s build of a machine-slot
+    class: none for the default two slots, which keeps its library."""
+    return () if slots == _MACHINE_SLOTS else (f"JSS_MACHINE_SLOTS={slots}",)
+
+
 def launch_geometry(J: int, M: int, vdt: torch.dtype = _I32) -> Geometry:
     """The kernels' launch geometry for a (J, M) batch whose state is stored
     in ``vdt``. A lane runs on one warp: thread r owns jobs r, r + 32, ...
-    and machines r, r + 32. Lanes per block: as many as fit
-    ``_BLOCK_THREADS`` threads and the shared-memory limit. Raises
-    ``ValueError`` where one lane cannot fit."""
-    if M > _MAX_M:
-        raise ValueError(f"the CUDA kernel handles at most {_MAX_M} machines, got {M}")
+    and machines r, r + 32, ... (``machine_slots(M)`` of them). Lanes per
+    block: as many as fit ``_BLOCK_THREADS`` threads and the shared-memory
+    limit. Raises ``ValueError``, naming J and M, past ``ROLLOUT_MAX_M``
+    machines or where one lane cannot fit: before anything is built."""
+    if M > ROLLOUT_MAX_M:
+        raise ValueError(f"the CUDA kernel handles at most {ROLLOUT_MAX_M} machines "
+                         f"({ROLLOUT_MAX_SLOTS} a thread); got J={J} jobs and M={M} machines")
     item = 2 if vdt == torch.int16 else 4
     rows = 4 + 10 * J + 2 * M
     state_words = _bank_pad(-(-rows * item // 4))
@@ -316,7 +339,8 @@ def launch_geometry(J: int, M: int, vdt: torch.dtype = _I32) -> Geometry:
             f"memory; a block has at most {_SMEM_LIMIT}"
         )
     lanes = min(_BLOCK_THREADS // _WARP, _SMEM_LIMIT // lane_bytes)
-    return Geometry(_WARP, lanes, lanes * _WARP, state_words * 4 // item, scratch, lanes * lane_bytes)
+    return Geometry(_WARP, lanes, lanes * _WARP, state_words * 4 // item, scratch, lanes * lane_bytes,
+                    machine_slots(M))
 
 
 # The static and slot-class builds (csrc/driven_static.cu,
@@ -362,11 +386,12 @@ def slot_defines(slots: Tuple[int, int]) -> Tuple[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built general ``csrc/rollout.cu`` (both kernels) with its C
-    signatures declared, built at its first use (a failed build raises with
-    the compiler's output)."""
-    lib = _build.load("rollout")
+def _lib(slots: int = _MACHINE_SLOTS) -> ctypes.CDLL:
+    """The built general ``csrc/rollout.cu`` (both kernels) of the
+    machine-slot class ``slots`` with its C signatures declared, built at its
+    first use (a failed build raises with the compiler's output). Loading a
+    class past two slots adds its ``LAUNCHES`` keys."""
+    lib = _build.load("rollout", None, rollout_defines(slots))
     P, I = ctypes.c_void_p, ctypes.c_int
     geometry = [I, I, I, I]  # lanes, state stride, scratch stride, shared bytes
     lib.jss_rollout_driven.argtypes = [P, P, P, P, P, P, I, I, I, I, I, *geometry, P]
@@ -375,6 +400,9 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, *geometry, P]
         fn.restype = I
     _check_built(lib, "rollout", None)
+    _check_built(lib, "rollout", (slots,), dims=("jss_machine_slots",))
+    for kernel in ("rollout_driven", "rollout_free", "rollout_free_i16"):
+        LAUNCHES.setdefault(kernel + _rollout_key(slots), 0)
     return lib
 
 
@@ -438,10 +466,12 @@ class Build(NamedTuple):
     """A build of the rollout kernels: ``kind`` ``"static"`` (``shape`` the
     unpadded (J, M): ``csrc/driven_static.cu``, ``csrc/free_static.cu``),
     ``"slots"`` (``shape`` the slot class (S, K): ``csrc/general_lane.cu``)
-    or ``"rollout"`` (``shape`` None: ``csrc/rollout.cu``'s general build)."""
+    or ``"rollout"`` (``csrc/rollout.cu``'s general build; ``shape`` None for
+    its default two machine slots, at most 64 machines, else the
+    machine-slot class K > 2, an int)."""
 
     kind: str
-    shape: Optional[Tuple[int, int]] = None
+    shape: Optional[Union[Tuple[int, int], int]] = None
 
 
 BUILDS = ("static", "slots", "rollout")
@@ -450,8 +480,8 @@ BUILDS = ("static", "slots", "rollout")
 def _choose(state: EnvState, kind: Optional[str]) -> Build:
     """The build of ``kind`` for ``state``, or (``kind`` None) the one the
     batch takes: static where ``static_fits``, else its slot class where it
-    has one, else ``rollout.cu``'s. Raises ``ValueError`` where the asked
-    build cannot take the batch."""
+    has one, else ``rollout.cu``'s of its machine-slot class. Raises
+    ``ValueError`` where the asked build cannot take the batch."""
     if kind not in (None, *BUILDS):
         raise ValueError(f"unknown build {kind!r}; one of {BUILDS}")
     shape = static_shape(state)
@@ -468,7 +498,14 @@ def _choose(state: EnvState, kind: Optional[str]) -> Build:
             raise ValueError(f"the slot-class build takes at most {STATIC_MAX_J} jobs and {STATIC_MAX_M} machines, "
                              f"padded; got ({state.jobs_pad}, {state.machines_pad})")
         return Build("slots", slots)
-    return Build("rollout")
+    return rollout_build(state.machines_pad)
+
+
+def rollout_build(M: int) -> Build:
+    """``csrc/rollout.cu``'s build for M (padded) machines: its machine-slot
+    class."""
+    k = machine_slots(M)
+    return Build("rollout", None if k == _MACHINE_SLOTS else k)
 
 
 def driven_build(state: EnvState, kind: Optional[str] = None) -> Build:
@@ -491,18 +528,23 @@ def build_job(kernel: str, build: Build) -> tuple:
         return f"{kernel}_static", tuple(build.shape)
     if build.kind == "slots":
         return "general_lane", None, slot_defines(build.shape)
-    return "rollout", None
+    if build.shape is None:
+        return "rollout", None
+    return "rollout", None, rollout_defines(build.shape)
 
 
 def kernel_jobs(shapes=(None,)):
     """The ``_build`` jobs that launches on the given batches need. Each
-    entry is ``None`` (``rollout.cu``'s build), an unpadded shape (J, M) (both
-    static builds where they take it, else ``rollout.cu``'s) or a ``Build``
-    (a padded batch's: ``driven_build(state)``)."""
+    entry is ``None`` (``rollout.cu``'s two-slot build), an unpadded shape
+    (J, M) (both static builds where they take it, else ``rollout.cu``'s of
+    its machine-slot class) or a ``Build`` (a padded batch's:
+    ``driven_build(state)``)."""
     jobs = []
     for s in shapes:
-        if not isinstance(s, Build):
-            s = Build("rollout") if s is None or not static_fits(tuple(s)) else Build("static", tuple(s))
+        if s is None:
+            s = Build("rollout")
+        elif not isinstance(s, Build):
+            s = Build("static", tuple(s)) if static_fits(tuple(s)) else rollout_build(s[1])
         jobs += [build_job("driven", s), build_job("free", s)]
     return list(dict.fromkeys(jobs))
 
@@ -514,7 +556,7 @@ def build_kernels(shapes=(None,)) -> None:
     _build.build_jobs(jobs)
     for name, s, *defines in jobs:
         if name == "rollout":
-            _lib()
+            _lib(int(defines[0][0].split("=")[1]) if defines else _MACHINE_SLOTS)
         elif name == "free_static":
             _free_lib(s)
         elif name == "driven_static":
@@ -531,13 +573,20 @@ def free_kernel_job(state: EnvState) -> tuple:
 def _tag(build: Build) -> str:
     """The build's suffix in a kernel's name."""
     if build.kind == "rollout":
-        return ""
+        return "" if build.shape is None else f"<{build.shape} machine slots>"
     return f"<{build.kind} {build.shape[0]}x{build.shape[1]}>"
+
+
+def _rollout_key(slots: int) -> str:
+    """The ``LAUNCHES`` suffix of ``rollout.cu``'s machine-slot class."""
+    return "" if slots == _MACHINE_SLOTS else f"_m{slots}"
 
 
 def _key(build: Build) -> str:
     """The build's suffix in its ``LAUNCHES`` key."""
-    return "" if build.kind == "rollout" else "_" + build.kind
+    if build.kind == "rollout":
+        return _rollout_key(build.shape or _MACHINE_SLOTS)
+    return "_" + build.kind
 
 
 def _geometry_args(geo: Geometry):
@@ -572,16 +621,17 @@ def launch_driven(
     T, B = actions.shape
     if rewards.shape != (T, B) or (ends is not None and ends.shape != (T, B)):
         raise ValueError(f"rewards and ends must be (T, B)=({T}, {B})")
-    geo = launch_geometry(state.jobs_pad, state.machines_pad)
+    geo = launch_geometry(state.jobs_pad, state.machines_pad)  # refuses what cannot fit, before a build
+    b = rollout_build(state.machines_pad)
     with torch.cuda.device(state.device):
-        err = _lib().jss_rollout_driven(
+        err = _lib(geo.machine_slots).jss_rollout_driven(
             buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), actions.data_ptr(),
             rewards.data_ptr(), None if ends is None else ends.data_ptr(), B, state.jobs_pad,
             state.machines_pad, T, int(with_solution), *_geometry_args(geo),
             torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(err, "rollout_driven_kernel", geo)
-    LAUNCHES["rollout_driven"] += 1
+    _check_launch(err, "rollout_driven_kernel" + _tag(b), geo)
+    LAUNCHES["rollout_driven" + _key(b)] += 1
 
 
 # The driven register-lane builds' state fields, in the order of
@@ -694,7 +744,7 @@ def launch_free(
     extra = ()
     if b.kind == "rollout":
         geo = launch_geometry(state.jobs_pad, state.machines_pad, vdt)  # refuses what cannot fit, before a build
-        lib = _lib()
+        lib = _lib(geo.machine_slots)
         fn = lib.jss_rollout_free_i16 if i16 else lib.jss_rollout_free
         name, extra = "rollout_free_kernel", _geometry_args(geo)
     elif b.kind == "static":

@@ -83,7 +83,9 @@ def test_every_driven_batch_of_the_smoke_takes_its_build():
 def test_driven_shape_limits(shape, fits):
     state = tv.make_batch(ti.random_instance(*shape, (1, 9), seed=2), 2, device="cpu")
     assert fr.static_shape(state) == shape
-    assert fr.driven_build(state) == (fr.Build("static", shape) if fits else fr.Build("rollout"))
+    # past 64 machines: rollout.cu's build of ceil(M/32) machine slots a thread
+    wide = -(-shape[1] // 32) if shape[1] > 64 else None
+    assert fr.driven_build(state) == (fr.Build("static", shape) if fits else fr.Build("rollout", wide))
     assert fr.slot_class(*shape) == ((-(-shape[0] // 32), -(-shape[1] // 32)) if fits else None)
 
 
@@ -94,7 +96,7 @@ def fake_card(monkeypatch):
     libs = types.SimpleNamespace(driven=_FakeLib(), general=_FakeLib(), slots=_FakeLib(), shapes=[], classes=[])
     monkeypatch.setattr(fr, "_check_kernel_inputs", lambda *a, **k: None)
     monkeypatch.setattr(fr, "_driven_lib", lambda shape: libs.shapes.append(shape) or libs.driven)
-    monkeypatch.setattr(fr, "_lib", lambda: libs.general)
+    monkeypatch.setattr(fr, "_lib", lambda slots=2: libs.general)
     monkeypatch.setattr(fr, "_general_lib", lambda slots: libs.classes.append(slots) or libs.slots)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=7))

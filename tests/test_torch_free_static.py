@@ -143,7 +143,9 @@ def test_every_repo_instance_fits_the_new_kernel():
 def test_shape_limits(shape, fits):
     assert fr.static_fits(shape) == fits
     jobs = fr.kernel_jobs([None, shape])
-    assert jobs == [("rollout", None)] + ([("driven_static", shape), ("free_static", shape)] if fits else [])
+    # past 64 machines: rollout.cu's build of ceil(M/32) machine slots a thread
+    wide = [("rollout", None, (f"JSS_MACHINE_SLOTS={-(-shape[1] // 32)}",))] if shape[1] > 64 else []
+    assert jobs == [("rollout", None)] + ([("driven_static", shape), ("free_static", shape)] if fits else wide)
 
 
 def test_a_static_batch_past_the_limits_runs_the_general_build():
@@ -181,7 +183,7 @@ def fake_card(monkeypatch):
     libs = types.SimpleNamespace(free=_FakeLib(), general=_FakeLib(), slots=_FakeLib(), classes=[])
     monkeypatch.setattr(fr, "_check_kernel_inputs", lambda *a, **k: None)
     monkeypatch.setattr(fr, "_free_lib", lambda shape: libs.free)
-    monkeypatch.setattr(fr, "_lib", lambda: libs.general)
+    monkeypatch.setattr(fr, "_lib", lambda slots=2: libs.general)
     monkeypatch.setattr(fr, "_general_lib", lambda slots: libs.classes.append(slots) or libs.slots)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=7))
@@ -269,7 +271,7 @@ def test_the_kernels_build_together(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_nvcc", lambda: "/fake/nvcc")
     monkeypatch.setattr(subprocess, "Popen", FakeNvcc)
-    monkeypatch.setattr(fr, "_lib", lambda: None)
+    monkeypatch.setattr(fr, "_lib", lambda slots=2: None)
     monkeypatch.setattr(fr, "_free_lib", lambda shape: None)
     monkeypatch.setattr(fr, "_driven_lib", lambda shape: None)
     monkeypatch.setattr(fr, "_general_lib", lambda slots: None)

@@ -79,8 +79,11 @@ def test_batches_past_the_lane_limits_take_rollout_cu(pad):
     else:
         src = ti.stack_instances([ti.random_instance(130, 3, (1, 9), seed=1), ti.get_instance("ta01")])
         state = tv.make_batch(src, 4, device="cpu")
-    assert fr.driven_build(state) == fr.free_build(state) == fr.Build("rollout")
-    assert fr.kernel_jobs([fr.driven_build(state)]) == [("rollout", None)]
+    # past 64 machines: rollout.cu's class of three machine slots a thread
+    want = fr.Build("rollout", 3) if pad == "machines" else fr.Build("rollout")
+    assert fr.driven_build(state) == fr.free_build(state) == want
+    assert fr.kernel_jobs([fr.driven_build(state)]) == [
+        ("rollout", None, ("JSS_MACHINE_SLOTS=3",)) if pad == "machines" else ("rollout", None)]
     with pytest.raises(ValueError, match="at most 128 jobs"):
         fr.driven_build(state, "slots")
     with pytest.raises(ValueError, match="unknown build"):

@@ -4,8 +4,9 @@
 the free and the driven kernel, one library per shape), ``csrc/general_lane.cu``
 (both kernels for padded and mixed-shape batches, one library per slot
 class: ``SLOT_CLASSES``), all on ``csrc/static_lane.cuh``, and the general
-build of ``csrc/rollout.cu``'s free kernel are compiled as C++
-(``g++ -std=c++20``) against ``SHIM`` below: every CUDA
+build of ``csrc/rollout.cu``'s kernels (one library per machine-slot class:
+``ROLLOUT_CLASSES``) are compiled as C++ (``g++ -std=c++20``) against
+``SHIM`` below: every CUDA
 thread of a block is a fiber of one host thread, the blocks of a grid run
 one after another, and per warp a barrier of its 32 fibers around a 32-slot
 array stands for ``__syncwarp`` and every vote, shuffle and reduction; the
@@ -34,7 +35,11 @@ also against the JAX package's ``rollout_driven`` in interpret mode. The
 ``general_lane.cu`` on padded and mixed-shape batches (ta01+ta11, ta01+ta41,
 a padded ta01, random instance sets), every slot class S in 1..4, K in 1..2
 met; one padded case of B = 1024 also against the JAX package's
-``rollout_driven`` (``static_lane=None``)."""
+``rollout_driven`` (``static_lane=None``). The ``r-`` driven cases and the
+``wide`` free cases do the same for ``rollout.cu``'s general build past 64
+machines (3 and 4 machine slots a thread: 4x70 and 3x100 fresh and
+mid-episode, 150x70 with five job slots), int32 and int16; one of them
+(``r-wide4x70``) also against the JAX package's ``rollout_driven``."""
 
 import ctypes
 import os
@@ -290,10 +295,22 @@ extern "C" int shim_free(const void* state, const void* tab, const void* lanec, 
     });
   return 0;
 }
+extern "C" int shim_driven(void* state, const void* tab, const void* lanec, const void* actions, void* rewards,
+                           void* ends, int B, int J, int M, int T, int with_solution, int lanes, int stride,
+                           int scr_stride) {
+  launch((B + lanes - 1) / lanes, lanes * 32, [=] {
+    rollout_driven_kernel<0, 0>((int*)state, (const int*)tab, (const int*)lanec, (const int*)actions, (int*)rewards,
+                                (int*)ends, B, J, M, T, with_solution, stride, scr_stride);
+  });
+  return 0;
+}
 """
 
 # The slot classes of csrc/general_lane.cu: (job slots S, machine words K).
 SLOT_CLASSES = tuple((s, k) for s in range(1, 5) for k in range(1, 3))
+# The machine-slot classes of csrc/rollout.cu built here: the default two
+# (at most 64 machines) and the classes of the wide cases (M = 70, 100).
+ROLLOUT_CLASSES = (2, 3, 4)
 
 
 def _mixed(*shapes, jobs_pad=None, machines_pad=None):
@@ -352,11 +369,21 @@ CASES = {
     "rand6x5-mid": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 8, 300, (6, 5), (("static", I16, "bits"),)),
     "ta01+ta11-mid": (ta01_11, 8, 300, None, (("slots", I16, "philox"), ("slots", I32, "bits"))),
     "mix100x3+2x40-mid": (MIXED["mix100x3+2x40"][0], 4, 300, None, (("slots", I16, "bits"),)),
+    # rollout.cu past 64 machines: 3 machine slots a thread (M = 70), 4 (M =
+    # 100), and five job slots with three machine slots (150x70, int32 only)
+    "wide4x70": (lambda: ti.random_instance(4, 70, (1, 9), seed=3), 4, 300, (4, 70),
+                 (("general", I32, "philox"), ("general", I16, "bits"))),
+    "wide4x70-mid": (lambda: ti.random_instance(4, 70, (1, 9), seed=3), 4, 300, (4, 70),
+                     (("general", I16, "philox"), ("general", I32, "bits"))),
+    "wide3x100-mid": (lambda: ti.random_instance(3, 100, (1, 9), seed=4), 4, 300, (3, 100),
+                      (("general", I16, "philox"), ("general", I32, "bits"))),
+    "wide150x70": (lambda: ti.random_instance(150, 70, (1, 9), seed=5), 2, 150, (150, 70),
+                   (("general", I32, "philox"), ("general", I32, "bits"))),
 }
 # case -> (driven steps, seed of the random legal actions) before the free
 # rollout starts: every lane mid-episode, with no-op pins in some
 START = {"ta01-mid": (150, 0), "ta41-mid": (450, 1), "rand6x5-mid": (47, 0), "ta01+ta11-mid": (150, 2),
-         "mix100x3+2x40-mid": (160, 3)}
+         "mix100x3+2x40-mid": (160, 3), "wide4x70-mid": (150, 4), "wide3x100-mid": (160, 5)}
 TIME_LIMIT_S = 90  # a case's process; each takes 2-8 s alone
 LANE_OFFSET = 5
 
@@ -384,6 +411,15 @@ DRIVEN = {
     "g-pad16-any": (MIXED["pad16"][0], 6, 20, 14, "any"),
     **{f"g-{name}-mid": (MIXED[name][0], 4, 120, 15 + i, "legal") for i, name in enumerate(MIXED)
        if name.startswith("mix")},
+    # rollout.cu's general build past 64 machines (its lane buffer, _to_lanes
+    # / _from_lanes): 3 and 4 machine slots a thread, the mid-episode windows
+    # across episode ends (random-legal episodes of 4x70 and 3x100 take about
+    # 280 and 300 steps), and 150x70 (five job slots) fresh
+    "r-wide4x70": (lambda: ti.random_instance(4, 70, (1, 9), seed=3), 4, 0, 31, "legal"),
+    "r-wide4x70-mid": (lambda: ti.random_instance(4, 70, (1, 9), seed=3), 4, 255, 32, "legal"),
+    "r-wide3x100-mid": (lambda: ti.random_instance(3, 100, (1, 9), seed=4), 4, 278, 33, "legal"),
+    "r-wide4x70-any": (lambda: ti.random_instance(4, 70, (1, 9), seed=3), 3, 270, 34, "any"),
+    "r-wide150x70": (lambda: ti.random_instance(150, 70, (1, 9), seed=5), 2, 0, 35, "legal"),
 }
 DRIVEN_T = (0, 1, 40)
 # the padded driven case held against the JAX package at B >= 1024: a mixed
@@ -399,37 +435,47 @@ def _source(name):
 
 
 def _driven_shape(case):
-    """The static shape of a driven case, or the slot class of a ``g-`` one."""
+    """The static shape of a driven case, the slot class of a ``g-`` one or
+    the machine-slot class of an ``r-`` one (rollout.cu)."""
     spec = DRIVEN[case][0]()
     if case.startswith("g-"):
         return fr.slot_class(*np.asarray(spec.op_dur).shape[1:])
+    if case.startswith("r-"):
+        return fr.machine_slots(spec.num_machines)
     return spec.num_jobs, spec.num_machines
 
 
 def _lib_name(name, shape):
+    if name == "rollout":  # a machine-slot class
+        return "librollout_general.so" if shape == 2 else f"librollout_m{shape}.so"
     return f"lib{name}_{shape[0]}x{shape[1]}.so"
 
 
 def build(libdir: Path) -> dict:
-    """Compile the general library and one static library per shape of
-    CASES (free) and of DRIVEN (driven), every g++ started together; returns
-    {(source, shape or None): path}."""
+    """Compile the general libraries (``ROLLOUT_CLASSES``) and one static
+    library per shape of CASES (free) and of DRIVEN (driven) that the static
+    builds take, every g++ started together; returns {(source, shape or
+    class): path}."""
     libdir.mkdir(parents=True, exist_ok=True)
     (libdir / "shim.h").write_text(SHIM)
-    jobs = {("rollout", None): GENERAL_ENTRY}
+    jobs = {("rollout", k): GENERAL_ENTRY for k in ROLLOUT_CLASSES}
     for _, _, _, shape, _ in CASES.values():
-        if shape is not None:
+        if fr.static_fits(shape):
             jobs["free_static", shape] = STATIC_ENTRY
     for case in DRIVEN:
-        if not case.startswith("g-"):
+        if not case.startswith(("g-", "r-")):
             jobs["driven_static", _driven_shape(case)] = DRIVEN_ENTRY
     for slots in SLOT_CLASSES:
         jobs["general_lane", slots] = LANE_ENTRY
     procs, out = [], {}
     for (name, shape), entry in jobs.items():
-        tag = "general" if shape is None else f"{shape[0]}x{shape[1]}"
-        defs = [] if shape is None else [f"-D{d}" for d in fr.slot_defines(shape)] if name == "general_lane" else [
-            f"-DJSS_STATIC_J={shape[0]}", f"-DJSS_STATIC_M={shape[1]}"]
+        if name == "rollout":
+            tag = _lib_name(name, shape)[len("librollout_"):-len(".so")]
+            defs = [f"-D{d}" for d in fr.rollout_defines(shape)]
+        else:
+            tag = f"{shape[0]}x{shape[1]}"
+            defs = [f"-D{d}" for d in fr.slot_defines(shape)] if name == "general_lane" else [
+                f"-DJSS_STATIC_J={shape[0]}", f"-DJSS_STATIC_M={shape[1]}"]
         cpp, lib = libdir / f"{name}_{tag}.cpp", libdir / f"lib{name}_{tag}.so"
         cpp.write_text(_source(name) + entry)
         cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{CSRC}", *defs, "-o", str(lib), str(cpp)]
@@ -473,6 +519,8 @@ def _run_driven(lib, state, actions, T, slots=False):
     the port's kernel inputs and output allocations; returns (new state,
     rewards, ends, the uint8 allocation of the masks)."""
     B = state.batch_size
+    if slots == "rollout":
+        return _run_driven_lanes(lib, state, actions, T)
     tab, lanec = fr._lane_inputs(state)
     inputs = fr._driven_inputs(state)
     out, out8, new, rewards, ends = fr._driven_outputs(state, T)
@@ -483,6 +531,26 @@ def _run_driven(lib, state, actions, T, slots=False):
     lib.shim_driven.restype = ctypes.c_int
     lib.shim_driven((ctypes.c_void_p * len(ptrs))(*ptrs), B, *dims, T, int(fr._solution_mode(state)))
     return new, rewards, ends, out8
+
+
+def _run_driven_lanes(lib, state, actions, T):
+    """One launch of rollout.cu's driven kernel on the lane buffer, as
+    ``fused_rollout._driven_kernel``'s ``"rollout"`` build packs and unpacks
+    it; returns (new state, rewards, ends, the new masks as bytes)."""
+    B, J, M, ws = state.batch_size, state.jobs_pad, state.machines_pad, fr._solution_mode(state)
+    geo = fr.launch_geometry(J, M)
+    buf = fr._to_lanes(state, ws)
+    tab, lanec = fr._lane_inputs(state)
+    rewards = torch.zeros((T, B), dtype=torch.int32)
+    ends = torch.zeros((T, B), dtype=torch.int32)
+    I = ctypes.c_int
+    lib.shim_driven.argtypes = [ctypes.c_void_p] * 6 + [I] * 8
+    lib.shim_driven.restype = I
+    lib.shim_driven(buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), actions.data_ptr(), rewards.data_ptr(),
+                    ends.data_ptr(), B, J, M, T, int(ws), geo.lanes, geo.state_stride, geo.scratch_stride)
+    new = fr._from_lanes(buf, state, ws)
+    masks = torch.cat([getattr(new, k).reshape(-1).view(torch.uint8) for k in fr._DRIVEN_U8])
+    return new, rewards, ends, masks
 
 
 def _window_actions(state, T, seed, kind):
@@ -513,10 +581,15 @@ def run_driven_case(libdir: str, case: str) -> None:
     on the full and the light state, each against the twin."""
     torch.set_num_threads(1)
     start, acts = driven_window(case)
-    slots = case.startswith("g-")
+    slots = {"g": True, "r": "rollout"}.get(case[0], False)
     build = fr.driven_build(start)
-    assert build == fr.Build("slots" if slots else "static", _driven_shape(case)), build
-    lib = ctypes.CDLL(str(Path(libdir) / _lib_name("general_lane" if slots else "driven_static", build.shape)))
+    if slots == "rollout":
+        assert build == fr.rollout_build(start.machines_pad) and build.shape == _driven_shape(case), build
+        name = "rollout"
+    else:
+        assert build == fr.Build("slots" if slots else "static", _driven_shape(case)), build
+        name = "general_lane" if slots else "driven_static"
+    lib = ctypes.CDLL(str(Path(libdir) / _lib_name(name, _driven_shape(case))))
     ended = 0
     for state in (start, tv.strip_solution(start)):
         for T in DRIVEN_T:
@@ -537,12 +610,16 @@ def run_driven_case(libdir: str, case: str) -> None:
     assert ended > 0 or DRIVEN[case][2] == 0 and case != "d-rand6x5", f"{case}: no episode ended in the window"
 
 
-def run_driven_jax_case(libdir: str, out: str, padded: bool = False) -> None:
-    """The d-rand6x5 case at T = 40 on the full state (``padded``: the
+def run_driven_jax_case(libdir: str, out: str, padded: bool = False, case: str = "d-rand6x5") -> None:
+    """The ``case`` window at T = 40 on the full state (``padded``: the
     ``JAX_PADDED`` batch through the slot-class build): the shim's results,
     saved to ``out`` (npz) for the test process to hold against JAX."""
     torch.set_num_threads(1)
-    if padded:
+    if case.startswith("r-"):
+        state, acts = driven_window(case)
+        lib = ctypes.CDLL(str(Path(libdir) / _lib_name("rollout", _driven_shape(case))))
+        padded = "rollout"
+    elif padded:
         src, B, T = JAX_PADDED
         state = tv.make_batch(src(), B, device="cpu")
         acts = _window_actions(state, T, 7, "legal")
@@ -559,7 +636,7 @@ def _lib(libdir, build, state):
     """The shim library of ``build`` ("static", "slots", "general") for
     ``state``."""
     if build == "general":
-        return ctypes.CDLL(str(Path(libdir) / "librollout_general.so"))
+        return ctypes.CDLL(str(Path(libdir) / _lib_name("rollout", fr.machine_slots(state.machines_pad))))
     b = fr.free_build(state, build)
     return ctypes.CDLL(str(Path(libdir) / _lib_name("free_static" if build == "static" else "general_lane", b.shape)))
 
@@ -588,7 +665,9 @@ def run_case(libdir: str, case: str) -> None:
         for f in ref:
             assert torch.equal(got[f], ref[f]), f"{tag}: {f} {got[f].tolist()} != {ref[f].tolist()}"
         print(f"{tag}: equal to the twin ({int(ref['episodes'].sum())} episodes)")
-    assert sum(int(r["episodes"].sum()) for r in refs.values()) > 0 or case == "ta41", f"{case}: no episode ended"
+    # ta41 and 150x70 take longer than T for a random-legal episode
+    assert sum(int(r["episodes"].sum()) for r in refs.values()) > 0 or case in ("ta41", "wide150x70"), \
+        f"{case}: no episode ended"
 
 
 def run_dead_fields(libdir: str) -> None:
@@ -628,11 +707,16 @@ def libdir(tmp_path_factory):
 
 def test_shim_builds_one_library_per_shape(libdir):
     names = sorted(p.name for p in libdir.glob("*.so"))
-    shapes = sorted({f"{c[3][0]}x{c[3][1]}" for c in CASES.values() if c[3]})
-    driven = sorted({"{}x{}".format(*_driven_shape(c)) for c in DRIVEN if not c.startswith("g-")})
-    assert names == sorted(["librollout_general.so"] + [f"libfree_static_{s}.so" for s in shapes]
+    shapes = sorted({f"{c[3][0]}x{c[3][1]}" for c in CASES.values() if fr.static_fits(c[3])})
+    driven = sorted({"{}x{}".format(*_driven_shape(c)) for c in DRIVEN if not c.startswith(("g-", "r-"))})
+    assert names == sorted([_lib_name("rollout", k) for k in ROLLOUT_CLASSES]
+                           + [f"libfree_static_{s}.so" for s in shapes]
                            + [f"libdriven_static_{s}.so" for s in driven]
                            + [_lib_name("general_lane", s) for s in SLOT_CLASSES])
+    # the wide cases meet every machine-slot class built past the default
+    wide = {fr.machine_slots(c[0]().num_machines) for n, c in DRIVEN.items() if n.startswith("r-")}
+    assert wide | {2} == set(ROLLOUT_CLASSES)
+    assert {fr.machine_slots(CASES[n][3][1]) for n in CASES if n.startswith("wide")} | {2} == set(ROLLOUT_CLASSES)
     # the padded cases meet every slot class, and each case's its own
     for name, (src, slots) in MIXED.items():
         assert fr.driven_build(tv.make_batch(src(), 2, device="cpu")) == fr.Build("slots", slots), name
@@ -701,6 +785,29 @@ def test_padded_driven_kernel_source_matches_jax_on_cpu(libdir, tmp_path):
         np.testing.assert_array_equal(got[f"state_{k}"], np.asarray(v), err_msg=k)
 
 
+def test_wide_driven_kernel_source_matches_jax_on_cpu(libdir, tmp_path):
+    """rollout.cu's general build at 70 machines (three machine slots a
+    thread) on the ``r-wide4x70`` window, T = 40 from a fresh state, equals
+    the JAX package's ``rollout_driven`` in interpret mode: rewards and every
+    field of the final state, exactly."""
+    pytest.importorskip("flax")
+    import jax
+
+    from jssenv_tpu import instances as ji
+    from jssenv_tpu import vector as jv
+    from jssenv_tpu.core import pallas_rollout
+
+    out = tmp_path / "driven_wide.npz"
+    _in_process(libdir, "driven-jax-wide", str(out))
+    got = dict(np.load(out))
+    B, T = DRIVEN["r-wide4x70"][1], got["actions"].shape[0]
+    js = jv.make_batch(ji.stack_instances([ji.random_instance(4, 70, (1, 9), seed=3)]), B)
+    jfinal, jraw = pallas_rollout.rollout_driven(js, jax.numpy.asarray(got["actions"]), T, tile=4, interpret=True)
+    np.testing.assert_array_equal(got["rewards"], np.asarray(jraw))
+    for k, v in vars(jax.device_get(jfinal)).items():
+        np.testing.assert_array_equal(got[f"state_{k}"], np.asarray(v), err_msg=k)
+
+
 def test_static_kernel_reads_no_dead_field_on_cpu(libdir):
     _in_process(libdir, "dead-fields")
 
@@ -730,6 +837,8 @@ if __name__ == "__main__":
         run_driven_jax_case(sys.argv[1], sys.argv[3])
     elif sys.argv[2] == "driven-jax-padded":
         run_driven_jax_case(sys.argv[1], sys.argv[3], padded=True)
+    elif sys.argv[2] == "driven-jax-wide":
+        run_driven_jax_case(sys.argv[1], sys.argv[3], case="r-wide4x70")
     elif sys.argv[2] in DRIVEN:
         run_driven_case(sys.argv[1], sys.argv[2])
     else:

@@ -71,6 +71,8 @@ DRIVEN = {
                                            machines_pad=6), 4, 120, 4),
     "ragged": (lambda m: m.stack_instances([m.random_instance(6, 5, (1, 9), seed=3),
                                             m.random_instance(5, 4, (1, 9), seed=4)]), 8, 100, 4),
+    # past 64 machines (rollout.cu's three machine slots a thread on the card)
+    "wide": (lambda m: m.stack_instances([m.random_instance(4, 70, (1, 9), seed=3)]), 4, 40, 4),
 }
 
 
@@ -117,13 +119,15 @@ def test_driven_twin_ends_are_jax_done_times_time(jx, case):
         want.append(np.asarray(e))
     np.testing.assert_array_equal(ends.numpy(), np.stack(want))
     assert int((ends > 0).sum()) == int(stats.episodes) and int(ends.sum()) == int(stats.total_makespan)
-    assert case == "single_ta01" or int(stats.episodes) > 0
+    assert case in ("single_ta01", "wide") or int(stats.episodes) > 0  # their T is shorter than an episode
 
 
 FREE = {
     "single": (lambda m: m.stack_instances([m.random_instance(6, 5, (1, 9), seed=7)]), 4, 200, 4),
     "ragged": (lambda m: m.stack_instances([m.random_instance(6, 5, (1, 9), seed=3),
                                             m.random_instance(5, 4, (1, 9), seed=4)]), 8, 150, 4),
+    # past 64 machines, caller bits; long enough for a 2x70 episode to end
+    "wide": (lambda m: m.stack_instances([m.random_instance(2, 70, (1, 9), seed=7)]), 4, 200, 4),
 }
 
 
@@ -452,9 +456,10 @@ def test_light_state_stays_light():
     assert final.solution.shape == (4, 0, 5) and raw.shape == (40, 4)
 
 
-# (J, M) of ta01, ta41, ta71, padded ta01 and the widest the kernel takes
+# (J, M) of ta01, ta41, ta71, padded ta01, the widest the two-slot build
+# takes, and the smoke's wide shapes (3 and 4 machine slots a thread)
 GEOMETRY_SHAPES = {"ta01": (15, 15), "ta41": (30, 20), "ta71": (100, 20), "ta01-padded": (16, 16),
-                   "33x64": (33, 64)}
+                   "33x64": (33, 64), "20x100": (20, 100), "150x70": (150, 70), "12x70": (12, 70)}
 
 
 @pytest.mark.parametrize("vdt", [torch.int16, torch.int32], ids=["int16", "int32"])
@@ -465,7 +470,8 @@ def test_launch_geometry(shape, vdt):
     G, item = geo.group, torch.tensor([], dtype=vdt).element_size()
     assert G & (G - 1) == 0 and min(32, max(J, M)) <= G <= 32  # a power of two, one warp at most
     assert G == 32  # a warp per lane
-    assert -(-J // G) * G >= J and 2 * G >= M  # job slots cover J; two machine slots cover M
+    # job slots cover J; the machine slots cover M, at least the default two
+    assert -(-J // G) * G >= J and geo.machine_slots == max(2, -(-M // G)) and geo.machine_slots * G >= M
     assert geo.threads == geo.lanes * G <= 256 and geo.lanes >= 1
     rows = 4 + 10 * J + 2 * M
     assert geo.state_stride >= rows and geo.state_stride * item % 4 == 0 and geo.scratch_stride >= 2 * M
@@ -481,8 +487,14 @@ def test_launch_geometry_refuses_what_cannot_fit():
     with pytest.raises(ValueError, match="J=6000 jobs and M=20 machines"):
         fr.launch_geometry(6000, 20)
     fr.launch_geometry(6000, 20, torch.int16)  # half the bytes fit
-    with pytest.raises(ValueError, match="machines"):
-        fr.launch_geometry(10, 65)
+    # past 64 machines: a class of more machine slots a thread, up to 32
+    assert [fr.launch_geometry(J, M).machine_slots for J, M in ((10, 65), (20, 100), (150, 70), (3, 1024))] == [
+        3, 4, 3, 32]
+    with pytest.raises(ValueError, match="J=10 jobs and M=1025 machines"):
+        fr.launch_geometry(10, 1025)
+    with pytest.raises(ValueError, match="J=5600 jobs and M=1000 machines.*shared memory"):
+        fr.launch_geometry(5600, 1000)
+    fr.launch_geometry(5600, 1000, torch.int16)
 
 
 # ---------------------------------------------------------------------------
@@ -610,9 +622,67 @@ def test_kernel_wrappers_refuse_bad_inputs_on_card(cuda_dev):
         fr.rollout_driven(state, torch.zeros((2, 4), dtype=torch.int32), 2)
     with pytest.raises(TypeError):
         fr.rollout_free(state, 2, bits=torch.zeros((2, 4), device=cuda_dev))
-    wide = tv.make_batch(ti.random_instance(6, 70, (1, 9), seed=2), 4, device=cuda_dev)
-    with pytest.raises(ValueError, match="machines"):
+    wide = tv.make_batch(ti.random_instance(6, 1025, (1, 9), seed=2), 4, device=cuda_dev)
+    before = dict(fr.LAUNCHES)
+    with pytest.raises(ValueError, match="J=6 jobs and M=1025 machines"):
         fr.rollout_free(wide, 2)
+    with pytest.raises(ValueError, match="J=6 jobs and M=1025 machines"):
+        fr.rollout_driven(wide, torch.zeros((2, 4), dtype=torch.int32, device=cuda_dev), 2)
+    assert fr.LAUNCHES == before
+
+
+# past 64 machines: rollout.cu's class of 4 machine slots a thread (20x100)
+# and of 3 with five job slots (150x70), Taillard's durations (int32)
+WIDE_CARD = {"wide20x100": (lambda: ti.random_instance(20, 100, (1, 99), seed=20), 256, 160, 4),
+             "wide150x70": (lambda: ti.random_instance(150, 70, (1, 99), seed=150), 64, 160, 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WIDE_CARD))
+def test_wide_driven_kernel_matches_twin_on_card(cuda_dev, case):
+    """The driven kernel past 64 machines, from a fresh and a mid-episode
+    state, full and light, with ends: equal to the twin in every field, its
+    input unchanged, one launch of its machine-slot class."""
+    src, B, T, slots = WIDE_CARD[case]
+    fresh = tv.make_batch(src(), B, device=cuda_dev)
+    assert fr.driven_build(fresh) == fr.Build("rollout", slots)
+    mid, _ = fr.rollout_driven_reference(fresh, _port_actions(fresh, T, seed=5), T)
+    key = f"rollout_driven_m{slots}"
+    for start in (fresh, mid):
+        acts = _port_actions(start, T, seed=6).to(torch.int32)
+        ref, ref_raw, ref_ends = fr.rollout_driven_reference(start, acts, T, return_ends=True)
+        for s in (start, tv.strip_solution(start)):
+            before = {k: v.clone() for k, v in s.dynamic_fields().items()}
+            n = fr.LAUNCHES.get(key, 0)
+            final, raw, ends = fr.rollout_driven(s, acts, T, return_ends=True)
+            assert fr.LAUNCHES[key] == n + 1
+            torch.cuda.synchronize()
+            assert torch.equal(raw, ref_raw) and torch.equal(ends, ref_ends)
+            for k in ts.FIELD_NAMES:
+                if k != "solution" or s is start:
+                    assert torch.equal(getattr(final, k), getattr(ref, k)), k
+            assert all(torch.equal(getattr(s, k), v) for k, v in before.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WIDE_CARD))
+@pytest.mark.parametrize("mode", ["bits", "philox"])
+def test_wide_free_kernel_matches_twin_on_card(cuda_dev, case, mode):
+    """The free kernel past 64 machines, Philox from a non-zero
+    ``lane_offset`` or caller bits: per-lane stats equal to the twin's, one
+    launch of its machine-slot class."""
+    src, B, T, slots = WIDE_CARD[case]
+    state = tv.make_batch(src(), B, device=cuda_dev)
+    bits = torch.from_numpy(_bits(T, B, seed=8)).to(cuda_dev) if mode == "bits" else None
+    assert fr.value_dtype(state) == torch.int32
+    key = f"rollout_free_m{slots}"
+    n = fr.LAUNCHES.get(key, 0)
+    k = fr.free_lane_stats(state, T, seed=13, bits=bits, lane_offset=B + 3)
+    assert fr.LAUNCHES[key] == n + 1
+    r = fr.free_lane_stats_reference(state, T, seed=13, bits=bits, lane_offset=B + 3)
+    for f in k:
+        assert torch.equal(k[f], r[f]), f
+    assert int(k["viol"].sum()) == 0
 
 
 @pytest.mark.cuda
