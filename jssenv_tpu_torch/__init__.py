@@ -34,7 +34,8 @@ rollout written as hand-made CUDA kernels for NVIDIA Hopper
                            and per-rank lanes of a global batch;
 * ``distill``            — teacher pairs from rules or schedules, and
                            cross-entropy pretraining of a policy;
-* ``diagnostics``        — a profiler window, a throughput meter and state
+* ``diagnostics``        — a profiler window, host spans and counters of
+                           the learner and the rollouts, and state
                            invariant checks;
 * ``anneal``             — order-space evaluation of machine orders, simulated
                            annealing and tabu search;

@@ -82,7 +82,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from jssenv_tpu_torch import vector
+from jssenv_tpu_torch import diagnostics, vector
 from jssenv_tpu_torch.core import _build, engine
 from jssenv_tpu_torch.core.state import I32_MAX, EnvState
 
@@ -147,6 +147,7 @@ def value_dtype(state: EnvState) -> torch.dtype:
     (``pallas_rollout.value_dtype``); there the int16 mode also waits for
     ``JSS_PALLAS_INT16=1`` because the TPU compiler crashes on it, a gate
     the CUDA kernel does not need."""
+    diagnostics.COUNTS["host_reads"] += 1
     so, mj, mo = torch.stack(
         [state.sum_op.max(), state.max_time_jobs.max(), state.max_time_op.max()]
     ).tolist()
@@ -203,6 +204,7 @@ def _lane_entry(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor, Optional[T
     hit = _LANE_CACHE.get(key)
     if hit is not None:
         return hit[1]
+    diagnostics.COUNTS["lane_inputs_built"] += 1
     out = _lane_inputs_uncached(state) + (_static_shape_uncached(state),)
     if len(_LANE_CACHE) >= _LANE_CACHE_SIZE:
         _LANE_CACHE.clear()
@@ -236,8 +238,11 @@ def static_shape(state: EnvState) -> Optional[Tuple[int, int]]:
 
 def _static_shape_uncached(state: EnvState) -> Optional[Tuple[int, int]]:
     J, M = state.jobs_pad, state.machines_pad
+    if state.batch_size == 0:
+        return None
     unpadded = torch.stack([(state.num_jobs == J).all(), (state.num_machines == M).all()]).all()
-    return (J, M) if state.batch_size > 0 and bool(unpadded) else None
+    diagnostics.COUNTS["host_reads"] += 1
+    return (J, M) if bool(unpadded) else None
 
 
 def _fingerprint(flat: torch.Tensor) -> torch.Tensor:
@@ -266,6 +271,7 @@ def _lane_inputs_uncached(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
     first[1:] = (rows[1:] != rows[:-1]).any(dim=1)
     inv = torch.empty_like(order)
     inv[order] = torch.cumsum(first, dim=0) - 1
+    diagnostics.COUNTS["host_reads"] += 1  # a boolean index waits for its count
     tab = rows[first][:, : 4 * J * M].reshape(-1, 4, J, M).contiguous()
     lanec = torch.stack(
         [inv.to(_I32), state.num_jobs, state.num_machines, state.max_time_op, state.sum_op]
@@ -856,19 +862,21 @@ def step_autoreset(
     ``rollout_driven`` launch at T=1 with ends on a CUDA state (a failed
     build or launch raises), its twin on a CPU state. The same results: the
     Transition (scaled ``reward`` as in ``engine.step``, ``raw_reward``,
-    ``done``) and the stats, whose makespans come from the ends, exactly."""
-    state, raw, ends = rollout_driven(state, actions[None], 1, return_ends=True)
-    raw, ends = raw[0], ends[0]
-    done = ends > 0  # a finished episode has a positive makespan
-    reward = raw.to(torch.float32) / state.max_time_op.to(torch.float32)
-    stats = vector.RolloutStats(
-        episodes=stats.episodes + done.sum(),
-        total_makespan=stats.total_makespan + ends.sum(dtype=torch.int64),
-        min_makespan=torch.minimum(stats.min_makespan, torch.where(done, ends, I32_MAX).amin()),
-        total_return=stats.total_return + reward.sum(),
-        steps=stats.steps + actions.shape[0],
-    )
-    return state, engine.Transition(reward=reward, raw_reward=raw, done=done), stats
+    ``done``) and the stats, whose makespans come from the ends, exactly.
+    The span ``env.step``."""
+    with diagnostics.span("env.step"):
+        state, raw, ends = rollout_driven(state, actions[None], 1, return_ends=True)
+        raw, ends = raw[0], ends[0]
+        done = ends > 0  # a finished episode has a positive makespan
+        reward = raw.to(torch.float32) / state.max_time_op.to(torch.float32)
+        stats = vector.RolloutStats(
+            episodes=stats.episodes + done.sum(),
+            total_makespan=stats.total_makespan + ends.sum(dtype=torch.int64),
+            min_makespan=torch.minimum(stats.min_makespan, torch.where(done, ends, I32_MAX).amin()),
+            total_return=stats.total_return + reward.sum(),
+            steps=stats.steps + actions.shape[0],
+        )
+        return state, engine.Transition(reward=reward, raw_reward=raw, done=done), stats
 
 
 # ---------------------------------------------------------------------------
@@ -962,14 +970,19 @@ def _free_kernel(state: EnvState, T: int, seed: int, bits, vdt: Optional[torch.d
     """One free-kernel launch in the storage dtype ``vdt`` (by default
     ``value_dtype``'s; an explicit int32 runs a batch that fits int16 in the
     int32 instantiation, to hold the two against each other), in
-    ``free_build(state, build)``."""
+    ``free_build(state, build)``. The spans ``env.value_dtype``,
+    ``env.to_lanes``, ``env.launch``."""
     B = state.batch_size
-    vdt = value_dtype(state) if vdt is None else vdt
-    buf = _to_lanes(state, with_solution=False, vdt=vdt)
+    if vdt is None:
+        with diagnostics.span("env.value_dtype"):
+            vdt = value_dtype(state)
+    with diagnostics.span("env.to_lanes"):
+        buf = _to_lanes(state, with_solution=False, vdt=vdt)
     tab, lanec = _lane_inputs(state)
     stats = torch.empty((4, B), dtype=torch.int64, device=state.device)
     ret = torch.empty((B,), dtype=torch.float32, device=state.device)
-    launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T, vdt, lane_offset, build=build)
+    with diagnostics.span("env.launch"):
+        launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T, vdt, lane_offset, build=build)
     return {"episodes": stats[0], "mk_sum": stats[1], "mk_min": stats[2], "viol": stats[3], "ret": ret}
 
 
@@ -1025,10 +1038,11 @@ def rollout_free(
     (T, B) int32/uint32 words used instead of Philox. ``with_solution`` is
     accepted for the JAX signature and ignored: the stats never read the
     schedule, so the rollout always runs on the light state. ``lane_offset``:
-    as in ``free_lane_stats``."""
-    T = int(num_steps)
-    lanes = free_lane_stats(state, T, seed, bits, lane_offset)
-    return _reduce_stats(lanes, T, state.batch_size)
+    as in ``free_lane_stats``. The span ``env.free``."""
+    with diagnostics.span("env.free"):
+        T = int(num_steps)
+        lanes = free_lane_stats(state, T, seed, bits, lane_offset)
+        return _reduce_stats(lanes, T, state.batch_size)
 
 
 def rollout_free_reference(

@@ -1,10 +1,13 @@
-"""Diagnostics: a profiler window, a throughput meter and state invariant checks.
+"""Diagnostics: a profiler window, host spans and counters, and state invariant checks.
 
 The PyTorch counterpart of ``jssenv_tpu/diagnostics.py``:
 
 * ``trace`` — a ``torch.profiler`` window (CPU, and the card's kernels
   where there is one) written as a Chrome trace;
-* ``Throughput`` — a wall-clock env-steps/s meter;
+* ``span`` — a named stretch of host work inside the port (the learner's
+  update and its parts, an env step, a free call), recorded while a
+  profiler runs or inside ``recording()``, and read back by ``spans()``;
+* ``COUNTS`` — counters of the host plumbing, counted always;
 * ``check_state_invariants`` — the reference test-suite's state invariants
   (obs bounds, counter coherence, pad-lane inertness; reference
   tests/test_state.py:22-76) as a host-side assertion pass over a batch;
@@ -18,7 +21,7 @@ import contextlib
 import os
 import tempfile
 import time
-from typing import Iterator, Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -46,20 +49,98 @@ def trace(log_dir: Optional[str] = None) -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-class Throughput:
-    """Simple env-steps/s meter: meter.update(steps) after each chunk."""
+# Host-plumbing counters, counted always (``fused_rollout.LAUNCHES``' form):
+# "host_reads" where the port reads a device value back to the host (the
+# host waits for the device there), "lane_inputs_built" where
+# ``fused_rollout._lane_entry`` builds a batch's lane inputs (a cache miss).
+COUNTS: Dict[str, int] = {"host_reads": 0, "lane_inputs_built": 0}
 
-    def __init__(self):
-        self.t0 = time.perf_counter()
-        self.steps = 0
 
-    def update(self, n: int) -> None:
-        self.steps += int(n)
+class Span(NamedTuple):
+    """One recorded span: its ``parent``'s index in ``spans()`` (-1 at the
+    top), its host clock (``time.perf_counter_ns``) at entry and exit, and
+    the changes of ``COUNTS`` and ``fused_rollout.LAUNCHES`` over it (keys
+    that did not change left out)."""
 
-    @property
-    def steps_per_s(self) -> float:
-        dt = time.perf_counter() - self.t0
-        return self.steps / dt if dt > 0 else float("nan")
+    name: str
+    parent: int
+    start_ns: int
+    end_ns: int
+    counts: Dict[str, int]
+
+
+_SPANS: List[Optional[Span]] = []
+_OPEN: List[int] = []  # indices of the spans entered and not yet left, innermost last
+_recording = 0  # depth of recording() blocks
+_OFF = contextlib.nullcontext()
+
+
+def _counts() -> Dict[str, int]:
+    from jssenv_tpu_torch.core import fused_rollout  # which imports this module
+
+    return {**COUNTS, **fused_rollout.LAUNCHES}
+
+
+class _Span:
+    __slots__ = ("name", "index", "before", "start", "annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "_Span":
+        self.annotation = None
+        if torch.autograd._profiler_enabled():
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        self.index = len(_SPANS)
+        _SPANS.append(None)
+        _OPEN.append(self.index)
+        self.before = _counts()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        end = time.perf_counter_ns()
+        after = _counts()
+        _OPEN.pop()
+        moved = {k: v - self.before.get(k, 0) for k, v in after.items() if v != self.before.get(k, 0)}
+        _SPANS[self.index] = Span(self.name, _OPEN[-1] if _OPEN else -1, self.start, end, moved)
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+
+
+def span(name: str):
+    """``with span("env.step"): ...`` records the block as a ``Span`` while
+    a torch profiler is active or inside ``recording()``; otherwise it costs
+    one check and records nothing. Under a profiler the block is also a
+    ``record_function`` annotation, so it lands in the Chrome trace (a
+    ``user_annotation``) on the clock of the kernels it launched."""
+    if not (_recording or torch.autograd._profiler_enabled()):
+        return _OFF
+    return _Span(name)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[None]:
+    """Record spans inside the block without a profiler: the host clock
+    alone, close to the cost of the untraced path."""
+    global _recording
+    _recording += 1
+    try:
+        yield
+    finally:
+        _recording -= 1
+
+
+def spans() -> List[Optional[Span]]:
+    """The spans recorded since the last ``reset_spans()``, in the order
+    they were entered; a span still open reads None."""
+    return list(_SPANS)
+
+
+def reset_spans() -> None:
+    """Forget the recorded spans; call it outside any span."""
+    _SPANS.clear()
 
 
 def check_state_invariants(state: EnvState) -> None:

@@ -54,7 +54,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-from jssenv_tpu_torch import vector
+from jssenv_tpu_torch import diagnostics, vector
 from jssenv_tpu_torch.core import fused_rollout
 from jssenv_tpu_torch.core.state import Device, EnvState, resolve_device
 from jssenv_tpu_torch.models.policy import Dense, MaskedPolicyNet, PerJobPolicyNet, sample_action
@@ -177,33 +177,40 @@ def _policy_rollout(model: nn.Module, env_state: EnvState, generator, config: Le
     ``fused_rollout.step_autoreset``. Returns (env_state, stats, traj): traj
     holds (T, B, ...) ``obs``, ``mask``, ``valid``, ``action`` (int64 mask
     index), ``reward``, ``done`` (float32), ``value``, ``logp``. ``lanes``:
-    (offset, global batch) of a rank's block, for ``sample_action``."""
-    stats = vector.RolloutStats.zero(env_state.device)
-    frames = []
-    with torch.no_grad():
-        for _ in range(config.unroll_steps):
-            obs = obs_batch(env_state, config)
-            mask = env_state.action_mask()
-            valid = valid_batch(env_state)
-            logits, value = model(obs, mask, valid)
-            action_idx, logp = sample_action(generator, logits, lanes)
-            # padded no-op slot (index jobs_pad) -> env no-op action id (num_jobs)
-            actions = torch.where(action_idx == env_state.jobs_pad, env_state.num_jobs, action_idx)
-            env_state, tr, stats = fused_rollout.step_autoreset(env_state, actions, stats)
-            frames.append(dict(obs=obs, mask=mask, valid=valid, action=action_idx, reward=tr.reward,
-                               done=tr.done.to(torch.float32), value=value, logp=logp))
-    traj = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
-    return env_state, stats, traj
+    (offset, global batch) of a rank's block, for ``sample_action``. The
+    span ``learner.rollout``; a step's ``policy.forward``, ``policy.sample``
+    and ``env.step``."""
+    with diagnostics.span("learner.rollout"):
+        stats = vector.RolloutStats.zero(env_state.device)
+        frames = []
+        with torch.no_grad():
+            for _ in range(config.unroll_steps):
+                with diagnostics.span("policy.forward"):
+                    obs = obs_batch(env_state, config)
+                    mask = env_state.action_mask()
+                    valid = valid_batch(env_state)
+                    logits, value = model(obs, mask, valid)
+                with diagnostics.span("policy.sample"):
+                    action_idx, logp = sample_action(generator, logits, lanes)
+                    # padded no-op slot (index jobs_pad) -> env no-op action id (num_jobs)
+                    actions = torch.where(action_idx == env_state.jobs_pad, env_state.num_jobs, action_idx)
+                env_state, tr, stats = fused_rollout.step_autoreset(env_state, actions, stats)
+                frames.append(dict(obs=obs, mask=mask, valid=valid, action=action_idx, reward=tr.reward,
+                                   done=tr.done.to(torch.float32), value=value, logp=logp))
+        traj = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+        return env_state, stats, traj
 
 
 def _returns(traj: Dict[str, torch.Tensor], config: LearnerConfig) -> torch.Tensor:
-    """Discounted returns-to-go with episode-boundary resets."""
-    rets = torch.empty_like(traj["reward"])
-    ret = torch.zeros_like(traj["reward"][0])
-    for t in reversed(range(traj["reward"].shape[0])):
-        ret = traj["reward"][t] + config.gamma * ret * (1.0 - traj["done"][t])
-        rets[t] = ret
-    return rets
+    """Discounted returns-to-go with episode-boundary resets (the span
+    ``learner.returns``)."""
+    with diagnostics.span("learner.returns"):
+        rets = torch.empty_like(traj["reward"])
+        ret = torch.zeros_like(traj["reward"][0])
+        for t in reversed(range(traj["reward"].shape[0])):
+            ret = traj["reward"][t] + config.gamma * ret * (1.0 - traj["done"][t])
+            rets[t] = ret
+        return rets
 
 
 def _gae(traj: Dict[str, torch.Tensor], last_value: torch.Tensor, config: LearnerConfig) -> torch.Tensor:
@@ -243,16 +250,18 @@ def _log_probs(model, obs, mask, valid, action):
 
 def _metrics(loss, aux, stats: vector.RolloutStats, mesh: Optional[meshlib.Mesh]) -> Dict[str, torch.Tensor]:
     """The update's metrics; on a mesh, summed over ``dp`` (each rank's
-    loss terms are its shares) and ``min_makespan`` minimised."""
-    m = dict(loss=loss, **aux, episodes=stats.episodes, total_makespan=stats.total_makespan,
-             min_makespan=stats.min_makespan)
-    if mesh is None:
+    loss terms are its shares) and ``min_makespan`` minimised. The span
+    ``learner.metrics``."""
+    with diagnostics.span("learner.metrics"):
+        m = dict(loss=loss, **aux, episodes=stats.episodes, total_makespan=stats.total_makespan,
+                 min_makespan=stats.min_makespan)
+        if mesh is None:
+            return m
+        floats, ints = ("loss", "pg_loss", "v_loss", "entropy"), ("episodes", "total_makespan")
+        for keys in (floats, ints):
+            m.update(zip(keys, meshlib.all_reduce(torch.stack([m[k] for k in keys]), mesh.dp_group)))
+        m["min_makespan"] = meshlib.all_reduce(m["min_makespan"].clone(), mesh.dp_group, dist.ReduceOp.MIN)
         return m
-    floats, ints = ("loss", "pg_loss", "v_loss", "entropy"), ("episodes", "total_makespan")
-    for keys in (floats, ints):
-        m.update(zip(keys, meshlib.all_reduce(torch.stack([m[k] for k in keys]), mesh.dp_group)))
-    m["min_makespan"] = meshlib.all_reduce(m["min_makespan"].clone(), mesh.dp_group, dist.ReduceOp.MIN)
-    return m
 
 
 def _lanes(env_state: EnvState, mesh: Optional[meshlib.Mesh]):
@@ -265,13 +274,15 @@ def _lanes(env_state: EnvState, mesh: Optional[meshlib.Mesh]):
 
 
 def _sum_grads(model: nn.Module, mesh: Optional[meshlib.Mesh]) -> None:
-    """Sum the gradients over ``dp`` (one all-reduce of them all packed)."""
+    """Sum the gradients over ``dp`` (one all-reduce of them all packed;
+    the span ``learner.allreduce``, the host's enqueue)."""
     if mesh is None:
         return
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    flat = meshlib.all_reduce(_flatten_dense_tensors(grads), mesh.dp_group)
-    for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
-        g.copy_(r)
+    with diagnostics.span("learner.allreduce"):
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        flat = meshlib.all_reduce(_flatten_dense_tensors(grads), mesh.dp_group)
+        for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
+            g.copy_(r)
 
 
 def make_train_step(
@@ -304,31 +315,34 @@ def make_train_step(
         return loss, dict(pg_loss=pg_loss, v_loss=v_loss, entropy=ent)
 
     def train_step(ts: TrainState) -> Tuple[TrainState, dict]:
-        lanes, global_b = _lanes(ts.env_state, mesh)
-        count = None if mesh is None else tc * global_b
-        env_state, stats, traj = _policy_rollout(ts.model, ts.env_state, ts.generator, config, lanes)
-        rets = _returns(traj, config)
-        ts.optimizer.zero_grad(set_to_none=True)
-        # equal T-chunks: the full mean is the mean of the chunk means, so the
-        # gradients accumulated over the chunks, divided once, are the
-        # one-shot gradients
-        loss, aux = 0.0, dict(pg_loss=0.0, v_loss=0.0, entropy=0.0)
-        for c in range(nc):
-            sl = slice(c * tc, (c + 1) * tc)
-            traj_c = {k: traj[k][sl] for k in ("obs", "mask", "valid", "action")}
-            l, a = loss_fn(ts.model, traj_c, rets[sl], count)
-            l.backward()
-            loss = loss + l.detach()
-            aux = {k: aux[k] + a[k].detach() for k in aux}
-        if nc > 1:
-            for p in ts.model.parameters():
-                if p.grad is not None:
-                    p.grad /= nc
-            loss, aux = loss / nc, {k: v / nc for k, v in aux.items()}
-        _sum_grads(ts.model, mesh)
-        ts.optimizer.step()
-        return dataclasses.replace(ts, env_state=env_state, steps=ts.steps + 1), _metrics(
-            loss, aux, stats, mesh)
+        with diagnostics.span("learner.update"):
+            lanes, global_b = _lanes(ts.env_state, mesh)
+            count = None if mesh is None else tc * global_b
+            env_state, stats, traj = _policy_rollout(ts.model, ts.env_state, ts.generator, config, lanes)
+            rets = _returns(traj, config)
+            with diagnostics.span("learner.loss"):
+                ts.optimizer.zero_grad(set_to_none=True)
+                # equal T-chunks: the full mean is the mean of the chunk means, so
+                # the gradients accumulated over the chunks, divided once, are the
+                # one-shot gradients
+                loss, aux = 0.0, dict(pg_loss=0.0, v_loss=0.0, entropy=0.0)
+                for c in range(nc):
+                    sl = slice(c * tc, (c + 1) * tc)
+                    traj_c = {k: traj[k][sl] for k in ("obs", "mask", "valid", "action")}
+                    l, a = loss_fn(ts.model, traj_c, rets[sl], count)
+                    l.backward()
+                    loss = loss + l.detach()
+                    aux = {k: aux[k] + a[k].detach() for k in aux}
+                if nc > 1:
+                    for p in ts.model.parameters():
+                        if p.grad is not None:
+                            p.grad /= nc
+                    loss, aux = loss / nc, {k: v / nc for k, v in aux.items()}
+            _sum_grads(ts.model, mesh)
+            with diagnostics.span("learner.optimizer"):
+                ts.optimizer.step()
+            return dataclasses.replace(ts, env_state=env_state, steps=ts.steps + 1), _metrics(
+                loss, aux, stats, mesh)
 
     return train_step
 
@@ -477,8 +491,10 @@ def evaluate_policy(
             actions = greedy(generator, env_state)
         env_state, _, ends = fused_rollout.rollout_driven(env_state, actions[None], 1, return_ends=True)
         ms = torch.where(ms == 0, ends[0], ms)
+        diagnostics.COUNTS["host_reads"] += 1
         if bool((ms > 0).all()):
             break
+    diagnostics.COUNTS["host_reads"] += 1
     ms = ms.cpu()
     out: Dict[str, Any] = {"greedy_makespan": int(ms[0]), "steps": steps}
     if stochastic_lanes:
@@ -706,9 +722,11 @@ def train(
     acc_eps, acc_ms = 0, 0
     for i in range(num_updates):
         ts, m = step(ts)
+        diagnostics.COUNTS["host_reads"] += 2
         acc_eps += int(m["episodes"])
         acc_ms += int(m["total_makespan"])
         if (i + 1) % log_every == 0 or i + 1 == num_updates:
+            diagnostics.COUNTS["host_reads"] += 3
             avg_ms = acc_ms / acc_eps if acc_eps else float("nan")
             history.append(dict(update=i + 1, loss=float(m["loss"]), episodes=acc_eps, avg_makespan=avg_ms))
             log_fn(f"update {i + 1}: loss={float(m['loss']):.4f} episodes={acc_eps} "

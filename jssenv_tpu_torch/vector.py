@@ -19,6 +19,7 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from jssenv_tpu_torch import diagnostics
 from jssenv_tpu_torch.core import engine
 from jssenv_tpu_torch.core.state import I32_MAX, Device, EnvState, resolve_device
 from jssenv_tpu_torch.instances import InstanceSet, InstanceSpec, stack_instances
@@ -179,6 +180,7 @@ def episode_makespans(
     ms = torch.zeros((b,), dtype=torch.int32, device=state.device)
     ret = torch.zeros((b,), dtype=torch.float32, device=state.device)
     for _ in range(int(max_steps)):
+        diagnostics.COUNTS["host_reads"] += 1
         if bool(done_seen.all()):
             break
         new_state, tr = vstep(state, policy(generator, state))

@@ -88,12 +88,6 @@ def test_check_state_invariants_accepts_and_flags():
                 tdg.check_state_invariants(bad)
 
 
-def test_throughput_meter():
-    m = tdg.Throughput()
-    m.update(100)
-    assert m.steps == 100 and m.steps_per_s > 0
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     s = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
     with tdg.trace(str(tmp_path / "t")):
