@@ -146,7 +146,10 @@ Phases (any failure raises and the script exits non-zero):
    ms an update, env-steps/s, the rollout/learn split (CUDA events), the
    busy share with ``--profile``; then the driven kernel held against its
    twin on the learner's last recorded step (light state, every state
-   field, rewards and ends equal) and timed there, ends written;
+   field, rewards and ends equal) and timed there, ends written; and
+   ``observe_kernel`` on that step's state: ``obs``, ``mask`` and ``valid``
+   bit-equal to the plain expressions, both timed in turns against its
+   bytes bound;
 14. data and tensor parallel on this card: (a) a 1-rank NCCL group, the
    learner configuration of phase 13 through ``make_train_step(config,
    mesh)``, 4 updates against the plain step from the same seed (every 8th
@@ -213,9 +216,11 @@ kernel in each build (``KERNELS``: rollout.cu's general build of two, three
 and four machine slots, static, slot class), its time at the main shape of
 its kind (rollout.cu's two-slot build's on the same unpadded batch as the
 static build's, its wider classes' on the WIDE batches, the slot-class
-build's at the padded batch of its kind), and its ``launches``: the driven kernel's sum phases 5,
+build's at the padded batch of its kind, ``observe_kernel``'s at the
+learner's), and its ``launches``: the driven kernel's sum phases 5,
 12, 13, 14 (both ranks' too), 15 and 18, the free kernels' phases 5, 14 and
-18, each path counted from zero (phase 18's from its processes' own counts)
+18, ``observe_kernel``'s phases 12 (reference features), 13 and 14, each
+path counted from zero (phase 18's from its processes' own counts)
 and listed in ``launches_by_path``. Every build must have been launched on
 the main paths. The script exits 1 with its reason, before anything else,
 where the checkout around it is incomplete (``CHECKOUT``), e.g. when it is
@@ -367,6 +372,7 @@ DRIVEN_SOURCE = "jssenv_tpu_torch/core/csrc/driven_static.cu"  # the driven kern
 GENERAL_SOURCE = "jssenv_tpu_torch/core/csrc/general_lane.cu"  # both kernels' slot-class build
 LANE_HEADER = "jssenv_tpu_torch/core/csrc/static_lane.cuh"  # the step math of the register lane
 LANE_BODIES = ("jssenv_tpu_torch/core/csrc/driven_lane.cuh", "jssenv_tpu_torch/core/csrc/free_lane.cuh")
+OBSERVE_SOURCE = "jssenv_tpu_torch/core/csrc/observe.cu"  # the policy's inputs of a step
 KERNELS = {
     "rollout_driven": ("rollout_driven_kernel", "jssenv_tpu/core/pallas_rollout.py:598", SOURCE),
     "rollout_driven_static": ("driven_static_kernel (static J,M)", "jssenv_tpu/core/pallas_rollout.py:598",
@@ -392,6 +398,7 @@ KERNELS = {
                         SOURCE),
     "rollout_free_i16_m3": ("rollout_free_kernel<int16_t> (3 machine slots)", "jssenv_tpu/core/pallas_rollout.py:653",
                             SOURCE),
+    "observe": ("observe_kernel", "none: XLA fusion of jssenv_tpu/core/state.py EnvState.obs", OBSERVE_SOURCE),
 }
 DRIVEN_KEYS = ("rollout_driven", "rollout_driven_static", "rollout_driven_slots", "rollout_driven_m3",
                "rollout_driven_m4")
@@ -401,7 +408,7 @@ DRIVEN_KEYS = ("rollout_driven", "rollout_driven_static", "rollout_driven_slots"
 PASS_NAMES = ("draw", "act", "fast_forward", "prioritization", "check_no_op", "reset")
 CLOCKS = ("JSS_PASS_CLOCKS",)
 # what the script runs or reads of the checkout around it
-CHECKOUT = ("jssenv_tpu_torch", SOURCE, FREE_SOURCE, DRIVEN_SOURCE, GENERAL_SOURCE, LANE_HEADER, *LANE_BODIES,
+CHECKOUT = ("jssenv_tpu_torch", SOURCE, FREE_SOURCE, DRIVEN_SOURCE, GENERAL_SOURCE, LANE_HEADER, *LANE_BODIES, OBSERVE_SOURCE,
             "tools/bench_torch.py", "tools/solver_quality_torch.py",
             "tools/distill_30x20_torch.py", "tools/bench_scaling_torch.py", "tools/gen_golden_torch.py",
             "models_data", "tests/data/golden_solutions.json")
@@ -1095,7 +1102,8 @@ def main() -> int:
         want[f"rollout_driven_m{WIDE_CLASSES[name]}"] += 1
     for name, _, _ in WIDE:
         want[free_key(WIDE_DTYPE[name], f"_m{WIDE_CLASSES[name]}")] += 1
-    check(launches == want and all(launches[k] for k in KERNELS),
+    # every rollout build; observe_kernel runs where a net chooses (12-14)
+    check(launches == want and all(launches[k] for k in KERNELS if k != "observe"),
           f"the main path's launches: {launches}, expected {want}")
     I16_FULL = [(name, B, T) for name, B, T in FULL if FULL_DTYPE[name] == "int16" and name not in PADDED]
 
@@ -1460,6 +1468,32 @@ def main() -> int:
         turns, (None, "static"), shape=f"ta01 B={st.batch_size} T=1 with ends (the learner's env step, light state)",
         plain_ms=twin.ms(), launches=driven(by_path["training"]), call=call_timer(fr, st, acts, 1, True, repeats=10))
     log_driven_row("rollout_driven_learner", timings["rollout_driven_learner"], smi, phase=13)
+    # observe_kernel on the same state: the net's inputs bit-equal to the
+    # plain expressions, then both timed in turns (kernel, plain, plain,
+    # kernel) against the bytes the launch reads and writes
+    plain = lambda: (st.observation()["real_obs"], st.action_mask(), st.job_valid)  # noqa: E731
+    got, want = fr.observe(st), plain()
+    torch.cuda.synchronize()
+    check(all(torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                          w.view(torch.int32) if w.is_floating_point() else w) for g, w in zip(got, want)),
+          "observe at the learner's shape: obs, mask or valid differ from the plain expressions")
+    kerr["observe"] = max(kerr["observe"], float((got[0] - want[0]).abs().max()),
+                          max_err(got[1], want[1]), max_err(got[2], want[2]))
+    turns = {True: [], False: []}
+    for kernel in (True, False, False, True):
+        turns[kernel].append(enqueue_timer((lambda: fr.observe(st)) if kernel else plain, repeats=20))
+    nbytes = sum(t.numel() * t.element_size() for t in (*fr._observe_inputs(st), *got))
+    timings["observe"] = {
+        "ms": sum(t["ms"] for t in turns[True]) / 2, "ms_turns": [t["ms"] for t in turns[True]],
+        "host_ms": sum(t["host_ms"] for t in turns[True]) / 2,
+        "plain_ms": sum(t["ms"] for t in turns[False]) / 2, "plain_ms_turns": [t["ms"] for t in turns[False]],
+        "plain_host_ms": sum(t["host_ms"] for t in turns[False]) / 2, "bytes": nbytes,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "build": "general",
+        "shape": f"ta01 B={st.batch_size} J={st.jobs_pad} (the learner's step, light state)"}
+    ob = timings["observe"]
+    log(f"[13] observe_kernel at the learner's shape equals the plain expressions; {ob['ms']:.5f} ms a launch "
+        f"({ob['host_ms']:.3f} ms host), plain {ob['plain_ms']:.4f} ms ({ob['plain_host_ms']:.3f} ms host); bound "
+        f"{ob['bound_ms']:.5f} ms by bytes ({nbytes} B) ({smi})")
 
     # ---- 14-16. data and tensor parallel, distillation, diagnostics and resume
     by_path["parallel"], par_errs = parallel_phase(report, dev, quick=False)
@@ -1485,7 +1519,7 @@ def main() -> int:
                  "rollout_driven_m4": timings["rollout_driven_wide"],
                  "rollout_free_m3": timings["rollout_free wide150x70"],
                  "rollout_free_m4": timings["rollout_free wide20x100"],
-                 "rollout_free_i16_m3": timings["rollout_free_i16 wide12x70"]}
+                 "rollout_free_i16_m3": timings["rollout_free_i16 wide12x70"], "observe": timings["observe"]}
     kernels = []
     for n in KERNELS:
         row = main_rows.get(n, main_rows[n.removesuffix("_static")])
@@ -1615,22 +1649,14 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
     return out
 
 
-def call_timer(fr, state, actions, T, ends=False, repeats=5, build=None):
-    """The whole ``fr.rollout_driven`` call, from the first input to the
-    returned state, in the build the batch takes (or ``build``'s, through
-    ``_driven_kernel``): the mean device ms of everything it enqueues (CUDA
-    events around the call, the card kept busy by a queued spin while the
-    host issues it), the mean host ms of the call itself, and the mean ms on
-    the host clock synchronised before and after (``sync_ms``: the caller's
-    wall time)."""
+def enqueue_timer(go, repeats):
+    """``go()`` after a warm-up call: the mean device ms of everything it
+    enqueues (CUDA events around the call, the card kept busy by a queued
+    spin while the host issues it) and the mean host ms of the call itself."""
     import torch
 
-    if build is None:
-        go = lambda: fr.rollout_driven(state, actions, T, return_ends=ends)  # noqa: E731
-    else:
-        go = lambda: fr._driven_kernel(state, actions, T, fr._solution_mode(state), ends, build=build)  # noqa: E731
     go()  # warm-up
-    dev_ms = host = wall = 0.0
+    dev_ms = host = 0.0
     for _ in range(repeats):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(CALL_QUEUE_CYCLES)
@@ -1641,13 +1667,30 @@ def call_timer(fr, state, actions, T, ends=False, repeats=5, build=None):
         e1.record()
         torch.cuda.synchronize()
         dev_ms += e0.elapsed_time(e1)
+    return {"ms": dev_ms / repeats, "host_ms": host / repeats * 1e3}
+
+
+def call_timer(fr, state, actions, T, ends=False, repeats=5, build=None):
+    """The whole ``fr.rollout_driven`` call, from the first input to the
+    returned state, in the build the batch takes (or ``build``'s, through
+    ``_driven_kernel``): ``enqueue_timer``'s device and host ms, and the
+    mean ms on the host clock synchronised before and after (``sync_ms``:
+    the caller's wall time)."""
+    import torch
+
+    if build is None:
+        go = lambda: fr.rollout_driven(state, actions, T, return_ends=ends)  # noqa: E731
+    else:
+        go = lambda: fr._driven_kernel(state, actions, T, fr._solution_mode(state), ends, build=build)  # noqa: E731
+    out = enqueue_timer(go, repeats)
+    wall = 0.0
     for _ in range(repeats):
         torch.cuda.synchronize()
         h0 = time.perf_counter()
         go()
         torch.cuda.synchronize()
         wall += time.perf_counter() - h0
-    return {"ms": dev_ms / repeats, "host_ms": host / repeats * 1e3, "sync_ms": wall / repeats * 1e3}
+    return dict(out, sync_ms=wall / repeats * 1e3)
 
 
 def pass_clocks(fr, _build, dev, state, T, vdt, old: bool):
@@ -2158,8 +2201,9 @@ def serving_phase(report: dict, dev, quick: bool) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         n = driven(fr.LAUNCHES)
+        n_obs = n if features == "reference" else 0  # the net's inputs: one observe launch a step
         check(n == res["steps"] and n == len(ends) and fr.LAUNCHES["rollout_driven_static"] == n
-              and sum(fr.LAUNCHES.values()) == n,
+              and fr.LAUNCHES["observe"] == n_obs and sum(fr.LAUNCHES.values()) == n + n_obs,
               f"serve {name} {spec_name}: {fr.LAUNCHES} launches for {res['steps']} steps")
         check(rec.holds > 0, f"serve {name} {spec_name}: no launch held against the twin")
         for k, v in fr.LAUNCHES.items():
@@ -2254,7 +2298,10 @@ def training_phase(report: dict, dev, quick: bool, profile: bool):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = driven(fr.LAUNCHES)
-        check(n == updates * T and fr.LAUNCHES["rollout_driven_static"] == n and sum(fr.LAUNCHES.values()) == n,
+        # the net's inputs: one observe launch a step, and PPO's bootstrap one more an update
+        n_obs = updates * (T + (cfg.algo == "ppo")) if cfg.features == "reference" else 0
+        check(n == updates * T and fr.LAUNCHES["rollout_driven_static"] == n and fr.LAUNCHES["observe"] == n_obs
+              and sum(fr.LAUNCHES.values()) == n + n_obs,
               f"train {tag}: {fr.LAUNCHES} launches for {updates} updates of {T} steps")
         check(calls[0] == n, f"train {tag}: the recorder saw {calls[0]} of {n} driven launches")
         check(rec.holds > 0, f"train {tag}: no launch held against the twin")
@@ -2488,7 +2535,7 @@ def parallel_phase(report: dict, dev, quick: bool):
     fr.reset_launch_counts()
     nccl = learner_run(dev, cfg, B, updates, mesh, snaps=(ru, updates))
     launches = dict(fr.LAUNCHES)
-    check(launches == dict.fromkeys(fr.LAUNCHES, 0) | {"rollout_driven_static": updates * T},
+    check(launches == dict.fromkeys(fr.LAUNCHES, 0) | {"rollout_driven_static": updates * T, "observe": updates * T},
           f"1-rank NCCL learner launches {launches}")
     for k, v in launches.items():
         path[k] += v
@@ -2608,7 +2655,8 @@ def parallel_phase(report: dict, dev, quick: bool):
     for r in ranks:
         lr = json.loads(str(r["learner_launches"]))
         n = ru * T * len(RANK_MESHES) * len(RANK_DTYPES)
-        check(lr["rollout_driven_static"] == n and sum(lr.values()) == n, f"rank worker learner launches {lr}")
+        check(lr["rollout_driven_static"] == n and lr["observe"] == n and sum(lr.values()) == 2 * n,
+              f"rank worker learner launches {lr}")
         for k, v in lr.items():
             path[k] += v
 

@@ -15,10 +15,15 @@ points with the JAX signatures (minus the TPU's ``tile``/``interpret``):
   and episode stats with the exact reward-identity check
   ``raw return == 2*sum_op - M*makespan``; returns summary stats.
 
+A third, ``observe(state)``, builds the policy's three inputs of a step
+(observation, action mask, real job rows) in one launch of
+``csrc/observe.cu``: the learner's and the evaluation's per-step inputs.
+
 On a CUDA state each launches its hand-written kernel or raises; on a CPU
 state each runs its plain twin (``rollout_driven_reference`` /
-``rollout_free_reference``), built on ``core.engine`` and ``vector``. Nothing
-falls back from one to the other.
+``rollout_free_reference``, built on ``core.engine`` and ``vector``; the
+``EnvState`` expressions for ``observe``). Nothing falls back from one to
+the other.
 
 Kernel builds (``Build``; ``driven_build`` and ``free_build`` name the one a
 batch takes, or check the one a caller asks for), all compiled at first use:
@@ -95,10 +100,13 @@ _I32 = torch.int32
 # class: csrc/general_lane.cu), the others csrc/rollout.cu's general build: a
 # "_m<K>" key its build of K > 2 machine slots a thread, added when that
 # library is loaded, no suffix its two-slot build (at most 64 machines).
+# "observe" counts observe_kernel's launches (csrc/observe.cu), the policy's
+# inputs.
 LAUNCHES: Dict[str, int] = {
     "rollout_driven": 0, "rollout_driven_static": 0, "rollout_driven_slots": 0,
     "rollout_free": 0, "rollout_free_static": 0, "rollout_free_slots": 0,
     "rollout_free_i16": 0, "rollout_free_i16_static": 0, "rollout_free_i16_slots": 0,
+    "observe": 0,
 }
 
 
@@ -1060,3 +1068,76 @@ def rollout_free_reference(
         bits = _int_stream(bits, "bits", T, state)
     lanes = free_lane_stats_reference(state, T, seed, bits, lane_offset)
     return _reduce_stats(lanes, T, state.batch_size)
+
+
+# ---------------------------------------------------------------------------
+# the policy's inputs
+# ---------------------------------------------------------------------------
+
+# The fields observe_kernel reads, in ObserveIO's order (csrc/observe.cu):
+# the (B, J) masks, the (B, J) int32 job rows, the (B,) int32 lane scalars.
+_OBSERVE_U8 = ("legal", "noop_legal")
+_OBSERVE_JOBS = ("job_busy_for", "next_op", "work_done", "needed_machine", "wait4", "op_end_at", "idle_frozen",
+                 "idle_total_alloc")
+_OBSERVE_LANE = ("time", "num_jobs", "num_machines", "max_time_op", "max_time_jobs", "sum_op")
+_OBSERVE_COLS = 7
+
+
+@functools.lru_cache(maxsize=None)
+def _observe_lib() -> ctypes.CDLL:
+    """The built ``csrc/observe.cu`` (one general build) with its C signature
+    declared, built at its first use."""
+    lib = _build.load("observe")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # the 16 fields (ObserveIO's order), obs, mask, valid, B, J, stream
+    lib.jss_observe.argtypes = [P] * 19 + [I, I, P]
+    lib.jss_observe.restype = I
+    return lib
+
+
+def _observe_inputs(state: EnvState) -> list:
+    """The fields ``observe_kernel`` reads, in ``ObserveIO``'s order: each
+    as it is when it is a contiguous bool (masks) or int32 tensor, else a
+    contiguous copy of that dtype (``rollout.cu``'s build hands out
+    transposed views), as ``_driven_inputs`` takes them. Never written. A
+    field on another device or of another shape than (B, J) or (B,) is
+    refused."""
+    dev, B, J = state.device, state.batch_size, state.jobs_pad
+    out = []
+    for name in (*_OBSERVE_U8, *_OBSERVE_JOBS, *_OBSERVE_LANE):
+        t = getattr(state, name)
+        dtype = torch.bool if name in _OBSERVE_U8 else _I32
+        shape = (B,) if name == "noop_legal" or name in _OBSERVE_LANE else (B, J)
+        if t.device != dev or t.shape != shape:
+            raise ValueError(f"observe: {name} must be {shape} on {dev}, got {tuple(t.shape)} on {t.device}")
+        out.append(t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous())
+    return out
+
+
+def observe(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The policy's inputs for ``state``: (``obs`` (B, J, 7) float32, the
+    reference observation with column 0 set to the legal mask; ``mask``
+    (B, J+1) bool, the jobs then the no-op slot; ``valid`` (B, J) bool, the
+    rows that are real jobs).
+
+    On a CUDA state one launch of ``observe_kernel`` (``csrc/observe.cu``)
+    on the current stream, into new tensors on every call, bit-equal to the
+    plain expressions (an empty batch launches nothing); a failed build or
+    launch raises. On a CPU state the
+    plain expressions themselves: ``observation()["real_obs"]``,
+    ``action_mask()`` and ``job_valid``."""
+    if state.device.type == "cpu":
+        return state.observation()["real_obs"], state.action_mask(), state.job_valid
+    inputs = _observe_inputs(state)
+    B, J, dev = state.batch_size, state.jobs_pad, state.device
+    obs = torch.empty((B, J, _OBSERVE_COLS), dtype=torch.float32, device=dev)
+    mask = torch.empty((B, J + 1), dtype=torch.bool, device=dev)
+    valid = torch.empty((B, J), dtype=torch.bool, device=dev)
+    if B == 0:  # nothing to launch
+        return obs, mask, valid
+    with torch.cuda.device(dev):
+        err = _observe_lib().jss_observe(*[t.data_ptr() for t in (*inputs, obs, mask, valid)], B, J,
+                                         torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "observe_kernel", f"B={B}, J={J}")
+    LAUNCHES["observe"] += 1
+    return obs, mask, valid

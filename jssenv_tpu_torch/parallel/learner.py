@@ -28,8 +28,11 @@ A sharded step computes the single-device step:
 Every env step of a rollout and of an evaluation is
 ``fused_rollout.step_autoreset`` (or ``rollout_driven`` at T=1): on a CUDA
 state one launch of the driven kernel, on a CPU state its plain twin; there
-is no other path. The policy nets and their gradients are plain PyTorch
-(``models.policy``, autograd), as the JAX package left them to XLA.
+is no other path. A step's net inputs with reference features are
+``fused_rollout.observe`` (``policy_inputs``): one launch of the observation
+kernel on a CUDA state, the plain ``EnvState`` expressions on a CPU one. The
+policy nets and their gradients are plain PyTorch (``models.policy``,
+autograd), as the JAX package left them to XLA.
 
 Differences from the JAX package, each by design:
 
@@ -135,6 +138,16 @@ def obs_batch(env_state: EnvState, config: LearnerConfig) -> torch.Tensor:
     return env_state.observation()["real_obs"]
 
 
+def policy_inputs(env_state: EnvState, config: LearnerConfig):
+    """The net's inputs for ``env_state``: (obs, mask, valid). Reference
+    features come from ``fused_rollout.observe`` (one launch on a CUDA
+    state, the plain expressions on a CPU one); rich features from
+    ``obs_batch``, ``action_mask()`` and ``valid_batch``."""
+    if _features(config) == 7:
+        return fused_rollout.observe(env_state)
+    return obs_batch(env_state, config), env_state.action_mask(), valid_batch(env_state)
+
+
 def make_optimizer(config: LearnerConfig, params) -> torch.optim.Adam:
     """``optax.adam(lr)``: b1 0.9, b2 0.999, eps 1e-8 added outside the
     square root — ``torch.optim.Adam``'s update, stated here rather than
@@ -186,9 +199,7 @@ def _policy_rollout(model: nn.Module, env_state: EnvState, generator, config: Le
         with torch.no_grad():
             for _ in range(config.unroll_steps):
                 with diagnostics.span("policy.forward"):
-                    obs = obs_batch(env_state, config)
-                    mask = env_state.action_mask()
-                    valid = valid_batch(env_state)
+                    obs, mask, valid = policy_inputs(env_state, config)
                     logits, value = model(obs, mask, valid)
                 with diagnostics.span("policy.sample"):
                     action_idx, logp = sample_action(generator, logits, lanes)
@@ -389,8 +400,7 @@ def _make_ppo_step(config: LearnerConfig, mesh: Optional[meshlib.Mesh] = None):
         lanes, global_b = _lanes(ts.env_state, mesh)
         env_state, stats, traj = _policy_rollout(ts.model, ts.env_state, ts.generator, config, lanes)
         with torch.no_grad():  # bootstrap value of the post-rollout state
-            _, last_value = ts.model(obs_batch(env_state, config), env_state.action_mask(),
-                                     valid_batch(env_state))
+            _, last_value = ts.model(*policy_inputs(env_state, config))
         advs = _gae(traj, last_value, config)
         rets = advs + traj["value"]
         advs = _normalise(advs, mesh)
@@ -438,7 +448,7 @@ def greedy_policy(model: nn.Module, config: LearnerConfig) -> vector.Policy:
     def policy(generator, env_state: EnvState) -> torch.Tensor:
         del generator
         with torch.no_grad():
-            logits, _ = model(obs_batch(env_state, config), env_state.action_mask(), valid_batch(env_state))
+            logits, _ = model(*policy_inputs(env_state, config))
         a = torch.argmax(logits, dim=-1)
         return torch.where(a == env_state.jobs_pad, env_state.num_jobs, a)
 
@@ -482,8 +492,7 @@ def evaluate_policy(
     for steps in range(1, int(max_steps) + 1):
         if stochastic_lanes:
             with torch.no_grad():
-                logits, _ = model(obs_batch(env_state, config), env_state.action_mask(),
-                                  valid_batch(env_state))
+                logits, _ = model(*policy_inputs(env_state, config))
             a_samp, _ = sample_action(generator, logits)
             a_samp[0] = torch.argmax(logits[0])
             actions = torch.where(a_samp == env_state.jobs_pad, env_state.num_jobs, a_samp)

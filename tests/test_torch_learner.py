@@ -278,8 +278,10 @@ def test_learner_steps_envs_in_the_driven_kernel_on_card(cuda_dev, algo):
     for _ in range(3):
         ts, m = step(ts)
         assert np.isfinite(float(m["loss"]))
-    # the 6x5 batch is unpadded: the driven kernel's static build
-    assert fr.LAUNCHES == dict.fromkeys(fr.LAUNCHES, 0) | {"rollout_driven_static": 3 * cfg.unroll_steps}
+    # the 6x5 batch is unpadded: the driven kernel's static build; the net's
+    # inputs one observe launch a step, and PPO's bootstrap value one more
+    assert fr.LAUNCHES == dict.fromkeys(fr.LAUNCHES, 0) | {"rollout_driven_static": 3 * cfg.unroll_steps,
+                                                           "observe": 3 * (cfg.unroll_steps + (algo == "ppo"))}
     assert ts.env_state.device.type == "cuda" and ts.env_state.solution.shape[1] == 0
 
     long_cfg = dataclasses.replace(cfg, unroll_steps=64)  # long enough for 6x5 episodes to end
