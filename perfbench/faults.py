@@ -12,7 +12,10 @@ Never planted in a measured run.
 * ``exchange``: the gradient all-reduce between cards left out;
 * ``altered``: an answer altered where it is produced (one more unit of
   makespan in a free call's stats; one more unit of raw reward on lane 0
-  of every env step).
+  of every env step);
+* ``padded_pool``: the per-job net's mean and max pools taken over every
+  job row of a lane, its padded rows too (the net's ``valid`` dropped): a
+  fault that only a batch with padded jobs can show.
 """
 
 from __future__ import annotations
@@ -21,13 +24,14 @@ import contextlib
 
 import torch
 
-FAULTS = ("unchanged", "half_batch", "exchange", "altered")
+FAULTS = ("unchanged", "half_batch", "exchange", "altered", "padded_pool")
 
 
 @contextlib.contextmanager
 def planted(name: str):
     """The program with fault ``name`` planted, for the block's length."""
     from jssenv_tpu_torch.core import engine, fused_rollout
+    from jssenv_tpu_torch.models import policy
     from jssenv_tpu_torch.parallel import learner
 
     if name not in FAULTS:
@@ -67,6 +71,9 @@ def planted(name: str):
         patch(learner, "_mean", half_mean)
     elif name == "exchange":
         patch(learner, "_sum_grads", lambda model, mesh: None)
+    elif name == "padded_pool":
+        forward = policy.PerJobPolicyNet.forward
+        patch(policy.PerJobPolicyNet, "forward", lambda self, obs, mask, valid=None: forward(self, obs, mask))
     else:
         def plus_one(state, T, **kw):
             out = free(state, T, **kw)

@@ -14,15 +14,33 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 
-def layers(J: int, C: int, hidden: Sequence[int]) -> List[Tuple[str, int, int]]:
-    """(name, in, out) of each Dense layer of the flat policy net."""
-    widths = [J * C, *hidden]
-    out = [(f"trunk_{i}", a, b) for i, (a, b) in enumerate(zip(widths, widths[1:]))]
-    return out + [("policy_head", widths[-1], J + 1), ("value_head", widths[-1], 1)]
+def layers(J: int, C: int, hidden: Sequence[int], arch: str = "flat") -> List[Tuple[str, int, int]]:
+    """(name, in, out) of each Dense layer of the configured policy net,
+    in the order of the draw.
+
+    * ``flat``: a trunk over the flattened (J, C) observation, a J+1
+      policy head and a value head;
+    * ``perjob``: a job MLP shared by the J rows (``job_i``, one width, as
+      deep as ``hidden`` is long), a scorer over [a row's embedding, the
+      mean and max pools] (``score_0``, ``score_head``), and the no-op and
+      value heads over the pools (``ctx_0``, ``noop_head``, ``value_head``).
+    """
+    if arch == "flat":
+        widths = [J * C, *hidden]
+        out = [(f"trunk_{i}", a, b) for i, (a, b) in enumerate(zip(widths, widths[1:]))]
+        return out + [("policy_head", widths[-1], J + 1), ("value_head", widths[-1], 1)]
+    if arch != "perjob":
+        raise ValueError(f"unknown arch {arch!r}; one of 'flat', 'perjob'")
+    H = hidden[0]
+    if any(h != H for h in hidden):
+        raise ValueError(f"the perjob net has one width, not {list(hidden)}")
+    out = [(f"job_{i}", C if i == 0 else H, H) for i in range(len(hidden))]
+    return out + [("score_0", 3 * H, H), ("score_head", H, 1), ("ctx_0", 2 * H, H), ("noop_head", H, 1),
+                  ("value_head", H, 1)]
 
 
-def make(seed: int, J: int, C: int, hidden: Sequence[int], device) -> Dict[str, torch.Tensor]:
-    spec = layers(J, C, hidden)
+def make(seed: int, J: int, C: int, hidden: Sequence[int], device, arch: str = "flat") -> Dict[str, torch.Tensor]:
+    spec = layers(J, C, hidden, arch)
     g = torch.Generator(device=device).manual_seed(int(seed) & (2**64 - 1))
     w = torch.randn(sum(i * o for _, i, o in spec), generator=g, device=device).clamp_(-2.0, 2.0)
     b = torch.zeros(sum(o for _, _, o in spec), device=device)

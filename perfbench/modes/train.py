@@ -9,8 +9,11 @@ card, joined as ``learner.train(mesh=...)`` joins them
 and the ranks stop together: after each update they agree on whether the
 window is over (one all-reduce of a flag).
 
-Set-up builds the lanes from the instance pack, the policy weights from
-the seed (``lib/weights.py``), the train state and its step, and drives
+The configuration's ``learner`` names the net (``arch``: ``flat`` or
+``perjob``) and its observation (``features``: ``reference``, 7 columns, or
+``rich``, 13); both sides run what it names. Set-up builds the lanes from
+the instance pack, the policy weights of that net from the seed
+(``lib/weights.py``), the train state and its step, and drives
 that same step through its first ``checked_updates`` updates: the warm-up,
 and the first phase of the check. The window then runs the same train
 state on. Once it has closed, the same step runs ``checked_updates`` more
@@ -45,7 +48,6 @@ from perfbench.lib.trace import Stretch
 from perfbench.reference import env as ref_env
 from perfbench.reference import learner as ref_learner
 
-FEATURES = {"reference": 7}
 LEARNER_KEYS = ("unroll_steps", "gamma", "learning_rate", "value_coef", "entropy_coef", "algo", "features", "arch",
                 "loss_chunks")
 
@@ -156,6 +158,7 @@ def run(ctx) -> SimpleNamespace:
     cfg, traffic, dev, world = ctx.config, ctx.traffic, ctx.device, ctx.world
     L = cfg["learner"]
     B, K = cfg["batch"]["train"], traffic["checked_updates"]
+    C = ref_env.features(L["features"])[0]
     ctx.mark("imported")
     source = instances.get_instance_set(cfg["instances"])
     mesh = None
@@ -168,10 +171,9 @@ def run(ctx) -> SimpleNamespace:
     env_state = vector.strip_solution(env_state)
     ctx.mark("lanes built")
     J, M = env_state.jobs_pad, env_state.machines_pad
-    C = FEATURES[L["features"]]
     config = learner.LearnerConfig(**{k: L[k] for k in LEARNER_KEYS}, hidden=tuple(L["hidden"]),
                                    compute_dtype=getattr(torch, L["compute_dtype"]))
-    params0 = weights.make(ctx.seed, J, C, L["hidden"], dev)
+    params0 = weights.make(ctx.seed, J, C, L["hidden"], dev, L["arch"])
     ctx.mark("weights made")
     ts = learner.init_train_state(ctx.seed, env_state, config, params=params0)
     train_step = learner.make_train_step(config, mesh)
@@ -230,7 +232,8 @@ def run(ctx) -> SimpleNamespace:
         out.trace = stretch.trace
         out.trace.units = traffic["trace_updates"]
         out.trace.sizes = dict(mode="train", B=B, unroll=config.unroll_steps, J=J, M=M, C=C, hidden=list(L["hidden"]),
-                               instances=len(cfg["instances"]), update_s=statistics.median(times))
+                               arch=L["arch"], features=L["features"], instances=len(cfg["instances"]),
+                               update_s=statistics.median(times))
         busy = torch.tensor([out.trace.busy_s, out.trace.window_s], dtype=torch.float64, device=dev)
         if mesh is not None:
             meshlib.all_reduce(busy, mesh.dp_group)

@@ -8,7 +8,9 @@ everything out again from the raw instance tables: the static tables, the
 fresh state, every step. Semantics are the reference JSSEnv's
 (jss_env.py): allocate a job or wait, the closed-form fast-forward to the
 next re-legalisation, the two mask heuristics (prioritisation of non-final
-operations, the no-op check), auto-reset of finished lanes.
+operations, the no-op check), auto-reset of finished lanes. What a policy
+sees: the reference's 7 normalised columns, and the 13 of the rich feature
+set, written from the JAX package's definition of them.
 
 Every tensor is batch-first and int32 (bool for masks); the state is a dict
 of field name -> tensor. ``store_dtype`` narrows every stored integer to a
@@ -355,3 +357,57 @@ def observation(s: State) -> torch.Tensor:
         idle_total.to(f32) / sum_op,
     ], dim=-1)
     return torch.where(job_valid(s)[..., None], cols, 0.0)
+
+
+def rich_observation(s: State) -> torch.Tensor:
+    """(B, J, 13) float32: ``observation``'s 7 columns, then 6 channels of a
+    job's current operation, its remaining work and the machine it needs,
+    as the JAX package's ``EnvState.rich_obs`` defines them; padded rows 0.
+
+    7. the current operation's duration over ``max_time_op``: the duration
+       at operation ``min(next_op, M_pad - 1)``, so a finished job of an
+       unpadded lane reads its last operation's and one of a lane with
+       padded machines the padding's 0, as the definition's clipped index
+       does;
+    8. the work not yet started (operations from ``next_op`` on) over
+       ``max_time_jobs``;
+    9. the operations left, ``(num_machines - next_op) / num_machines``, 0
+       once the job is finished;
+    10. the critical ratio ``(1.5 * job total - time) / max(work left, 1)``
+        clipped to [0, 4], over 4;
+    11. the time left on the machine the job needs over ``max_time_op``, 0
+        for a finished job;
+    12. the legal jobs waiting for that machine, the job itself included,
+        over ``num_jobs``: counted per machine and read back (the definition
+        compares every pair of jobs), 0 for a finished job.
+    """
+    f32 = torch.float32
+    mp = s["op_machine"].shape[2]
+    dur = s["op_dur"]
+    started = _arange(mp, dur)[None, None, :] < s["next_op"][:, :, None]
+    rem_work = torch.where(started, 0, dur).sum(dim=2, dtype=I32).to(f32)
+    cur_dur = row_gather(dur, s["next_op"].clamp(0, mp - 1)).to(f32)
+    total = dur.sum(dim=2, dtype=I32).to(f32)
+    nm = s["num_machines"][:, None]
+    left = torch.where(s["next_op"] >= nm, 0.0, (nm - s["next_op"]).to(f32) / nm.to(f32))
+    ratio = torch.clamp((1.5 * total - s["time"][:, None].to(f32)) / torch.clamp(rem_work, min=1.0), 0.0, 4.0) / 4.0
+    needs = s["needed_machine"] >= 0
+    m = s["needed_machine"].clamp(0, mp - 1)
+    busy = torch.where(needs, lookup(s["machine_busy_for"], m), 0).to(f32)
+    waiting = torch.zeros((s["time"].shape[0], mp), dtype=I32, device=dur.device)
+    waiting = waiting.scatter_add(1, m.long(), (s["legal"] & needs).to(I32))
+    contention = torch.where(needs, lookup(waiting, m), 0).to(f32)
+    max_op = s["max_time_op"][:, None].to(f32)
+    extra = torch.stack([cur_dur / max_op, rem_work / s["max_time_jobs"][:, None].to(f32), left, ratio,
+                         busy / max_op, contention / s["num_jobs"][:, None].to(f32)], dim=-1)
+    return torch.cat([observation(s), torch.where(job_valid(s)[..., None], extra, 0.0)], dim=-1)
+
+
+FEATURES = {"reference": (7, observation), "rich": (13, rich_observation)}
+
+
+def features(name: str):
+    """(width, observation function) of the feature set ``name``."""
+    if name not in FEATURES:
+        raise ValueError(f"unknown features {name!r}; one of {sorted(FEATURES)}")
+    return FEATURES[name]

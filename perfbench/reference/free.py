@@ -53,32 +53,74 @@ def stats(s: env.State, steps: int, seed: int, lane_offset: int = 0,
     """The summary of one free call from the fresh batch ``s``:
     ``episodes``, ``total_makespan``, ``min_makespan`` (2**31-1 when no
     episode ended), ``identity_violations`` and ``total_return`` (float32
-    per lane, summed over lanes)."""
+    per lane, summed over lanes). On a card the steps run through
+    ``replay``; ``s``'s tensors are never written."""
     B, dev = s["time"].shape[0], s["time"].device
-    episodes = torch.zeros((B,), dtype=torch.int64, device=dev)
-    mk_sum, viol = torch.zeros_like(episodes), torch.zeros_like(episodes)
-    mk_min = torch.full((B,), env.I32_MAX, dtype=torch.int64, device=dev)
-    ret = torch.zeros((B,), dtype=torch.float32, device=dev)
-    ep_raw = torch.zeros((B,), dtype=torch.int32, device=dev)
+    zeros = lambda: torch.zeros((B,), dtype=torch.int64, device=dev)  # noqa: E731
+    acc = dict(t=torch.zeros((), dtype=torch.int64, device=dev), episodes=zeros(), mk_sum=zeros(), viol=zeros(),
+               mk_min=torch.full((B,), env.I32_MAX, dtype=torch.int64, device=dev),
+               ret=torch.zeros((B,), dtype=torch.float32, device=dev),
+               ep_raw=torch.zeros((B,), dtype=torch.int32, device=dev))
     identity0 = 2 * s["sum_op"]
     scale = s["max_time_op"].to(torch.float32)
-    for t in range(int(steps)):
-        action = uniform_legal(philox_word(seed, t, B, dev, lane_offset), s)
+
+    def advance(s: env.State, acc: Dict[str, torch.Tensor]):
+        action = uniform_legal(philox_word(seed, acc["t"], B, dev, lane_offset), s)
         stepped, raw, done = env.step(s, action)
         stepped = env.narrow(stepped, store_dtype)
-        ep_raw = ep_raw + raw
+        ep_raw = acc["ep_raw"] + raw
         mk = stepped["time"]
-        episodes += done
-        mk_sum += torch.where(done, mk, 0)
-        mk_min = torch.where(done, torch.minimum(mk_min, mk.to(torch.int64)), mk_min)
-        viol += done & (ep_raw != identity0 - stepped["num_machines"] * mk)
-        ret = ret + raw.to(torch.float32) / scale
-        ep_raw = torch.where(done, 0, ep_raw)
-        s = env.reset_lanes(stepped, done)
+        return env.reset_lanes(stepped, done), dict(
+            t=acc["t"] + 1,
+            episodes=acc["episodes"] + done,
+            mk_sum=acc["mk_sum"] + torch.where(done, mk, 0),
+            viol=acc["viol"] + (done & (ep_raw != identity0 - stepped["num_machines"] * mk)),
+            mk_min=torch.where(done, torch.minimum(acc["mk_min"], mk.to(torch.int64)), acc["mk_min"]),
+            ret=acc["ret"] + raw.to(torch.float32) / scale,
+            ep_raw=torch.where(done, 0, ep_raw),
+        )
+
+    if dev.type == "cuda":
+        s, acc = replay(advance, s, acc, int(steps))
+    else:
+        for _ in range(int(steps)):
+            s, acc = advance(s, acc)
     return {
-        "episodes": int(episodes.sum()),
-        "total_makespan": int(mk_sum.sum()),
-        "min_makespan": int(mk_min.min()),
-        "identity_violations": int(viol.sum()),
-        "total_return": float(ret.sum()),
+        "episodes": int(acc["episodes"].sum()),
+        "total_makespan": int(acc["mk_sum"].sum()),
+        "min_makespan": int(acc["mk_min"].min()),
+        "identity_violations": int(acc["viol"].sum()),
+        "total_return": float(acc["ret"].sum()),
     }
+
+
+def replay(advance, s: env.State, acc: Dict[str, torch.Tensor], steps: int):
+    """``steps`` applications of ``advance`` to ``(s, acc)`` on a card: the
+    first eagerly, the rest as one step captured in a CUDA graph that writes
+    its result over the tensors of the first's and is replayed. The same
+    kernels on the same values as the eager loop, without the host's
+    launches at every step, which would make the check many times longer
+    than the window. The tensors handed in are never written."""
+    if steps == 0:
+        return s, acc
+    s, acc = advance(s, acc)
+    if steps == 1:
+        return s, acc
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        advance(s, acc)  # warm-up outside the capture; its result is dropped
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        new_s, new_acc = advance(s, acc)
+        for old, new in ((s, new_s), (acc, new_acc)):
+            for k, v in new.items():
+                if v is not old[k]:  # a field the step rewrites; the eager step made it, so it is this call's own
+                    if v.dtype != old[k].dtype or v.shape != old[k].shape:
+                        raise RuntimeError(f"replay: {k} changes from {old[k].dtype} {tuple(old[k].shape)} "
+                                           f"to {v.dtype} {tuple(v.shape)} in a step")
+                    old[k].copy_(v)
+    for _ in range(steps - 1):
+        graph.replay()
+    return s, acc

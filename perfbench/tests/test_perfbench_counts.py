@@ -59,12 +59,39 @@ def test_policy_macs_match_the_port_s_net():
     assert weights == policy.masked_net_macs(15, 7, (256, 256))
 
 
+def test_flat_update_flops_unchanged():
+    """The flat count, named or by default, is the value the benchmark has
+    read since its first version."""
+    assert policy.reinforce_update_flops(15, 7, (256, 256), 8192, 32, "flat") == 202_937_204_736
+    assert policy.reinforce_update_flops(15, 7, [256, 256], 8192, 32) == 202_937_204_736
+
+
+def test_perjob_flops():
+    # J (C H + (depth - 1) H^2 + 3 H^2 + H) + 2 H^2 + 2 H at J=30, C=13, H=128, depth 2
+    assert policy.perjob_net_macs(30, 13, (128, 128)) == 30 * (1664 + 16384 + 49152 + 128) + 32768 + 256 == 2_052_864
+    assert policy.reinforce_update_flops(30, 13, (128, 128), 8192, 32, "perjob") == 2 * 2_052_864 * 8192 * 32 * 4
+    with pytest.raises(ValueError, match="'conv'"):
+        policy.reinforce_update_flops(30, 13, (128, 128), 8192, 32, "conv")
+
+
+@pytest.mark.parametrize("J,depth", [(30, 2), (15, 3)])
+def test_perjob_macs_match_the_port_s_net(J, depth):
+    """Each row runs the job MLP and the scorer; each sample the context
+    layer and the two heads over the pools."""
+    from jssenv_tpu_torch.models.policy import PerJobPolicyNet
+
+    net = PerJobPolicyNet(13, hidden=64, depth=depth)
+    w = {n.split(".")[0]: p.numel() for n, p in net.named_parameters() if n.endswith("weight")}
+    rows = sum(v for k, v in w.items() if k.startswith(("job_", "score_")))
+    assert J * rows + w["ctx_0"] + w["noop_head"] + w["value_head"] == policy.perjob_net_macs(J, 13, [64] * depth)
+
+
 def _trace(mode="train"):
     dev = [Event("driven_static_kernel", 10.0, 10.0), Event("driven_static_kernel", 50.0, 10.0),
            Event("ncclDevKernel_AllReduce", 70.0, 20.0), Event("Memcpy DtoH", 85.0, 10.0)]
     host = [Event("aten::mm", 20.0, 30.0), Event("aten::add", 25.0, 5.0)]
-    sizes = dict(mode=mode, B=8192, unroll=32, J=15, M=15, C=7, hidden=[256, 256], instances=10, update_s=0.08,
-                 T=1024, value_bytes=2)
+    sizes = dict(mode=mode, B=8192, unroll=32, J=15, M=15, C=7, hidden=[256, 256], arch="flat", features="reference",
+                 instances=10, update_s=0.08, T=1024, value_bytes=2)
     return Trace((0.0, 100.0), dev, host, units=2, sizes=sizes)
 
 
