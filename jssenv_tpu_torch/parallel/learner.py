@@ -191,15 +191,16 @@ def _policy_rollout(model: nn.Module, env_state: EnvState, generator, config: Le
     holds (T, B, ...) ``obs``, ``mask``, ``valid``, ``action`` (int64 mask
     index), ``reward``, ``done`` (float32), ``value``, ``logp``. ``lanes``:
     (offset, global batch) of a rank's block, for ``sample_action``. The
-    span ``learner.rollout``; a step's ``policy.forward``, ``policy.sample``
-    and ``env.step``."""
+    span ``learner.rollout``; a step's ``policy.forward`` (its inputs in
+    ``policy.observe``), ``policy.sample`` and ``env.step``."""
     with diagnostics.span("learner.rollout"):
         stats = vector.RolloutStats.zero(env_state.device)
         frames = []
         with torch.no_grad():
             for _ in range(config.unroll_steps):
                 with diagnostics.span("policy.forward"):
-                    obs, mask, valid = policy_inputs(env_state, config)
+                    with diagnostics.span("policy.observe"):
+                        obs, mask, valid = policy_inputs(env_state, config)
                     logits, value = model(obs, mask, valid)
                 with diagnostics.span("policy.sample"):
                     action_idx, logp = sample_action(generator, logits, lanes)

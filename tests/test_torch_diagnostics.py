@@ -95,6 +95,42 @@ def test_update_spans_nest_under_the_profiler_and_reach_the_chrome_trace(tmp_pat
     assert manifest.reader("driven_call_host_us").read(train) > 0
 
 
+def _recorded_update(features):
+    """The spans of one warm REINFORCE update of a learner on ``features``,
+    recorded under ``recording()``."""
+    cfg = tl.LearnerConfig(unroll_steps=UNROLL, hidden=(8, 8), features=features, minibatches=1)
+    ts = tl.init_train_state(0, tv.make_batch(ti.get_instance("ta01"), 4, device="cpu"), cfg)
+    step = tl.make_train_step(cfg)
+    ts, _ = step(ts)
+    diagnostics.reset_spans()
+    with diagnostics.recording():
+        step(ts)
+    return diagnostics.spans()
+
+
+@pytest.mark.parametrize("features", ["reference", "rich"])
+def test_policy_observe_nests_under_each_policy_forward(features):
+    """A REINFORCE update's tree: ``learner.update`` > ``learner.rollout`` >
+    ``policy.forward`` > ``policy.observe``, one of each a step; the
+    observe span ends before the forward's net runs, and the reader of
+    ``observe_host_ms_per_update`` sums them."""
+    spans = _recorded_update(features)
+    names = _names(spans)
+    update, rollout = names.index("learner.update"), names.index("learner.rollout")
+    assert spans[update].parent == -1 and spans[rollout].parent == update
+    forwards = [i for i, n in enumerate(names) if n == "policy.forward"]
+    observes = [s for s in spans if s.name == "policy.observe"]
+    assert len(forwards) == len(observes) == UNROLL
+    assert all(spans[i].parent == rollout for i in forwards)
+    assert [s.parent for s in observes] == forwards
+    for s in observes:
+        p = spans[s.parent]
+        assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    want = sum(s.end_ns - s.start_ns for s in observes) * 1e-6
+    train = Trace((0.0, 1.0), [], [], sizes={"mode": "train"})
+    assert manifest.reader("observe_host_ms_per_update").read(train, spans) == pytest.approx(want)
+
+
 def test_rollout_free_records_env_free():
     state = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
     diagnostics.reset_spans()
