@@ -41,10 +41,11 @@ Phases (any failure raises and the script exits non-zero):
    masks of the bytes 0 and 1 only (``hold_driven``);
 4. free parity, bits mode: the same (T, B) bits through the kernel and the
    plain twin; per-lane integer stats equal, return within rel 1e-5, no
-   reward-identity violations. Where a case's values fit int16, both
-   instantiations of the free kernel (int32 and int16) are held against the
-   same twin; each in every build that takes the batch (static, slot class,
-   rollout.cu), bit-equal lane by lane; a padded case too; then past 64
+   reward-identity violations. The register builds (static, slot class)
+   read the state's own fields; rollout.cu's reads a lane buffer, and where
+   a case's values fit int16 both its instantiations (int32 and int16) are
+   held against the same twin; every build that takes the batch bit-equal
+   lane by lane; a padded case too; then past 64
    machines (``WIDE_PARITY``: random 20x100, 150x70 and 12x70 instances,
    rollout.cu's builds of four and three machine slots a thread) from a
    fresh and a mid-episode start, the driven kernel (full and light, ends,
@@ -56,9 +57,9 @@ Phases (any failure raises and the script exits non-zero):
    in the driven kernel) on ta01 with B=16384, and the free Philox rollout on
    ta01 B=16384, ragged ta01-ta10 B=10240, ragged ta41-ta50 B=10240 and ta71
    B=8192 (static builds), and on the padded batches of two shapes ta01+ta11
-   and ta01+ta41, B=10240, T=512 (the slot-class build). ``value_dtype`` must
-   pick int16 on ta01, ta01-ta10 and ta01+ta11 (which launch the int16
-   instantiation) and int32 on the others. Also the policy loop on the padded
+   and ta01+ta41, B=10240, T=512 (the slot-class build), each on the
+   state's own fields. ``value_dtype`` (rollout.cu's storage type) must
+   pick int16 on ta01, ta01-ta10 and ta01+ta11 and int32 on the others. Also the policy loop on the padded
    ta01+ta11 batch (B=8192, 300 steps; the slot-class driven kernel, each
    lane's reward identity at its episode ends, from the kernel's own ends);
    every ``LOOP_HOLD``-th step of both loops held against the twin and the
@@ -78,16 +79,16 @@ Phases (any failure raises and the script exits non-zero):
    unpadded batch lanes [B/2, B) alone with lane_offset B/2 equal to the
    whole run's; then the kernel in bits mode at full width, in both builds
    lane by lane against the twin on the same bits, its mean makespan within
-   1% of the Philox run's; then, on the unpadded int16 batches, the int16
-   kernel against the int32 one lane by lane on the same Philox seed; then
+   1% of the Philox run's; then, on the unpadded int16 batches, rollout.cu's
+   int16 kernel against its int32 one lane by lane on the same Philox seed; then
    each WIDE config's lanes [B/2, B) from their lane_offset against the
    whole run's, and its bits mode against the twin;
 7. kernel times (CUDA events, after warm-up, the card kept busy by a queued
    spin while the host issues each launch, so that the events time the
    kernel and not the launch call, whose host time is kept beside) on each
    batch in turns, rollout.cu's build, the slot-class build and the static
-   one (in that order, then back; on the int16 batches the int32 static
-   build too; a padded batch has the first two), the plain twins' times,
+   one (in that order, then back; a padded batch has the first two), the
+   plain twins' times,
    the least time the card could take, env-steps/s; with
    ``--against ROOT``, the kernels of another checkout (e.g. the parent
    commit's, unpacked with ``git archive``) and this one's in turns (root,
@@ -378,17 +379,13 @@ KERNELS = {
     "rollout_driven_static": ("driven_static_kernel (static J,M)", "jssenv_tpu/core/pallas_rollout.py:598",
                               DRIVEN_SOURCE),
     "rollout_free": ("rollout_free_kernel", "jssenv_tpu/core/pallas_rollout.py:653", SOURCE),
-    "rollout_free_static": ("free_static_kernel<int32_t> (static J,M)", "jssenv_tpu/core/pallas_rollout.py:653",
+    "rollout_free_static": ("free_static_kernel (static J,M)", "jssenv_tpu/core/pallas_rollout.py:653",
                             FREE_SOURCE),
     "rollout_free_i16": ("rollout_free_kernel<int16>", "jssenv_tpu/core/pallas_rollout.py:653", SOURCE),
-    "rollout_free_i16_static": ("free_static_kernel<int16_t> (static J,M)", "jssenv_tpu/core/pallas_rollout.py:653",
-                                FREE_SOURCE),
     "rollout_driven_slots": ("driven_general_kernel (slot class S,K)", "jssenv_tpu/core/pallas_rollout.py:598",
                              GENERAL_SOURCE),
-    "rollout_free_slots": ("free_general_kernel<int32_t> (slot class S,K)", "jssenv_tpu/core/pallas_rollout.py:653",
+    "rollout_free_slots": ("free_general_kernel (slot class S,K)", "jssenv_tpu/core/pallas_rollout.py:653",
                            GENERAL_SOURCE),
-    "rollout_free_i16_slots": ("free_general_kernel<int16_t> (slot class S,K)",
-                               "jssenv_tpu/core/pallas_rollout.py:653", GENERAL_SOURCE),
     # rollout.cu's builds of more machine slots a thread (past 64 machines)
     "rollout_driven_m3": ("rollout_driven_kernel (3 machine slots)", "jssenv_tpu/core/pallas_rollout.py:598", SOURCE),
     "rollout_driven_m4": ("rollout_driven_kernel (4 machine slots)", "jssenv_tpu/core/pallas_rollout.py:598", SOURCE),
@@ -420,9 +417,12 @@ def driven(counts) -> int:
 
 
 def free_key(vdt, build="") -> str:
-    """The LAUNCHES key of the free kernel in storage dtype ``vdt`` (a torch
-    dtype or its name) in the build of key suffix ``build`` ("", "_static",
-    "_slots", "_m3", ...)."""
+    """The LAUNCHES key of the free kernel in the build of key suffix
+    ``build`` ("", "_static", "_slots", "_m3", ...): rollout.cu's in storage
+    dtype ``vdt`` (a torch dtype or its name); the register builds
+    ("_static", "_slots") read the state's fields and have none."""
+    if build in ("_static", "_slots"):
+        return "rollout_free" + build
     return ("rollout_free_i16" if "int16" in str(vdt) else "rollout_free") + build
 
 
@@ -597,37 +597,35 @@ def main() -> int:
         log(f"[2] driven_static_kernel {shape}: {blocks} blocks of {geo.lanes} lanes an SM ({blocks * geo.lanes} "
             f"resident warps), {row['waves_at_main_B']:.3f} waves at B={MAIN_B}")
     # the free kernel's registers, spills, resident warps and waves at each
-    # unpadded FULL config, in the config's value dtype
+    # unpadded FULL config
     report["free_static_occupancy"] = {}
     for name, B, _ in FULL:
         if name in PADDED:
             continue
         few = make(name, 2)
-        shape, i16 = (few.jobs_pad, few.machines_pad), FULL_DTYPE[name] == "int16"
+        shape = (few.jobs_pad, few.machines_pad)
         lib = fr._free_lib(shape)
-        lib.jss_free_static_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.jss_free_static_blocks_per_sm.argtypes = []
         lib.jss_free_static_blocks_per_sm.restype = ctypes.c_int
-        blocks = lib.jss_free_static_blocks_per_sm(int(i16))
+        blocks = lib.jss_free_static_blocks_per_sm()
         check(blocks >= 1, f"free_static {shape}: occupancy query failed ({blocks})")
         geo = fr.static_geometry(B)
-        kernel = "int16_t" if i16 else "int32_t"
         ptx = [ln for ln in report["ptxas"][f"free_static static {shape[0]}x{shape[1]}"].split("\n")
                if ln.strip()]
-        row = {"shape": shape, "kernel": kernel, "blocks_per_sm": blocks, "warps_per_sm": blocks * geo.lanes,
+        row = {"shape": shape, "blocks_per_sm": blocks, "warps_per_sm": blocks * geo.lanes,
                "waves": geo.blocks / (blocks * sms), "ptxas": ptx}
         report["free_static_occupancy"][name] = row
-        log(f"[2] free_static_kernel<{kernel}> {name} {shape} B={B}: {blocks} blocks of {geo.lanes} lanes an SM "
+        log(f"[2] free_static_kernel {name} {shape} B={B}: {blocks} blocks of {geo.lanes} lanes an SM "
             f"({blocks * geo.lanes} resident warps), {geo.blocks} blocks over {sms} SMs: {row['waves']:.3f} waves")
     # both slot-class kernels of each class: registers, spills, resident warps
     report["general_occupancy"] = {}
     for slots in SLOT_CLASSES:
         lib = fr._general_lib(slots)
         lib.jss_driven_general_blocks_per_sm.argtypes = []
-        lib.jss_free_general_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.jss_free_general_blocks_per_sm.argtypes = []
         for fn in (lib.jss_driven_general_blocks_per_sm, lib.jss_free_general_blocks_per_sm):
             fn.restype = ctypes.c_int
-        blocks = {"driven": lib.jss_driven_general_blocks_per_sm(), "free_int32": lib.jss_free_general_blocks_per_sm(0),
-                  "free_int16": lib.jss_free_general_blocks_per_sm(1)}
+        blocks = {"driven": lib.jss_driven_general_blocks_per_sm(), "free": lib.jss_free_general_blocks_per_sm()}
         check(min(blocks.values()) >= 1, f"general_lane {slots}: occupancy query failed ({blocks})")
         tag = job_tag(fr.build_job("driven", fr.Build("slots", slots)))
         ptx = [ln.strip() for ln in report["ptxas"][tag].split("\n") if ln.strip()]
@@ -776,10 +774,11 @@ def main() -> int:
     KEY = {torch.int32: "rollout_free", torch.int16: "rollout_free_i16"}
 
     def free_kernel(state, T, vdt, seed=0, bits=None, build=None, lane_offset=0):
-        """Per-lane stats of one launch of the free kernel's ``vdt``
-        instantiation, in the build the batch takes (or ``build``); checks
-        that it launched, under its key."""
-        key = KEY[vdt] + fr._key(fr.free_build(state, build))
+        """Per-lane stats of one launch of the free kernel in the build the
+        batch takes (or ``build``): rollout.cu's in its ``vdt``
+        instantiation, a register build on the state's fields; checks that
+        it launched, under its key."""
+        key = free_key(vdt, fr._key(fr.free_build(state, build)))
         before = dict(fr.LAUNCHES)
         out = fr._free_kernel(state, T, seed, bits, vdt, lane_offset=lane_offset, build=build)
         check(fr.LAUNCHES[key] == before[key] + 1 and sum(fr.LAUNCHES.values()) == sum(before.values()) + 1,
@@ -811,7 +810,7 @@ def main() -> int:
         row = {"config": name, "B": B, "T": T, "episodes": int(r["episodes"].sum()),
                "value_dtype": str(fr.value_dtype(state))}
         for vdt in (torch.int32, torch.int16) if fr.value_dtype(state) == torch.int16 else (torch.int32,):
-            key = KEY[vdt] + free_variant(state)
+            key = free_key(vdt, free_variant(state))
             k = free_both(state, T, vdt, f"free bits {key} {name}", bits=bits)
             ret_err, rel = compare_free(k, r, f"free bits {key} {name}")
             same_lanes(k, r, f"free bits {key} {name}: kernel and twin")
@@ -820,7 +819,7 @@ def main() -> int:
         check(row["episodes"] > 0, f"free bits {name}: no episode ended")
         report["free_parity"].append(row)
         log(f"[4] free parity (bits; every build bit-equal) {row}")
-    for key in ("rollout_free_i16_static", "rollout_free_i16_slots"):
+    for key in ("rollout_free_static", "rollout_free_slots"):
         check(any(key in r for r in report["free_parity"]), f"no bits-mode case ran {key}")
 
     # every other slot class, on a batch of two random shapes padded to one:
@@ -886,7 +885,7 @@ def main() -> int:
             bits = rand_bits(T, B, SEED + 600 + i)
             for vdt in (torch.int32, torch.int16) if fr.value_dtype(state) == torch.int16 else (torch.int32,):
                 for seed, b, off in ((SEED, None, B + 7), (0, bits, 0)):
-                    key = KEY[vdt] + variant(state)
+                    key = free_key(vdt, variant(state))
                     k = free_kernel(start, T, vdt, seed, b, lane_offset=off)
                     r = fr.free_lane_stats_reference(start, T, seed, b, off)
                     mode = "bits" if b is not None else "philox"
@@ -1118,7 +1117,7 @@ def main() -> int:
         # the kernel lane by lane, in every build that takes the batch:
         # bit-equal to the twin
         vdt = getattr(torch, FULL_DTYPE[name])
-        kkey = KEY[vdt] + free_variant(state)
+        kkey = free_key(vdt, free_variant(state))
         check(kkey.endswith("_slots") == (name in PADDED), f"{name}: {kkey}, padded {PADDED}")
         k_lanes = free_both(state, T, vdt, f"{kkey} {name}", seed=SEED)
         same_lanes(k_lanes, r_lanes, f"{kkey} {name}: kernel and twin")
@@ -1152,11 +1151,12 @@ def main() -> int:
             f"{B // 2} (return rel err {rel:.2e}), bits-mode mean makespan "
             f"{mean_bits:.2f} vs philox {k['mean_makespan']:.2f} ({drift:.2e}), plain {plain_free_ms[name]:.0f} ms")
 
-    # the int16 kernel against the int32 kernel, lane by lane, at full width
+    # rollout.cu's int16 kernel against its int32 kernel, lane by lane, at
+    # full width (the register builds have no storage type)
     for name, B, T in I16_FULL:
         state = make(name, B)
-        k16 = free_kernel(state, T, torch.int16, seed=SEED)
-        k32 = free_kernel(state, T, torch.int32, seed=SEED)
+        k16 = free_kernel(state, T, torch.int16, seed=SEED, build="rollout")
+        k32 = free_kernel(state, T, torch.int32, seed=SEED, build="rollout")
         diff = {key: max_err(k16[key], k32[key]) for key in ("episodes", "mk_sum", "mk_min", "viol")}
         check(not any(diff.values()), f"int16 vs int32 {name}: per-lane stats differ {diff}")
         check(torch.equal(k16["ret"], k32["ret"]), f"int16 vs int32 {name}: returns differ")
@@ -1173,7 +1173,7 @@ def main() -> int:
     for name, B, T in WIDE:
         state = make(name, B)
         vdt = getattr(torch, WIDE_DTYPE[name])
-        key = KEY[vdt] + free_variant(state)
+        key = free_key(vdt, free_variant(state))
         whole = free_kernel(state, T, vdt, seed=SEED)
         src = instances.stack_instances([source(instances, name)])
         half = free_kernel(vector.make_lanes(src, torch.arange(B // 2, B), dev), T, vdt, seed=SEED, lane_offset=B // 2)
@@ -1187,9 +1187,9 @@ def main() -> int:
 
     # ---- 7. kernel times and bounds ----------------------------------------
     # each row in turns on one batch (CUDA events; the launch_timer calls in
-    # the order given, then reversed): rollout.cu's build, the slot-class
-    # build and the static one of the batch's shape, and on an int16 batch
-    # the int32 static build too. A padded batch has the first two.
+    # the order given, then reversed): rollout.cu's build (in the batch's
+    # storage type), the slot-class build and the static one of the batch's
+    # shape (both on the state's fields). A padded batch has the first two.
     timings = {}
 
     def in_turns(kernel, state, T, variants, **kw):
@@ -1251,27 +1251,14 @@ def main() -> int:
     for name, B, T in FULL:
         state = make(name, B)
         vdt = getattr(torch, FULL_DTYPE[name])
-        if name in PADDED:
-            variants, main = [(vdt, "rollout"), (vdt, "slots")], (vdt, "slots")
-        elif vdt == torch.int16:
-            variants = [(torch.int32, "static"), (vdt, "rollout"), (vdt, "slots"), (vdt, "static")]
-            main = (vdt, "static")
-        else:
-            variants, main = [(vdt, "rollout"), (vdt, "slots"), (vdt, "static")], (vdt, "static")
+        variants = [(vdt, "rollout"), (vdt, "slots")] + ([] if name in PADDED else [(vdt, "static")])
         turns = in_turns("rollout_free", state, T, variants, repeats=2)
-        row = turn_row(turns, main, shape=f"{name} B={B} T={T}", plain_ms=plain_free_ms[name])
+        row = turn_row(turns, variants[-1], shape=f"{name} B={B} T={T}", plain_ms=plain_free_ms[name])
         row["env_steps_per_s"] = B * T / (row["ms"] / 1e3)
-        if (torch.int32, "static") in turns and vdt == torch.int16:
-            ms32 = [t["ms"] for t in turns[torch.int32, "static"]]
-            row.update(int32_ms=sum(ms32) / 2, int32_ms_turns=ms32,
-                       int32_bound_ms=turns[torch.int32, "static"][0]["bound_ms"])
-            row["ratio_to_int32"] = row["ms"] / row["int32_ms"]
         timings[f"{KEY[vdt]} {name}"] = row
         log(f"[7] {KEY[vdt]} {name} ({row['build']} build): {row['ms']:.3f} ms"
             + (f", slot class {row['slots_ms']:.3f} ms" if "slots_ms" in row else "")
             + f", rollout.cu's {row['general_ms']:.3f} ms ({row['build']}/general {row[row['build'] + '_to_general']:.3f})"
-            + (f", int32 static {row['int32_ms']:.3f} ms (ratio {row['ratio_to_int32']:.3f})" if "int32_ms" in row
-               else "")
             + f"; {row['env_steps_per_s']:.4g} env-steps/s ({smi}); bound {row['bound_ms']:.4f} ms by "
               f"{row['bound_by']}; plain {row['plain_ms']:.0f} ms")
     for key in ("rollout_driven", "rollout_driven_T512", "rollout_driven_padded"):
@@ -1514,7 +1501,6 @@ def main() -> int:
                  "rollout_free_i16": timings["rollout_free_i16 ta01"],
                  "rollout_driven_slots": timings["rollout_driven_padded"],
                  "rollout_free_slots": timings["rollout_free ta01+ta41"],
-                 "rollout_free_i16_slots": timings["rollout_free_i16 ta01+ta11"],
                  "rollout_driven_m3": timings["rollout_driven wide12x70"],
                  "rollout_driven_m4": timings["rollout_driven_wide"],
                  "rollout_free_m3": timings["rollout_free wide150x70"],
@@ -1562,7 +1548,8 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
     older build's state buffer restored first), the mean host ms of the
     launch call (``host_ms``), and the launch's bound. ``fr``: the
     ``fused_rollout`` module whose kernels are timed (this checkout's or
-    another's). ``vdt``: the free kernel's storage dtype (int32 by default). ``ends``: the driven kernel's (T, B) episode
+    another's). ``vdt``: the storage dtype of rollout.cu's free kernel (int32 by default; this checkout's
+    register builds read the state's fields). ``ends``: the driven kernel's (T, B) episode
     ends are asked for, as the learner's steps do (the driven static and
     slot-class builds write them always). ``build``: "rollout" (rollout.cu's
     general build), "slots" or "static" (a checkout without slot classes:
@@ -1582,8 +1569,18 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
     else:
         lane = "static" if kernel == "rollout_driven" and hasattr(fr, "launch_driven_static") and (
             build != "rollout" and fr.static_shape(state) is not None) else None
-    buf0 = buf = None
-    if lane:
+    # the free kernel's register builds on the state's own fields (this
+    # checkout's); an older checkout's read a lane buffer
+    field_free = hasattr(fr, "_free_inputs")
+    fields = kernel == "rollout_free" and field_free and fr.free_build(state, build).kind != "rollout"
+    buf0 = buf = inputs = None
+    if fields:
+        inputs = fr._free_inputs(state)
+        b = fr.free_build(state, build)
+        st = torch.empty((4, B), dtype=torch.int64, device=dev)
+        ret = torch.empty((B,), dtype=torch.float32, device=dev)
+        go = lambda: fr._launch_free_lane(b, state, inputs, tab, lanec, bits, SEED, st, ret, T)  # noqa: E731
+    elif lane:
         inputs = fr._driven_inputs(state)
         out, out8, *_ = fr._driven_outputs(state, T)
         if three:
@@ -1600,7 +1597,8 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
             go = lambda: fr.launch_driven(state, buf, tab, lanec, actions, rewards, ws, *extra)  # noqa: E731
         else:
             # an older checkout's free launcher chooses the build by `_general`
-            force = {"build": build} if three else {"_general": build == "rollout"}
+            # or `build`; this one's is rollout.cu's alone
+            force = {} if field_free else {"build": build} if three else {"_general": build == "rollout"}
             st = torch.empty((4, B), dtype=torch.int64, device=dev)
             ret = torch.empty((B,), dtype=torch.float32, device=dev)
             go = lambda: fr.launch_free(state, buf, tab, lanec, bits, SEED, st, ret, T, vdt, **force)  # noqa: E731
@@ -1635,9 +1633,12 @@ def launch_timer(fr, dev, kernel, state, T, actions=None, bits=None, repeats=5, 
         nbytes = call_bytes if buf is None else 2 * 4 * (4 + 10 * J + 2 * M) * B + steps
         ops_per = 4 * J + 2 * M
     else:
-        # the light state rows in the storage dtype, read once; the tables,
-        # the lane constants, the bits, the stats and returns
-        nbytes = (4 + 10 * J + 2 * M) * B * buf.element_size() + 4 * (
+        # the light state rows in the storage dtype (or the fields read, at
+        # their own dtypes), read once; the tables, the lane constants, the
+        # bits, the stats and returns
+        light = (4 + 10 * J + 2 * M) * B * buf.element_size() if buf is not None else sum(
+            t.numel() * t.element_size() for t in inputs)
+        nbytes = light + 4 * (
             tab.numel() + 5 * B + (T * B if bits is not None else 0) + 2 * 4 * B + B)
         ops_per = 5 * J + 2 * M + (0 if bits is not None else 100)
     nops = T * B * ops_per
@@ -1695,8 +1696,9 @@ def call_timer(fr, state, actions, T, ends=False, repeats=5, build=None):
 
 def pass_clocks(fr, _build, dev, state, T, vdt, old: bool):
     """One launch of the instrumented static free kernel (``old``: the
-    shared-memory design, rollout.cu built with -DJSS_PASS_CLOCKS; else
-    free_static.cu's) on ``state`` in storage ``vdt``, Philox at SEED: the
+    shared-memory design, rollout.cu built with -DJSS_PASS_CLOCKS, on its
+    lane buffer in storage ``vdt``; else free_static.cu's, on the state's
+    fields) on ``state``, Philox at SEED: the
     mean cycles a lane-step of each pass (PASS_NAMES; clock64 deltas summed
     per lane by the warp's rank 0) and the per-lane stats."""
     import torch
@@ -1707,24 +1709,24 @@ def pass_clocks(fr, _build, dev, state, T, vdt, old: bool):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.jss_pass_count.argtypes, lib.jss_pass_count.restype = [], I
     check(lib.jss_pass_count() == len(PASS_NAMES), "the instrumented kernel's passes")
-    buf = fr._to_lanes(state, with_solution=False, vdt=vdt)
     tab, lanec = fr._lane_inputs(state)
     stats = torch.empty((4, B), dtype=torch.int64, device=dev)
     ret = torch.empty((B,), dtype=torch.float32, device=dev)
     clocks = torch.zeros((len(PASS_NAMES), B), dtype=torch.int64, device=dev)
-    head = [buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), None, SEED, stats.data_ptr(), ret.data_ptr(), B, J, M,
-            T, 0]
+    tail = [tab.data_ptr(), lanec.data_ptr(), None, SEED, stats.data_ptr(), ret.data_ptr(), B, J, M, T, 0]
     stream = torch.cuda.current_stream().cuda_stream
     if old:
+        buf = fr._to_lanes(state, with_solution=False, vdt=vdt)
         geo = fr.launch_geometry(J, M, vdt)
         fn = lib.jss_rollout_free_clocks
         fn.argtypes, fn.restype = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, I, I, I, I, P, P, I], I
-        err = fn(*head, geo.lanes, geo.state_stride, geo.scratch_stride, geo.shared_bytes, stream, clocks.data_ptr(),
-                 i16)
-    else:
+        err = fn(buf.data_ptr(), *tail, geo.lanes, geo.state_stride, geo.scratch_stride, geo.shared_bytes, stream,
+                 clocks.data_ptr(), i16)
+    else:  # on the state's fields: no storage type
+        inputs = fr._free_inputs(state)
         fn = lib.jss_free_static_clocks
-        fn.argtypes, fn.restype = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, P, P, I], I
-        err = fn(*head, stream, clocks.data_ptr(), i16)
+        fn.argtypes, fn.restype = fr._FREE_ARGTYPES + [P], I
+        err = fn(*[t.data_ptr() for t in inputs], *tail, stream, clocks.data_ptr())
     check(err == 0, f"instrumented {'rollout' if old else 'free_static'} ({J}, {M}): cudaError {err}")
     torch.cuda.synchronize()
     per = clocks.sum(dim=1).tolist()

@@ -10,25 +10,32 @@
 //
 // Beside the lane this adds the draw (the slot from the words' popcounts, the
 // job by one ballot; the modulo a multiply-high by a constant table,
-// mod_small), the Philox words and the stats. The state is read once from
-// the light (R, B) buffer of the padded shape, so int16 or int32 storage
-// matters only at that load; op_end_at, idle_frozen, idle_total_alloc and
-// wait4 are not read at all: no decision of a step reads them, and the free
-// rollout returns only stats.
+// mod_small), the Philox words and the stats. The state is read once, from
+// the EnvState's own batch-first tensors at their own dtypes (int32 fields,
+// masks as torch.bool bytes), as driven_lane.cuh's driven_load reads them:
+// there is no lane buffer and no storage type. op_end_at, idle_frozen,
+// idle_total_alloc, wait4 and the solution are not read at all: no decision
+// of a step reads them, and the free rollout returns only stats.
 
 #pragma once
 #include "static_lane.cuh"
 
 namespace {
 
-// Rows of the light (R, B) state buffer of padded shape (J, M), in
-// fused_rollout._ROWS order.
-enum : int { R_TIME = 0, R_NOOP = 1, R_NB_LEGAL = 2, R_NB_ML = 3, R_LEGAL = 4 };
-struct FreeRows {
-  int ml, mbf, jbf, next_op, work_done, needed, noop_pin;
-  __device__ FreeRows(int J, int M)
-      : ml(4 + J), mbf(4 + J + M), jbf(4 + J + 2 * M), next_op(jbf + J), work_done(jbf + 2 * J),
-        needed(jbf + 3 * J), noop_pin(jbf + 7 * J) {}
+// The pointers of one launch, passed by value. The state's fields come in
+// the order of driven_lane.cuh's DrivenIO less the fields the free rollout
+// does not read (fused_rollout._FREE_I32, then _FREE_U8).
+struct FreeIO {
+  const int *time, *nb_legal, *nb_ml, *mbf;           // (B,), (B,), (B,), (B, M)
+  const int *jbf, *next_op, *work_done, *needed;      // (B, J) each
+  const uint8_t *noop_legal, *legal, *noop_pin, *ml;  // (B,), (B, J), (B, J), (B, M)
+  const int *tab, *lanec;                             // tables, lane constants
+  const uint32_t* bits;                               // (T, B) caller words, or null: Philox
+  unsigned long long seed;                            // the Philox key
+  long long* stats;                                   // (4, B) per-lane stats
+  float* ret;                                         // (B,) float32 returns
+  int B, J, M, T;                                     // J, M: the padded shape (a static build's own)
+  int lane_offset;                                    // this batch's first lane in a batch split over ranks
 };
 // Per-lane stats rows of the (4, B) int64 output.
 enum : int { S_EPISODES = 0, S_MK_SUM, S_MK_MIN, S_VIOL };
@@ -90,27 +97,30 @@ __device__ int sample(const Lane<false>& l, uint32_t w) {
 // the test written out in the loop (56 -> 64 at one or two job slots).
 __device__ __forceinline__ bool row_in(int s, int r, int J) { return s < S - 1 || (S - 1) * 32 + r < J; }
 
-// The lane's state from the (R, B) buffer of storage type V (row x of lane b
-// at src[x * B + b]); the only place V matters.
-template <typename V>
-__device__ void free_load(Lane<false>& l, const V* src, int B, int b) {
-  const FreeRows R(l.J, l.M);
-  auto at = [&](int row) { return (int)src[(size_t)row * B + b]; };
-  l.time = at(R_TIME);
-  l.noop = at(R_NOOP);
-  l.nb_legal = at(R_NB_LEGAL);
-  l.nb_ml = at(R_NB_ML);
+// Lane b's state from the input tensors (row j of lane b's (B, J) field at
+// b * J + j: a warp's read of a row is coalesced). The lane's rows go
+// through pointers of its own with int offsets (the wrapper keeps B * J and
+// B * M below 2^31): size_t offsets into the fields cost the static build of
+// ta71's shape 12 more bytes of spill stores.
+__device__ void free_load(Lane<false>& l, const FreeIO& io, int b) {
+  const int row = b * l.J, mrow = b * l.M;
+  const int *jbf = io.jbf + row, *next_op = io.next_op + row, *needed = io.needed + row, *work_done = io.work_done + row;
+  const uint8_t *legal = io.legal + row, *pin = io.noop_pin + row;
+  l.time = io.time[b];
+  l.noop = io.noop_legal[b] != 0;
+  l.nb_legal = io.nb_legal[b];
+  l.nb_ml = io.nb_ml[b];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int j = l.r + 32 * s;
     const bool in = row_in(s, l.r, l.J);
     const bool job = kStatic ? in : j < l.nj;
-    l.jbf[s] = in ? at(R.jbf + j) : 0;
-    l.next_op[s] = in ? at(R.next_op + j) : l.nm;
-    l.needed[s] = in ? at(R.needed + j) : -1;
-    l.work_done[s] = in ? at(R.work_done + j) : 0;
-    l.legal[s] = __ballot_sync(JSS_FULL, in && at(R_LEGAL + j) != 0);
-    l.pin[s] = __ballot_sync(JSS_FULL, in && at(R.noop_pin + j) != 0);
+    l.jbf[s] = in ? jbf[j] : 0;
+    l.next_op[s] = in ? next_op[j] : l.nm;
+    l.needed[s] = in ? needed[j] : -1;
+    l.work_done[s] = in ? work_done[j] : 0;
+    l.legal[s] = __ballot_sync(JSS_FULL, in && legal[j] != 0);
+    l.pin[s] = __ballot_sync(JSS_FULL, in && pin[j] != 0);
     l.last_op[s] = __ballot_sync(JSS_FULL, in && l.next_op[s] == l.nm - 1);
     l.dur[s] = l.m_next[s] = 0;
     l.after[s] = 0;
@@ -122,8 +132,8 @@ __device__ void free_load(Lane<false>& l, const V* src, int B, int b) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int m = l.r + 32 * k;
-    l.mbf[k] = m < l.M ? at(R.mbf + m) : 0;
-    l.ml[k] = __ballot_sync(JSS_FULL, m < l.M && at(R.ml + m) != 0);
+    l.mbf[k] = m < l.M ? io.mbf[mrow + m] : 0;
+    l.ml[k] = __ballot_sync(JSS_FULL, m < l.M && io.ml[mrow + m] != 0);
   }
 }
 
@@ -151,34 +161,47 @@ __device__ long long* jss_pass_clocks;  // (PASSES, B) int64, set by jss_free_st
 
 }  // namespace
 
+// The C entry points' arguments (free_static.cu's and general_lane.cu's),
+// in FreeIO's order, and the FreeIO they make.
+#define JSS_FREE_PARAMS                                                                                            \
+  const void *time, const void *nb_legal, const void *nb_ml, const void *mbf, const void *jbf, const void *next_op, \
+      const void *work_done, const void *needed, const void *noop_legal, const void *legal, const void *noop_pin,   \
+      const void *ml, const void *tab, const void *lanec, const void *bits, unsigned long long seed, void *stats,    \
+      void *ret_out, int B, int J, int M, int T, int lane_offset
+#define JSS_FREE_IO                                                                                               \
+  FreeIO {                                                                                                        \
+    (const int*)time, (const int*)nb_legal, (const int*)nb_ml, (const int*)mbf, (const int*)jbf,                  \
+        (const int*)next_op, (const int*)work_done, (const int*)needed, (const uint8_t*)noop_legal,               \
+        (const uint8_t*)legal, (const uint8_t*)noop_pin, (const uint8_t*)ml, (const int*)tab, (const int*)lanec,  \
+        (const uint32_t*)bits, seed, (long long*)stats, (float*)ret_out, B, J, M, T, lane_offset                   \
+  }
+
 // The kernel, written once for both builds and named by the build:
-// free_static_kernel<V> (free_static.cu) or free_general_kernel<V>
-// (general_lane.cu). T steps of every lane from its state in `state` ((R, B)
-// of the padded shape (J, M), read only; a static build has its J, M
-// already), the uniform-over-legal policy drawn in the kernel, finished lanes
-// reset; the per-lane stats (4, B) and float32 returns (B,). The per-step
-// random words come 32 steps at a time: rank r draws (or loads) step t + r's
-// and step t takes rank t % 32's by a shuffle. `lane_offset`: this batch's
-// first lane in a batch split over ranks (the Philox counter takes the global
-// lane). The body is the kernel's own, as in driven_lane.cuh.
+// free_static_kernel (free_static.cu) or free_general_kernel
+// (general_lane.cu). T steps of every lane from the state's fields in `io`
+// (read only; a static build has its J, M already), the uniform-over-legal
+// policy drawn in the kernel, finished lanes reset; the per-lane stats (4, B)
+// and float32 returns (B,). The per-step random words come 32 steps at a
+// time: rank r draws (or loads) step t + r's and step t takes rank t % 32's
+// by a shuffle. `lane_offset`: this batch's first lane in a batch split over
+// ranks (the Philox counter takes the global lane). The body is the kernel's
+// own, as in driven_lane.cuh.
 #if defined(JSS_STATIC_J)
 #define JSS_FREE_KERNEL free_static_kernel
 #else
 #define JSS_FREE_KERNEL free_general_kernel
 #endif
-template <typename V>
-__global__ void JSS_LANE_BOUNDS JSS_FREE_KERNEL(const V* state, const int* tab, const int* lanec, const uint32_t* bits,
-                                                unsigned long long seed, long long* stats, float* ret_out, int B, int J,
-                                                int M, int T, int lane_offset) {
+__global__ void JSS_LANE_BOUNDS JSS_FREE_KERNEL(const FreeIO io) {
+  const int B = io.B, T = io.T;
   const int b = blockIdx.x * kLanes + (int)(threadIdx.x >> 5);
   if (b >= B) return;  // the whole warp
   Lane<false> l;
   l.r = threadIdx.x & 31;
-  l.bind(J, M, lanec, B, b);
-  l.tab = tab + (size_t)lanec[C_INST * B + b] * 4 * l.JM;
-  l.mo = lanec[C_MO * B + b];
-  const int so = lanec[C_SO * B + b];
-  free_load(l, state, B, b);
+  l.bind(io.J, io.M, io.lanec, B, b);
+  l.tab = io.tab + (size_t)io.lanec[C_INST * B + b] * 4 * l.JM;
+  l.mo = io.lanec[C_MO * B + b];
+  const int so = io.lanec[C_SO * B + b];
+  free_load(l, io, b);
   const float mo_f = (float)l.mo;
   long long mk_sum = 0;
   int episodes = 0, viol = 0, mk_min = JSS_I32_MAX, ep_raw = 0;
@@ -191,7 +214,8 @@ __global__ void JSS_LANE_BOUNDS JSS_FREE_KERNEL(const V* state, const int* tab, 
     JSS_PASS(l, PASS_DRAW);
     const int q = t & 31;
     if (q == 0 && t + l.r < T)
-      w_mine = bits ? bits[(size_t)(t + l.r) * B + b] : philox_word(seed, t + l.r, (uint32_t)(lane_offset + b));
+      w_mine = io.bits ? io.bits[(size_t)(t + l.r) * B + b]
+                       : philox_word(io.seed, t + l.r, (uint32_t)(io.lane_offset + b));
     const int raw = l.step(sample(l, __shfl_sync(JSS_FULL, w_mine, q)));
     JSS_PASS(l, PASS_RESET);
     ep_raw += raw;
@@ -212,10 +236,10 @@ __global__ void JSS_LANE_BOUNDS JSS_FREE_KERNEL(const V* state, const int* tab, 
     for (int i = 0; i < PASSES; ++i) jss_pass_clocks[(size_t)i * B + b] = l.clk.acc[i];
 #endif
   if (l.r == 0) {
-    stats[S_EPISODES * (size_t)B + b] = episodes;
-    stats[S_MK_SUM * (size_t)B + b] = mk_sum;
-    stats[S_MK_MIN * (size_t)B + b] = mk_min;
-    stats[S_VIOL * (size_t)B + b] = viol;
-    ret_out[b] = ret;
+    io.stats[S_EPISODES * (size_t)B + b] = episodes;
+    io.stats[S_MK_SUM * (size_t)B + b] = mk_sum;
+    io.stats[S_MK_MIN * (size_t)B + b] = mk_min;
+    io.stats[S_VIOL * (size_t)B + b] = viol;
+    io.ret[b] = ret;
   }
 }

@@ -18,7 +18,7 @@
 // shared with driven_static.cu: one env lane on one warp, kLanes lanes a
 // block, each thread's jobs and machines in registers, legal / noop_pin /
 // machine_legal as warp-uniform words, nothing in shared memory. The draw,
-// the Philox words, the stats and the load of the (R, B) buffer are
+// the Philox words, the stats and the load of the state's own fields are
 // free_lane.cuh's, shared with general_lane.cu's slot-class build; here
 // every bound is a compile-time constant.
 //
@@ -51,15 +51,10 @@
 // A launch of kLanes lanes a block, no shared memory. Returns 0 or the CUDA
 // error; a shape other than this build's is refused (cudaErrorInvalidValue)
 // before anything runs.
-template <typename V>
-static int launch(const void* state, const void* tab, const void* lanec, const void* bits,
-                  unsigned long long seed, void* stats, void* ret_out, int B, int J_, int M_, int T,
-                  int lane_offset, void* stream) {
-  if (J_ != Bounds::J || M_ != Bounds::M || B < 0 || T < 0) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  free_static_kernel<V><<<(B + kLanes - 1) / kLanes, kLanes * 32, 0, (cudaStream_t)stream>>>(
-      (const V*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits, seed, (long long*)stats,
-      (float*)ret_out, B, J_, M_, T, lane_offset);
+static int launch(const FreeIO& io, void* stream) {
+  if (io.J != Bounds::J || io.M != Bounds::M || io.B < 0 || io.T < 0) return (int)cudaErrorInvalidValue;
+  if (io.B == 0) return 0;
+  free_static_kernel<<<(io.B + kLanes - 1) / kLanes, kLanes * 32, 0, (cudaStream_t)stream>>>(io);
   return (int)cudaGetLastError();
 }
 
@@ -70,46 +65,30 @@ int jss_static_j(void) { return Bounds::J; }
 int jss_static_m(void) { return Bounds::M; }
 int jss_free_static_lanes(void) { return kLanes; }
 
-// Blocks of the kernel (int16 storage where `i16`) resident on one SM of the
-// current device at once, or -1 on a CUDA error.
-int jss_free_static_blocks_per_sm(int i16) {
+// Blocks of the kernel resident on one SM of the current device at once, or
+// -1 on a CUDA error.
+int jss_free_static_blocks_per_sm(void) {
   int n = 0;
-  const cudaError_t err = i16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                                    &n, free_static_kernel<int16_t>, kLanes * 32, 0)
-                              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                                    &n, free_static_kernel<int32_t>, kLanes * 32, 0);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, free_static_kernel, kLanes * 32, 0);
   return err == cudaSuccess ? n : -1;
 }
 
-// On an (R, B) int32 state buffer; 0 when the kernel launched, else the
-// CUDA error.
-int jss_free_static(const void* state, const void* tab, const void* lanec, const void* bits,
-                    unsigned long long seed, void* stats, void* ret_out, int B, int J_, int M_, int T,
-                    int lane_offset, void* stream) {
-  return launch<int32_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J_, M_, T, lane_offset, stream);
-}
-
-// The same on an (R, B) int16 state buffer.
-int jss_free_static_i16(const void* state, const void* tab, const void* lanec, const void* bits,
-                        unsigned long long seed, void* stats, void* ret_out, int B, int J_, int M_, int T,
-                        int lane_offset, void* stream) {
-  return launch<int16_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J_, M_, T, lane_offset, stream);
-}
+// One launch on `stream`: the input state's fields (in FreeIO's order), the
+// tables, the lane constants, the caller's (T, B) words or null, the seed,
+// the (4, B) stats and (B,) returns written. 0 when the kernel launched,
+// else the CUDA error.
+int jss_free_static(JSS_FREE_PARAMS, void* stream) { return launch(JSS_FREE_IO, stream); }
 
 #ifdef JSS_PASS_CLOCKS
-// The instrumented kernel (int16 storage where `i16`), the cycles of each
-// pass summed per lane into `clocks` ((PASSES, B) int64): the draw, the
-// action's update, fast_forward, prioritization, check_no_op, the episode's
-// bookkeeping and reset.
-int jss_free_static_clocks(const void* state, const void* tab, const void* lanec, const void* bits,
-                           unsigned long long seed, void* stats, void* ret_out, int B, int J_, int M_,
-                           int T, int lane_offset, void* stream, void* clocks, int i16) {
+// The instrumented kernel, the cycles of each pass summed per lane into
+// `clocks` ((PASSES, B) int64): the draw, the action's update, fast_forward,
+// prioritization, check_no_op, the episode's bookkeeping and reset.
+int jss_free_static_clocks(JSS_FREE_PARAMS, void* stream, void* clocks) {
   long long* p = (long long*)clocks;
   const cudaError_t err = cudaMemcpyToSymbolAsync(jss_pass_clocks, &p, sizeof(p), 0,
                                                   cudaMemcpyHostToDevice, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  return i16 ? launch<int16_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J_, M_, T, lane_offset, stream)
-             : launch<int32_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J_, M_, T, lane_offset, stream);
+  return launch(JSS_FREE_IO, stream);
 }
 int jss_pass_count(void) { return PASSES; }
 #endif

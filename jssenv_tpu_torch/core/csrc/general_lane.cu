@@ -13,10 +13,10 @@
 //     actions with auto-reset; the raw rewards, the episode ends and a new
 //     state, read from and written to the EnvState's own tensors
 //     (driven_lane.cuh); bit-equal to fused_rollout.rollout_driven_reference.
-//   * free_general_kernel<V>: T uniform-over-legal steps drawn in the kernel
+//   * free_general_kernel: T uniform-over-legal steps drawn in the kernel
 //     (Philox counter (step, lane_offset + lane)), auto-reset, per-lane stats,
-//     float32 returns and the reward identity, on the light (R, B) buffer in
-//     int32 or int16 storage (free_lane.cuh); bit-equal to
+//     float32 returns and the reward identity, read from the EnvState's own
+//     tensors (free_lane.cuh); bit-equal to
 //     fused_rollout.free_lane_stats_reference.
 //
 // Design. The static builds' lane (static_lane.cuh) with Bounds read at run
@@ -49,21 +49,6 @@
 // Whether this slot class takes the padded shape (J, M).
 static bool takes(int J, int M) { return J >= 1 && M >= 1 && (J + 31) / 32 == S && (M + 31) / 32 == K; }
 
-// A free launch of kLanes lanes a block, no shared memory. Returns 0 or the
-// CUDA error; a shape of another slot class is refused
-// (cudaErrorInvalidValue) before anything runs.
-template <typename V>
-static int launch_free(const void* state, const void* tab, const void* lanec, const void* bits,
-                       unsigned long long seed, void* stats, void* ret_out, int B, int J, int M, int T,
-                       int lane_offset, void* stream) {
-  if (!takes(J, M) || B < 0 || T < 0) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  free_general_kernel<V><<<(B + kLanes - 1) / kLanes, kLanes * 32, 0, (cudaStream_t)stream>>>(
-      (const V*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits, seed, (long long*)stats,
-      (float*)ret_out, B, J, M, T, lane_offset);
-  return (int)cudaGetLastError();
-}
-
 extern "C" {
 
 // This build's slot class and lanes a block: the wrapper checks them.
@@ -71,19 +56,16 @@ int jss_slots_j(void) { return S; }
 int jss_slots_m(void) { return K; }
 int jss_general_lanes(void) { return kLanes; }
 
-// Blocks of each kernel (the free one in int16 storage where `i16`) resident
-// on one SM of the current device at once, or -1 on a CUDA error.
+// Blocks of each kernel resident on one SM of the current device at once, or
+// -1 on a CUDA error.
 int jss_driven_general_blocks_per_sm(void) {
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, driven_general_kernel, kLanes * 32, 0);
   return err == cudaSuccess ? n : -1;
 }
-int jss_free_general_blocks_per_sm(int i16) {
+int jss_free_general_blocks_per_sm(void) {
   int n = 0;
-  const cudaError_t err = i16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                                    &n, free_general_kernel<int16_t>, kLanes * 32, 0)
-                              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                                    &n, free_general_kernel<int32_t>, kLanes * 32, 0);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, free_general_kernel, kLanes * 32, 0);
   return err == cudaSuccess ? n : -1;
 }
 
@@ -110,17 +92,16 @@ int jss_driven_general(const void* time, const void* nb_legal, const void* nb_ml
   return (int)cudaGetLastError();
 }
 
-// The free kernel on an (R, B) int32 state buffer, and on an int16 one; 0
-// when the kernel launched, else the CUDA error.
-int jss_free_general(const void* state, const void* tab, const void* lanec, const void* bits,
-                     unsigned long long seed, void* stats, void* ret_out, int B, int J, int M, int T,
-                     int lane_offset, void* stream) {
-  return launch_free<int32_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J, M, T, lane_offset, stream);
-}
-int jss_free_general_i16(const void* state, const void* tab, const void* lanec, const void* bits,
-                         unsigned long long seed, void* stats, void* ret_out, int B, int J, int M, int T,
-                         int lane_offset, void* stream) {
-  return launch_free<int16_t>(state, tab, lanec, bits, seed, stats, ret_out, B, J, M, T, lane_offset, stream);
+// One free launch, kLanes lanes a block, no shared memory, on `stream`: the
+// arguments of free_static.cu's jss_free_static, the padded shape (J, M) of
+// this slot class. Returns 0 when the kernel launched, else the CUDA error;
+// a shape of another slot class is refused (cudaErrorInvalidValue) before
+// anything runs.
+int jss_free_general(JSS_FREE_PARAMS, void* stream) {
+  if (!takes(J, M) || B < 0 || T < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  free_general_kernel<<<(B + kLanes - 1) / kLanes, kLanes * 32, 0, (cudaStream_t)stream>>>(JSS_FREE_IO);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -58,18 +58,20 @@ the twin computes the same words (``philox_bits``), so both modes compare
 exactly. ``lane_offset`` (0 by default) is the lane's place in a batch split
 over ranks: a shard draws the words its lanes draw in the whole batch.
 
-Value dtype: the free rollout keeps its state buffer in int16 wherever every
-stored value fits (``value_dtype``, the JAX package's int16 mode) and then
-launches the int16 instantiation of its kernel; the driven rollout stays
+Value dtype: ``rollout.cu``'s free kernel keeps its state buffer in int16
+wherever every stored value fits (``value_dtype``, the JAX package's int16
+mode) and then launches its int16 instantiation; the register builds read
+the state's own fields and have no storage dtype; the driven rollout stays
 int32, as in the JAX package.
 
-Host plumbing: every free launch takes the light dynamic state in one
-batch-last (R, B) int32 (or int16) buffer (``_to_lanes``, rows in ``_ROWS``
-order), built once a rollout; the driven static and slot-class builds take
-the state's fields as they are (``_driven_inputs``) and write the new state
-into two allocations (``_driven_outputs``), and only ``rollout.cu``'s driven
-launch packs and unpacks the whole state (``_to_lanes`` / ``_from_lanes``).
-The static tables go to one
+Host plumbing: the static and slot-class builds take the state's fields as
+they are (``_driven_inputs``, ``_free_inputs``), and the driven ones write
+the new state into two allocations (``_driven_outputs``); only
+``rollout.cu``'s launches go through a batch-last (R, B) lane buffer
+(``_to_lanes``, rows in ``_ROWS`` order; ``_from_lanes`` back for the driven
+one), whose storage dtype is cached with the lane inputs. A free call reads
+nothing back to the host once its batch's lane inputs are cached, and
+returns with its kernel and its reductions queued. The static tables go to one
 (n_inst, 4, J, M) int32 stack of the batch's distinct instances with a
 per-lane instance index, so ragged batches need no lane grouping; the stack
 is built once per batch and cached (``_lane_inputs``). ``launch_geometry``
@@ -94,8 +96,8 @@ from jssenv_tpu_torch.core.state import I32_MAX, EnvState
 _I32 = torch.int32
 
 # Kernel launches per kernel: each wrapper adds one where it launches.
-# "rollout_free_i16" counts the free kernel's int16 instantiation; a
-# "_static" key the static build of that kernel (any shape: csrc/driven_static.cu
+# "rollout_free_i16" counts the int16 instantiation of rollout.cu's free
+# kernel (the register builds have none); a "_static" key the static build of that kernel (any shape: csrc/driven_static.cu
 # and csrc/free_static.cu), a "_slots" key its slot-class build (any slot
 # class: csrc/general_lane.cu), the others csrc/rollout.cu's general build: a
 # "_m<K>" key its build of K > 2 machine slots a thread, added when that
@@ -105,7 +107,7 @@ _I32 = torch.int32
 LAUNCHES: Dict[str, int] = {
     "rollout_driven": 0, "rollout_driven_static": 0, "rollout_driven_slots": 0,
     "rollout_free": 0, "rollout_free_static": 0, "rollout_free_slots": 0,
-    "rollout_free_i16": 0, "rollout_free_i16_static": 0, "rollout_free_i16_slots": 0,
+    "rollout_free_i16": 0,
     "observe": 0,
 }
 
@@ -146,25 +148,32 @@ def _row_sizes(J: int, M: int, with_solution: bool):
 
 
 def value_dtype(state: EnvState) -> torch.dtype:
-    """The free kernel's storage dtype: int16 wherever every stored value
-    fits, i.e. ``sum_op + 2*max_time_jobs + max_time_op < 32000`` with each
-    term the maximum over the batch's lanes (so one large instance in a
-    ragged batch keeps it int32), else int32. The bound covers every stored
-    value: ``time``, ``op_end_at`` and ``idle_total_alloc`` never exceed the
-    makespan, which never exceeds ``sum_op``. It is the JAX package's bound
-    (``pallas_rollout.value_dtype``); there the int16 mode also waits for
-    ``JSS_PALLAS_INT16=1`` because the TPU compiler crashes on it, a gate
-    the CUDA kernel does not need."""
+    """The storage dtype of ``rollout.cu``'s free kernel: int16 wherever every
+    stored value fits, i.e. ``sum_op + 2*max_time_jobs + max_time_op <
+    32000`` with each term the maximum over the batch's lanes (so one large
+    instance in a ragged batch keeps it int32), else int32. The bound covers
+    every stored value: ``time``, ``op_end_at`` and ``idle_total_alloc``
+    never exceed the makespan, which never exceeds ``sum_op``. It is the JAX
+    package's bound (``pallas_rollout.value_dtype``); there the int16 mode
+    also waits for ``JSS_PALLAS_INT16=1`` because the TPU compiler crashes
+    on it, a gate the CUDA kernel does not need. One host read; a free call
+    takes the answer cached with its batch's lane inputs."""
     diagnostics.COUNTS["host_reads"] += 1
-    so, mj, mo = torch.stack(
+    return _storage_dtype(*torch.stack(
         [state.sum_op.max(), state.max_time_jobs.max(), state.max_time_op.max()]
-    ).tolist()
-    return torch.int16 if so + 2 * mj + mo < 32000 else _I32
+    ).tolist())
+
+
+def _storage_dtype(sum_op: int, max_time_jobs: int, max_time_op: int) -> torch.dtype:
+    """``value_dtype``'s rule on the batch's three maxima."""
+    return torch.int16 if sum_op + 2 * max_time_jobs + max_time_op < 32000 else _I32
 
 
 def _to_lanes(state: EnvState, with_solution: bool, vdt: torch.dtype = _I32) -> torch.Tensor:
     """Batch-first dynamic fields -> one contiguous (R, B) buffer of the
-    storage dtype ``vdt`` (int32 or int16; masks as 0/1)."""
+    storage dtype ``vdt`` (int32 or int16; masks as 0/1): ``rollout.cu``'s
+    input. Counted in ``diagnostics.COUNTS["lane_buffers_built"]``."""
+    diagnostics.COUNTS["lane_buffers_built"] += 1
     B = state.batch_size
     cols = [
         getattr(state, name).reshape(B, -1).to(vdt)
@@ -194,10 +203,10 @@ def _from_lanes(buf: torch.Tensor, state: EnvState, with_solution: bool) -> EnvS
 
 
 _TABLES = ("op_machine", "op_dur", "op_pos", "cum_before")
-_LANE_FIELDS = _TABLES + ("num_jobs", "num_machines", "max_time_op", "sum_op")
+_LANE_FIELDS = _TABLES + ("num_jobs", "num_machines", "max_time_op", "max_time_jobs", "sum_op")
 
-# (tab, lanec, static shape) of a batch, keyed by the identity and in-place
-# version counter of its static tensors: a rollout passes the same
+# (tab, lanec, static shape, value dtype) of a batch, keyed by the identity
+# and in-place version counter of its static tensors: a rollout passes the same
 # never-written tables on every call (the JAX package caches its lane
 # grouping and its ``_static_lane`` the same way). The entries hold the
 # tensors, so an id is not reused while it is cached. Inference-mode tensors
@@ -206,14 +215,14 @@ _LANE_CACHE: Dict[tuple, tuple] = {}
 _LANE_CACHE_SIZE = 8
 
 
-def _lane_entry(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tuple[int, int]]]:
+def _lane_entry(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tuple[int, int]], torch.dtype]:
     fields = tuple(getattr(state, f) for f in _LANE_FIELDS)
     key = tuple((id(t), -1 if t.is_inference() else t._version) for t in fields)
     hit = _LANE_CACHE.get(key)
     if hit is not None:
         return hit[1]
     diagnostics.COUNTS["lane_inputs_built"] += 1
-    out = _lane_inputs_uncached(state) + (_static_shape_uncached(state),)
+    out = _lane_inputs_uncached(state) + _batch_meta_uncached(state)
     if len(_LANE_CACHE) >= _LANE_CACHE_SIZE:
         _LANE_CACHE.clear()
     _LANE_CACHE[key] = (fields, out)
@@ -244,13 +253,18 @@ def static_shape(state: EnvState) -> Optional[Tuple[int, int]]:
     return _lane_entry(state)[2]
 
 
-def _static_shape_uncached(state: EnvState) -> Optional[Tuple[int, int]]:
+def _batch_meta_uncached(state: EnvState) -> Tuple[Optional[Tuple[int, int]], torch.dtype]:
+    """(``static_shape``, ``value_dtype``) of the batch in one host read (an
+    empty batch: None and int32, with no read)."""
     J, M = state.jobs_pad, state.machines_pad
     if state.batch_size == 0:
-        return None
-    unpadded = torch.stack([(state.num_jobs == J).all(), (state.num_machines == M).all()]).all()
+        return None, _I32
+    unpadded = ((state.num_jobs == J) & (state.num_machines == M)).all()
     diagnostics.COUNTS["host_reads"] += 1
-    return (J, M) if bool(unpadded) else None
+    flag, so, mj, mo = torch.stack([unpadded.to(torch.int64), state.sum_op.max().to(torch.int64),
+                                    state.max_time_jobs.max().to(torch.int64),
+                                    state.max_time_op.max().to(torch.int64)]).tolist()
+    return ((J, M) if flag else None), _storage_dtype(so, mj, mo)
 
 
 def _fingerprint(flat: torch.Tensor) -> torch.Tensor:
@@ -435,15 +449,19 @@ def _check_built(lib: ctypes.CDLL, name: str, shape, lanes: Optional[str] = None
             raise RuntimeError(f"the {name} library holds {fn()} lanes a block, not {STATIC_LANES}")
 
 
+# The C signature of the register builds' free entry points (JSS_FREE_PARAMS
+# of csrc/free_lane.cuh): the 12 input fields (_FREE_I32, _FREE_U8), tab,
+# lanec, bits, seed, stats, ret, B, J, M, T, lane_offset, stream.
+_FREE_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_ulonglong] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p]
+
+
 @functools.lru_cache(maxsize=None)
 def _free_lib(shape: Tuple[int, int]) -> ctypes.CDLL:
-    """The built ``csrc/free_static.cu`` for ``shape`` with its C signatures
+    """The built ``csrc/free_static.cu`` for ``shape`` with its C signature
     declared, built at its first use."""
     lib = _build.load("free_static", shape)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.jss_free_static, lib.jss_free_static_i16):
-        fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, P]
-        fn.restype = I
+    lib.jss_free_static.argtypes, lib.jss_free_static.restype = _FREE_ARGTYPES, ctypes.c_int
     _check_built(lib, "free_static", shape, "jss_free_static_lanes")
     return lib
 
@@ -469,9 +487,7 @@ def _general_lib(slots: Tuple[int, int]) -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.jss_driven_general.argtypes = [P] * 22 + [I, I, I, I, I, P]  # as jss_driven_static
     lib.jss_driven_general.restype = I
-    for fn in (lib.jss_free_general, lib.jss_free_general_i16):
-        fn.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P, I, I, I, I, I, P]
-        fn.restype = I
+    lib.jss_free_general.argtypes, lib.jss_free_general.restype = _FREE_ARGTYPES, I
     _check_built(lib, "general_lane", slots, "jss_general_lanes", ("jss_slots_j", "jss_slots_m"))
     return lib
 
@@ -655,22 +671,39 @@ def launch_driven(
 _DRIVEN_I32 = ("time", "nb_legal", "nb_machine_legal", "machine_busy_for", "job_busy_for", "next_op",
                "work_done", "needed_machine", "op_end_at", "idle_frozen", "idle_total_alloc", "wait4", "solution")
 _DRIVEN_U8 = ("noop_legal", "legal", "noop_pin", "machine_legal")
+# The free register-lane builds' (csrc/free_lane.cuh's FreeIO): the same
+# order, less the fields no decision of a free step reads.
+_FREE_I32 = ("time", "nb_legal", "nb_machine_legal", "machine_busy_for", "job_busy_for", "next_op", "work_done",
+             "needed_machine")
+_FREE_U8 = _DRIVEN_U8
 
 
-def _driven_inputs(state: EnvState) -> list:
-    """The state's fields in ``_DRIVEN_I32`` then ``_DRIVEN_U8`` order, as
-    the kernel reads them: each as it is when it is a contiguous int32
-    (bool) tensor on the state's device, else a contiguous copy of that
-    dtype. Never written."""
+def _field_inputs(state: EnvState, i32: Tuple[str, ...], u8: Tuple[str, ...]) -> list:
+    """The state's fields ``i32`` then ``u8``, as a kernel reads them: each
+    as it is when it is a contiguous int32 (bool) tensor on the state's
+    device (a view too, such as a slice of the batch), else a contiguous
+    copy of that dtype. Never written."""
     dev = state.device
     out = []
-    for names, dtype in ((_DRIVEN_I32, _I32), (_DRIVEN_U8, torch.bool)):
+    for names, dtype in ((i32, _I32), (u8, torch.bool)):
         for name in names:
             t = getattr(state, name)
             if t.device != dev:
                 raise ValueError(f"{name} is on {t.device}, the state on {dev}")
             out.append(t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous())
     return out
+
+
+def _driven_inputs(state: EnvState) -> list:
+    """The driven register builds' inputs: ``_DRIVEN_I32`` then
+    ``_DRIVEN_U8`` (``_field_inputs``)."""
+    return _field_inputs(state, _DRIVEN_I32, _DRIVEN_U8)
+
+
+def _free_inputs(state: EnvState) -> list:
+    """The free register builds' inputs: ``_FREE_I32`` then ``_FREE_U8``
+    (``_field_inputs``)."""
+    return _field_inputs(state, _FREE_I32, _FREE_U8)
 
 
 def _driven_outputs(state: EnvState, T: int):
@@ -730,51 +763,67 @@ def _launch_driven_lane(build: Build, state: EnvState, inputs, tab, lanec, actio
 
 def launch_free(
     state: EnvState, buf, tab, lanec, bits, seed: int, stats, ret, T: int, vdt: torch.dtype = _I32,
-    lane_offset: int = 0, build: Optional[str] = None,
+    lane_offset: int = 0,
 ) -> None:
-    """One free-kernel launch on a light ``buf`` (no solution rows), which
-    it reads and does not write: per-lane stats (4, B) int64 and returns
-    (B,) float32 written. ``vdt`` picks the instantiation (int32 or int16)
-    and must be ``buf``'s dtype: a buffer is never converted here.
+    """One launch of the general build's ``rollout_free_kernel``
+    (``csrc/rollout.cu``) on a light ``buf`` (no solution rows), which it
+    reads and does not write: per-lane stats (4, B) int64 and returns (B,)
+    float32 written. ``vdt`` picks the instantiation (int32 or int16) and
+    must be ``buf``'s dtype: a buffer is never converted here.
     ``lane_offset``: the global index of lane 0 in the Philox counter. The
-    build is ``free_build(state, build)``'s: ``free_static_kernel`` of
-    ``csrc/free_static.cu`` built for the batch's static shape,
-    ``free_general_kernel`` of ``csrc/general_lane.cu`` built for its slot
-    class, or ``rollout_free_kernel``, the general build of
-    ``csrc/rollout.cu``."""
+    free launch of a batch past the register lane's limits, or of any batch
+    when a caller asks for the ``"rollout"`` build."""
     if vdt not in (_I32, torch.int16):
         raise ValueError(f"the free kernel stores int32 or int16, not {vdt}")
     if buf.dtype != vdt:
         raise ValueError(f"the {vdt} free kernel needs a {vdt} state buffer, got {buf.dtype}")
     _check_kernel_inputs(state, buf, dtype=vdt)
+    _check_free_args(state, tab, lanec, bits, stats, ret)
+    i16 = vdt == torch.int16
+    geo = launch_geometry(state.jobs_pad, state.machines_pad, vdt)  # refuses what cannot fit, before a build
+    b = rollout_build(state.machines_pad)
+    lib = _lib(geo.machine_slots)
+    with torch.cuda.device(state.device):
+        err = (lib.jss_rollout_free_i16 if i16 else lib.jss_rollout_free)(
+            buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), None if bits is None else bits.data_ptr(),
+            seed & (2**64 - 1), stats.data_ptr(), ret.data_ptr(), state.batch_size, state.jobs_pad,
+            state.machines_pad, T, int(lane_offset), *_geometry_args(geo), torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(err, "rollout_free_kernel" + ("<int16>" if i16 else "") + _tag(b), geo)
+    LAUNCHES[("rollout_free_i16" if i16 else "rollout_free") + _key(b)] += 1
+
+
+def _check_free_args(state: EnvState, tab, lanec, bits, stats, ret) -> None:
     _check_kernel_inputs(state, tab, lanec, *(() if bits is None else (bits,)))
     if stats.dtype != torch.int64 or ret.dtype != torch.float32:
         raise ValueError("stats must be int64 and ret float32")
-    i16 = vdt == torch.int16
-    b = free_build(state, build)
-    args = (buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), None if bits is None else bits.data_ptr(),
-            seed & (2**64 - 1), stats.data_ptr(), ret.data_ptr(), state.batch_size, state.jobs_pad,
-            state.machines_pad, T, int(lane_offset))
-    extra = ()
-    if b.kind == "rollout":
-        geo = launch_geometry(state.jobs_pad, state.machines_pad, vdt)  # refuses what cannot fit, before a build
-        lib = _lib(geo.machine_slots)
-        fn = lib.jss_rollout_free_i16 if i16 else lib.jss_rollout_free
-        name, extra = "rollout_free_kernel", _geometry_args(geo)
-    elif b.kind == "static":
-        geo = static_geometry(state.batch_size)
-        lib = _free_lib(b.shape)
-        fn = lib.jss_free_static_i16 if i16 else lib.jss_free_static
-        name = "free_static_kernel"
+
+
+def _launch_free_lane(b: Build, state: EnvState, inputs, tab, lanec, bits, seed: int, stats, ret, T: int,
+                      lane_offset: int = 0) -> None:
+    """One free launch in the register build ``b`` on the current stream:
+    ``free_static_kernel`` of ``csrc/free_static.cu`` built for the batch's
+    static shape, or ``free_general_kernel`` of ``csrc/general_lane.cu``
+    built for its slot class. It reads the state's fields ``inputs``
+    (``_free_inputs``) and writes per-lane stats (4, B) int64 and returns
+    (B,) float32; ``lane_offset`` as in ``launch_free``. The kernel
+    indexes a lane's rows with int offsets: a batch of 2^31 or more job (or
+    machine) rows is refused."""
+    _check_free_args(state, tab, lanec, bits, stats, ret)
+    if state.batch_size * max(state.jobs_pad, state.machines_pad) >= 2**31:
+        raise ValueError(f"the register free builds take fewer than 2^31 rows a field; got B={state.batch_size}, "
+                         f"J={state.jobs_pad}, M={state.machines_pad}")
+    if b.kind == "static":
+        fn, name = _free_lib(b.shape).jss_free_static, "free_static_kernel"
     else:
-        geo = static_geometry(state.batch_size)
-        lib = _general_lib(b.shape)
-        fn = lib.jss_free_general_i16 if i16 else lib.jss_free_general
-        name = "free_general_kernel"
+        fn, name = _general_lib(b.shape).jss_free_general, "free_general_kernel"
     with torch.cuda.device(state.device):
-        err = fn(*args, *extra, torch.cuda.current_stream().cuda_stream)
-    _check_launch(err, name + ("<int16>" if i16 else "") + _tag(b), geo)
-    LAUNCHES[("rollout_free_i16" if i16 else "rollout_free") + _key(b)] += 1
+        err = fn(*[t.data_ptr() for t in inputs], tab.data_ptr(), lanec.data_ptr(),
+                 None if bits is None else bits.data_ptr(), seed & (2**64 - 1), stats.data_ptr(), ret.data_ptr(),
+                 state.batch_size, state.jobs_pad, state.machines_pad, T, int(lane_offset),
+                 torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, name + _tag(b), static_geometry(state.batch_size))
+    LAUNCHES["rollout_free" + _key(b)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -937,12 +986,15 @@ def sample_from_bits(bits: torch.Tensor, state: EnvState) -> torch.Tensor:
 
 
 def _reduce_stats(lanes: Dict[str, torch.Tensor], T: int, B: int) -> Dict[str, torch.Tensor]:
+    """The call's six stats from the per-lane ones, each queued on the
+    device: ``steps`` is a device fill, not a copy from the host (which
+    would wait for the kernel)."""
     dev = lanes["episodes"].device
     return {
         "episodes": lanes["episodes"].sum(),
         "total_makespan": lanes["mk_sum"].sum(),
         "min_makespan": lanes["mk_min"].min().to(_I32),
-        "steps": torch.tensor(T * B, dtype=torch.int64, device=dev),
+        "steps": torch.full((), T * B, dtype=torch.int64, device=dev),
         "identity_violations": lanes["viol"].sum(),
         "total_return": lanes["ret"].sum(),
     }
@@ -957,10 +1009,9 @@ def free_lane_stats(
 ) -> Dict[str, torch.Tensor]:
     """Per-lane stats of a free rollout, (B,) each: ``episodes``, ``mk_sum``
     (int64), ``mk_min`` (int64, INT32_MAX where no episode ended), ``viol``
-    (int64), ``ret`` (float32 sum of scaled rewards). Kernel on CUDA (its
-    int16 instantiation where ``value_dtype`` says int16), twin on CPU;
-    ``rollout_free`` reduces these. The stats never read the schedule, so
-    both run on the light state (``vector.strip_solution``).
+    (int64), ``ret`` (float32 sum of scaled rewards). Kernel on CUDA, twin
+    on CPU; ``rollout_free`` reduces these. The stats never read the
+    schedule, so both run on the light state (``vector.strip_solution``).
     ``lane_offset``: where this batch starts in a batch split over ranks
     (``parallel.mesh``); lane ``b`` draws global lane ``lane_offset + b``'s
     Philox words, so a shard's stats are its lanes' stats in the whole
@@ -975,22 +1026,31 @@ def free_lane_stats(
 
 def _free_kernel(state: EnvState, T: int, seed: int, bits, vdt: Optional[torch.dtype] = None,
                  lane_offset: int = 0, build: Optional[str] = None):
-    """One free-kernel launch in the storage dtype ``vdt`` (by default
-    ``value_dtype``'s; an explicit int32 runs a batch that fits int16 in the
-    int32 instantiation, to hold the two against each other), in
-    ``free_build(state, build)``. The spans ``env.value_dtype``,
-    ``env.to_lanes``, ``env.launch``."""
-    B = state.batch_size
-    if vdt is None:
-        with diagnostics.span("env.value_dtype"):
-            vdt = value_dtype(state)
-    with diagnostics.span("env.to_lanes"):
-        buf = _to_lanes(state, with_solution=False, vdt=vdt)
-    tab, lanec = _lane_inputs(state)
-    stats = torch.empty((4, B), dtype=torch.int64, device=state.device)
-    ret = torch.empty((B,), dtype=torch.float32, device=state.device)
-    with diagnostics.span("env.launch"):
-        launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T, vdt, lane_offset, build=build)
+    """One free-kernel launch in ``free_build(state, build)``. The static and
+    slot-class builds read the state's own fields (``_free_inputs``; no
+    storage dtype, ``vdt`` is not theirs). ``rollout.cu``'s build reads a
+    lane buffer in the storage dtype ``vdt``: by default the batch's
+    ``value_dtype``, cached with its lane inputs; an explicit int32 runs a
+    batch that fits int16 in the int32 instantiation, to hold the two
+    against each other. No host read once the lane inputs are cached. The
+    spans ``env.launch`` and, on ``rollout.cu``'s build, ``env.value_dtype``
+    and ``env.to_lanes``."""
+    B, dev = state.batch_size, state.device
+    tab, lanec, _, cached = _lane_entry(state)
+    b = free_build(state, build)
+    stats = torch.empty((4, B), dtype=torch.int64, device=dev)
+    ret = torch.empty((B,), dtype=torch.float32, device=dev)
+    if b.kind == "rollout":
+        if vdt is None:
+            with diagnostics.span("env.value_dtype"):
+                vdt = cached
+        with diagnostics.span("env.to_lanes"):
+            buf = _to_lanes(state, with_solution=False, vdt=vdt)
+        with diagnostics.span("env.launch"):
+            launch_free(state, buf, tab, lanec, bits, int(seed), stats, ret, T, vdt, lane_offset)
+    else:
+        with diagnostics.span("env.launch"):
+            _launch_free_lane(b, state, _free_inputs(state), tab, lanec, bits, int(seed), stats, ret, T, lane_offset)
     return {"episodes": stats[0], "mk_sum": stats[1], "mk_min": stats[2], "viol": stats[3], "ret": ret}
 
 

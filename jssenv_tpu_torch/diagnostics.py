@@ -52,8 +52,10 @@ def trace(log_dir: Optional[str] = None) -> Iterator[torch.profiler.profile]:
 # Host-plumbing counters, counted always (``fused_rollout.LAUNCHES``' form):
 # "host_reads" where the port reads a device value back to the host (the
 # host waits for the device there), "lane_inputs_built" where
-# ``fused_rollout._lane_entry`` builds a batch's lane inputs (a cache miss).
-COUNTS: Dict[str, int] = {"host_reads": 0, "lane_inputs_built": 0}
+# ``fused_rollout._lane_entry`` builds a batch's lane inputs (a cache miss),
+# "lane_buffers_built" where ``fused_rollout._to_lanes`` converts a state to
+# ``rollout.cu``'s lane buffer.
+COUNTS: Dict[str, int] = {"host_reads": 0, "lane_inputs_built": 0, "lane_buffers_built": 0}
 
 
 class Span(NamedTuple):

@@ -127,8 +127,8 @@ def test_without_cuda_exits_nonzero_and_prints_no_record(monkeypatch, capsys):
 def test_bench_runs_the_kernel_on_card(cuda_dev):
     rec = bench_torch.run_config("ta01", 1024, 512, 2, cuda_dev)
     assert rec["engine"] == "cuda" and rec["backend"] == "cuda" and rec["value_dtype"] == "int16"
-    # ta01 is unpadded: the int16 kernel's static build
-    assert rec["launches"] == dict.fromkeys(fr.LAUNCHES, 0) | {"rollout_free_i16_static": 3}
+    # ta01 is unpadded: the static build, on the state's fields
+    assert rec["launches"] == dict.fromkeys(fr.LAUNCHES, 0) | {"rollout_free_static": 3}
     assert rec["gpu"] and rec["power_limit"].endswith("W")
     state = tv.make_batch(ti.get_instance("ta01"), 1024, device=cuda_dev)
     for run in rec["runs"]:

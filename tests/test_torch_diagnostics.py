@@ -140,24 +140,46 @@ def test_rollout_free_records_env_free():
     assert _names(spans) == ["env.free"] and spans[0].parent == -1
 
 
-def test_free_kernel_path_spans_read_the_dtype_once(monkeypatch):
-    """The CUDA path of ``rollout_free`` on a CPU state, its launch a stand-in:
-    ``env.free`` holds ``env.value_dtype``, ``env.to_lanes`` and
-    ``env.launch``, and a warm call reads the device once, for the dtype."""
+def _free_call_spans(monkeypatch, build):
+    """The spans of a warm ``rollout_free`` call on a CPU state through the
+    CUDA path in ``build``, its launches stand-ins recording the storage
+    dtype (``rollout.cu``'s) or the build's kind (a register build's)."""
     launched = []
     monkeypatch.setattr(fr, "launch_free", lambda *a, **k: launched.append(a[-2]))
+    monkeypatch.setattr(fr, "_launch_free_lane", lambda b, *a, **k: launched.append(b.kind))
     monkeypatch.setattr(fr, "free_lane_stats_reference",
                         lambda state, T, seed, bits, lane_offset: fr._free_kernel(state, T, seed, bits,
-                                                                                 lane_offset=lane_offset))
+                                                                                 lane_offset=lane_offset,
+                                                                                 build=build))
     state = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
     fr.rollout_free(state, 8, seed=3)  # builds the lane inputs
     diagnostics.reset_spans()
     with diagnostics.recording():
         fr.rollout_free(state, 8, seed=4)
-    spans = diagnostics.spans()
+    return diagnostics.spans(), launched
+
+
+def test_free_kernel_path_spans_read_the_dtype_once(monkeypatch):
+    """The CUDA path of ``rollout_free`` on a CPU state, its launch a
+    stand-in: the batch's static build on its fields. ``env.free`` holds
+    ``env.launch`` alone, and a warm call reads nothing back to the host:
+    the static shape and the value dtype were read once, with the batch's
+    lane inputs, and no lane buffer is built."""
+    spans, launched = _free_call_spans(monkeypatch, None)
+    assert _names(spans) == ["env.free", "env.launch"] and [s.parent for s in spans] == [-1, 0]
+    assert spans[0].counts == {} and spans[1].counts == {}
+    assert launched == ["static", "static"]
+
+
+def test_rollout_build_spans_hold_the_cached_dtype_and_one_lane_buffer(monkeypatch):
+    """The same on ``rollout.cu``'s build: ``env.free`` holds
+    ``env.value_dtype`` (the dtype cached with the lane inputs, no host
+    read), ``env.to_lanes`` (one lane buffer a call) and ``env.launch``."""
+    spans, launched = _free_call_spans(monkeypatch, "rollout")
     assert _names(spans) == ["env.free", "env.value_dtype", "env.to_lanes", "env.launch"]
     assert [s.parent for s in spans] == [-1, 0, 0, 0]
-    assert spans[0].counts == {"host_reads": 1} and spans[1].counts == {"host_reads": 1}
+    assert spans[0].counts == spans[2].counts == {"lane_buffers_built": 1}
+    assert spans[1].counts == spans[3].counts == {}
     assert launched == [torch.int16, torch.int16]
 
 
@@ -203,7 +225,7 @@ def _made_up_spans():
         S("env.step", 6, 24 * MS, 26 * MS, {}),
         S("env.free", -1, 40 * MS, 43 * MS, {"host_reads": 1}),
         S("env.value_dtype", 9, 40 * MS, 41 * MS, {"host_reads": 1}),
-        S("env.free", -1, 50 * MS, 55 * MS, {"host_reads": 2, "rollout_free_i16_static": 1}),
+        S("env.free", -1, 50 * MS, 55 * MS, {"host_reads": 2, "rollout_free_static": 1}),
     ]
 
 

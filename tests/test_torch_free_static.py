@@ -8,8 +8,9 @@ dispatch and, on a card, its results.
   each of ``tools/bench_torch.py``'s and each shape at and past the limits
   takes, the launch's arguments and geometry (a stand-in library records
   the call), and the builds ``fused_rollout.build_kernels`` starts.
-* On a card only (``-m cuda``): the kernel against the twin and the general
-  build, int16 against int32, batches that do not fill a block, starts in
+* On a card only (``-m cuda``): the kernel against the twin and the other
+  builds (rollout.cu's in int16 and int32), batches that do not fill a
+  block, starts in
   the middle of an episode (``driven_start``), a refused launch. Whether a
   card is present is decided inside the fixture."""
 
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from jssenv_tpu_torch import diagnostics
 from jssenv_tpu_torch import instances as ti
 from jssenv_tpu_torch import vector as tv
 from jssenv_tpu_torch.core import _build
@@ -178,8 +180,9 @@ class _FakeLib:
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """``launch_free`` on CPU tensors with stand-in libraries: the checks for
-    a CUDA state and the stream are stubbed; nothing runs."""
+    """``fused_rollout._free_kernel`` on CPU tensors with stand-in
+    libraries: the checks for a CUDA state and the stream are stubbed;
+    nothing runs."""
     libs = types.SimpleNamespace(free=_FakeLib(), general=_FakeLib(), slots=_FakeLib(), classes=[])
     monkeypatch.setattr(fr, "_check_kernel_inputs", lambda *a, **k: None)
     monkeypatch.setattr(fr, "_free_lib", lambda shape: libs.free)
@@ -190,53 +193,75 @@ def fake_card(monkeypatch):
     return libs
 
 
-def _launch(state, vdt, build=None, lane_offset=0, T=9):
-    buf = fr._to_lanes(state, with_solution=False, vdt=vdt)
-    tab, lanec = fr._lane_inputs(state)
-    stats = torch.empty((4, state.batch_size), dtype=torch.int64)
-    ret = torch.empty((state.batch_size,), dtype=torch.float32)
-    fr.launch_free(state, buf, tab, lanec, None, 11, stats, ret, T, vdt, lane_offset, build=build)
+def _launch(state, vdt=None, build=None, lane_offset=0, T=9):
+    """One free call's launch (``_free_kernel``) on the stand-in card."""
+    return fr._free_kernel(state, T, 11, None, vdt, lane_offset=lane_offset, build=build)
 
 
-@pytest.mark.parametrize("vdt", [torch.int32, torch.int16], ids=["int32", "int16"])
+def _field_ptrs(state):
+    """The pointers of the state's fields in FreeIO's order."""
+    return [getattr(state, f).data_ptr() for f in fr._FREE_I32 + fr._FREE_U8]
+
+
+# value dtype of rollout.cu's lane buffer -> an unpadded batch that stores in it
+UNPADDED = {"int32": "ta41", "int16": "ta01"}
+
+
+@pytest.mark.parametrize("vdt", ["int32", "int16"])
 def test_an_unpadded_launch_calls_the_new_kernel(fake_card, vdt):
-    state = tv.make_batch(ti.get_instance("ta01"), 37, device="cpu")
+    """An unpadded batch, whether or not its values fit int16, launches the
+    one static entry point on its own fields, in FreeIO's order: no lane
+    buffer, no storage dtype."""
+    state = tv.make_batch(ti.get_instance(UNPADDED[vdt]), 37, device="cpu")
+    assert str(fr.value_dtype(state)) == f"torch.{vdt}"
     fr.reset_launch_counts()
-    _launch(state, vdt, lane_offset=64)
+    built = diagnostics.COUNTS["lane_buffers_built"]
+    out = _launch(state, lane_offset=64)
     (name, args), = fake_card.free.calls
     assert not fake_card.general.calls and not fake_card.slots.calls
-    assert name == ("jss_free_static_i16" if vdt == torch.int16 else "jss_free_static")
-    # state, tab, lanec, bits, seed, stats, ret, B, J, M, T, lane_offset, stream
-    assert args[3] is None and args[4] == 11 and args[7:] == (37, 15, 15, 9, 64, 7)
-    key = "rollout_free_i16_static" if vdt == torch.int16 else "rollout_free_static"
-    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), **{key: 1})
+    assert name == "jss_free_static"
+    tab, lanec = fr._lane_inputs(state)
+    # 12 fields, tab, lanec, bits, seed, stats, ret, B, J, M, T, lane_offset, stream
+    assert list(args[:12]) == _field_ptrs(state)
+    assert args[12:16] == (tab.data_ptr(), lanec.data_ptr(), None, 11)
+    assert args[16:18] == (out["episodes"].data_ptr(), out["ret"].data_ptr())
+    J, M = state.jobs_pad, state.machines_pad
+    assert args[18:] == (37, J, M, 9, 64, 7)
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rollout_free_static=1)
+    assert diagnostics.COUNTS["lane_buffers_built"] == built
 
 
 def test_padded_and_forced_launches_call_the_general_build(fake_card):
-    """A padded batch launches its slot class's build, int32 and int16; the
-    slot-class and rollout.cu builds run on any batch when asked for."""
+    """A padded batch launches its slot class's build on its fields, whether
+    or not its values fit int16; the slot-class and rollout.cu builds run
+    on any batch when asked for, rollout.cu's on a lane buffer in the
+    batch's cached value dtype (or the one asked for)."""
     padded = tv.make_batch(ti.get_instance_set(["ta01", "ta41"]), 4, device="cpu")
     padded16 = tv.make_batch(ti.get_instance_set(["ta01", "ta11"]), 4, device="cpu")
     unpadded = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
     fr.reset_launch_counts()
-    _launch(padded, torch.int32, lane_offset=3)
-    _launch(padded16, torch.int16)
-    _launch(unpadded, torch.int32, build="slots")
-    _launch(padded, torch.int32, build="rollout")
+    _launch(padded, lane_offset=3)
+    _launch(padded16)
+    _launch(unpadded, build="slots")
+    _launch(padded, build="rollout")
+    _launch(unpadded, build="rollout")
     _launch(unpadded, torch.int32, build="rollout")
     assert not fake_card.free.calls and fake_card.classes == [(1, 1)] * 3
-    assert [c[0] for c in fake_card.slots.calls] == ["jss_free_general", "jss_free_general_i16", "jss_free_general"]
-    # state, tab, lanec, bits, seed, stats, ret, B, J, M, T, lane_offset, stream
-    assert [c[1][7:] for c in fake_card.slots.calls] == [(4, 30, 20, 9, 3, 7), (4, 20, 15, 9, 0, 7),
-                                                         (4, 15, 15, 9, 0, 7)]
-    assert [c[0] for c in fake_card.general.calls] == ["jss_rollout_free"] * 2
+    assert [c[0] for c in fake_card.slots.calls] == ["jss_free_general"] * 3
+    assert [list(c[1][:12]) for c in fake_card.slots.calls] == [_field_ptrs(s) for s in (padded, padded16, unpadded)]
+    # 12 fields, tab, lanec, bits, seed, stats, ret, B, J, M, T, lane_offset, stream
+    assert [c[1][18:] for c in fake_card.slots.calls] == [(4, 30, 20, 9, 3, 7), (4, 20, 15, 9, 0, 7),
+                                                          (4, 15, 15, 9, 0, 7)]
+    assert [c[0] for c in fake_card.general.calls] == ["jss_rollout_free", "jss_rollout_free_i16",
+                                                       "jss_rollout_free"]
     geo = fr.launch_geometry(30, 20)
+    # buf, tab, lanec, bits, seed, stats, ret, B, J, M, T, lane_offset, geometry, stream
     assert fake_card.general.calls[0][1][12:] == (geo.lanes, geo.state_stride, geo.scratch_stride,
                                                   geo.shared_bytes, 7)
-    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rollout_free=2, rollout_free_slots=2,
-                               rollout_free_i16_slots=1)
+    assert fr.LAUNCHES == dict(dict.fromkeys(fr.LAUNCHES, 0), rollout_free=2, rollout_free_i16=1,
+                               rollout_free_slots=3)
     with pytest.raises(ValueError, match="unpadded batch"):
-        _launch(padded, torch.int32, build="static")
+        _launch(padded, build="static")
 
 
 def test_a_refused_launch_raises_and_counts_nothing(fake_card):
@@ -245,10 +270,78 @@ def test_a_refused_launch_raises_and_counts_nothing(fake_card):
     padded = tv.make_batch(ti.get_instance_set(["ta01", "ta11"]), 4, device="cpu")
     fr.reset_launch_counts()
     with pytest.raises(RuntimeError, match=r"free_static_kernel<static 15x15>: CUDA launch refused or failed"):
-        _launch(state, torch.int32)
-    with pytest.raises(RuntimeError, match=r"free_general_kernel<int16><slots 1x1>: CUDA launch refused or failed"):
-        _launch(padded, torch.int16)
+        _launch(state)
+    with pytest.raises(RuntimeError, match=r"free_general_kernel<slots 1x1>: CUDA launch refused or failed"):
+        _launch(padded)
     assert not any(fr.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("cut", ["leading", "strided"])
+def test_a_sliced_state_launches_on_its_views(fake_card, cut):
+    """A state whose fields are views of a larger batch: a leading slice
+    (contiguous at an offset, the form of the benchmark's half-batch fault)
+    is read where it lies, a strided one from contiguous copies."""
+    whole = tv.make_batch(ti.get_instance("ta01"), 8, device="cpu")
+    part = slice(None, 4) if cut == "leading" else slice(None, None, 2)
+    state = whole.replace(**{k: getattr(whole, k)[part] for k in vars(whole)})
+    _launch(state)
+    (_, args), = fake_card.free.calls
+    assert args[18] == 4
+    if cut == "leading":
+        assert list(args[:12]) == _field_ptrs(state) and args[0] == whole.time.data_ptr()
+    else:
+        assert not set(args[:12]) & set(_field_ptrs(state))
+
+
+@pytest.mark.parametrize("build", fr.BUILDS)
+def test_a_warm_free_call_reads_nothing_back(fake_card, build):
+    """A free call's host reads: the lane inputs' two (the tables, then the
+    static shape and the value dtype together) when its batch is new, none
+    once they are cached, on every build; only rollout.cu's build converts
+    the state to a lane buffer, once a call."""
+    state = tv.make_batch(ti.get_instance_set(["ta01", "ta02"]), 4, device="cpu")
+    counts = diagnostics.COUNTS
+    reads, built = counts["host_reads"], counts["lane_buffers_built"]
+    _launch(state, build=build)
+    assert counts["host_reads"] - reads == 2
+    for _ in range(2):
+        reads, built = counts["host_reads"], counts["lane_buffers_built"]
+        _launch(state, build=build)
+        assert counts["host_reads"] == reads
+        assert counts["lane_buffers_built"] - built == (build == "rollout")
+
+
+def test_reduce_stats_copies_nothing_from_the_host():
+    """A free call's reductions are device work alone: every op of
+    ``_reduce_stats`` stays on the lanes' device (``steps`` a fill, not a
+    host tensor copied over, which would wait for the kernel), in the
+    order sum, sum, min, sum, sum; the stats are the twin's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            devs = {a.device.type for a in (*args, *kwargs.values()) if isinstance(a, torch.Tensor)}
+            self.seen.append((func.overloadpacket.__name__, devs, str(kwargs.get("device", "meta"))))
+            return func(*args, **kwargs)
+
+    state = tv.make_batch(ti.get_instance("ta01"), 4, device="cpu")
+    lanes = fr.free_lane_stats_reference(state, 30, seed=2)
+    meta = {k: torch.empty_like(v, device="meta") for k, v in lanes.items()}
+    with Ops() as ops:
+        out = fr._reduce_stats(meta, 30, 4)
+    names = [n for n, _, _ in ops.seen]
+    assert "lift_fresh" not in names and "copy_" not in names and "_to_copy" in names
+    assert [n for n in names if n in ("sum", "min")] == ["sum", "sum", "min", "sum", "sum"]
+    assert all(devs <= {"meta"} and dev == "meta" for _, devs, dev in ops.seen), ops.seen
+    assert all(v.device.type == "meta" for v in out.values())
+    want = fr.rollout_free_reference(state, 30, seed=2)
+    got = fr._reduce_stats(lanes, 30, 4)
+    assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_the_kernels_build_together(tmp_path, monkeypatch):
@@ -303,6 +396,12 @@ CARD = {
     "ta01-mid": (lambda: ti.get_instance("ta01"), 8, 300, 150),
     "ta41-mid": (lambda: ti.get_instance("ta41"), 6, 300, 450),
     "rand6x5-mid": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 38, 300, 47),
+    # the benchmark's batches: ta01-ta10 (fits int16), ta41-ta50 (int32),
+    # their mix padded to 30x20 (the slot-class build), mid-episode too
+    "ta01-ta10": (lambda: ti.get_instance_set([f"ta{i:02d}" for i in range(1, 11)]), 40, 400, 0),
+    "ta41-ta50": (lambda: ti.get_instance_set([f"ta{i}" for i in range(41, 51)]), 20, 900, 0),
+    "ta01-ta10+ta41-ta50-mid": (lambda: ti.get_instance_set([f"ta{i:02d}" for i in (*range(1, 11), *range(41, 51))]),
+                                40, 400, 300),
 }
 
 
@@ -316,16 +415,19 @@ def test_new_kernel_matches_twin_and_general_on_card(cuda_dev, case, mode):
         state = driven_start(state, steps, 0)
         assert int(state.noop_pin.sum()) > 0 and int(state.work_done.sum()) > 0
     state = ts.from_numpy(ts.to_numpy(state), device=cuda_dev)
-    assert fr.free_kernel_job(state)[0] == "free_static"
+    padded = fr.static_shape(state) is None
+    assert fr.free_kernel_job(state)[0] == ("general_lane" if padded else "free_static")
     bits = None
     if mode == "bits":
         bits = torch.from_numpy(np.random.default_rng(4).integers(-(2**31), 2**31, size=(T, B)).astype(np.int32))
         bits = bits.to(cuda_dev)
     ref = fr.free_lane_stats_reference(state, T, 21, bits, lane_offset=B + 3)
-    runs = []
+    # the register builds on the state's fields; rollout.cu on its lane
+    # buffer in each storage type the batch fits
+    runs = [fr._free_kernel(state, T, 21, bits, lane_offset=B + 3, build=build)
+            for build in (("slots",) if padded else ("static", "slots"))]
     for vdt in (torch.int32, torch.int16) if fr.value_dtype(state) == torch.int16 else (torch.int32,):
-        for build in fr.BUILDS:
-            runs.append(fr._free_kernel(state, T, 21, bits, vdt, lane_offset=B + 3, build=build))
+        runs.append(fr._free_kernel(state, T, 21, bits, vdt, lane_offset=B + 3, build="rollout"))
     torch.cuda.synchronize()
     for got in runs:
         for f in ref:
@@ -335,11 +437,45 @@ def test_new_kernel_matches_twin_and_general_on_card(cuda_dev, case, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cut", ["leading", "strided", "shard"])
+@pytest.mark.parametrize("case", ["ta01-ta10", "ta41-ta50", "ta01-ta10+ta41-ta50-mid"])
+def test_sliced_and_sharded_states_match_on_card(cuda_dev, case, cut):
+    """A state whose fields are views of a larger batch (a leading slice, the
+    benchmark's half-batch form, read where it lies; a strided one, copied)
+    gives its lanes' stats in the whole batch's run on the same words; a
+    shard (lanes [B/2, B), its own tensors) with its ``lane_offset`` the
+    whole run's from its Philox words. Each equal to the twin; both
+    register builds where they take the batch, and rollout.cu's."""
+    src, B, T, steps = CARD[case]
+    state = tv.make_batch(src(), B, device="cpu")
+    if steps:
+        state = driven_start(state, steps, 0)
+    whole = ts.from_numpy(ts.to_numpy(state), device=cuda_dev)
+    lanes = {"leading": slice(None, B // 2), "strided": slice(None, None, 2), "shard": slice(B // 2, None)}[cut]
+    part = whole.replace(**{k: getattr(whole, k)[lanes] for k in vars(whole)})
+    off = B // 2 if cut == "shard" else 0
+    if cut == "shard":
+        part = ts.from_numpy(ts.to_numpy(part), device=cuda_dev)
+        want = fr._free_kernel(whole, T, 5, None)
+    else:
+        bits = torch.from_numpy(np.random.default_rng(6).integers(-(2**31), 2**31, size=(T, B)).astype(np.int32))
+        want = fr._free_kernel(whole, T, 5, bits.to(cuda_dev))
+    words = (None if cut == "shard" else bits[:, lanes].contiguous().to(cuda_dev))
+    ref = fr.free_lane_stats_reference(part, T, 5, words, lane_offset=off)
+    builds = [b for b in fr.BUILDS if b != "static" or fr.static_shape(part) is not None]
+    for build in builds:
+        got = fr._free_kernel(part, T, 5, words, lane_offset=off, build=build)
+        for f in ref:
+            assert torch.equal(got[f], ref[f]) and torch.equal(got[f], want[f][lanes]), (build, f)
+    assert int(ref["episodes"].sum()) > 0
+
+
+@pytest.mark.cuda
 def test_new_kernel_reports_its_occupancy_on_card(cuda_dev):
     lib = fr._free_lib((15, 15))
     fn = lib.jss_free_static_blocks_per_sm
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    assert all(fn(i16) >= 1 for i16 in (0, 1))
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    assert fn() >= 1
 
 
 @pytest.mark.cuda
@@ -350,6 +486,6 @@ def test_new_kernel_refuses_another_shape_on_card(cuda_dev, monkeypatch):
     other = fr._free_lib((6, 5))
     monkeypatch.setattr(fr, "_free_lib", lambda shape: other)
     before = dict(fr.LAUNCHES)
-    with pytest.raises(RuntimeError, match="free_static_kernel<int16><static 15x15>: CUDA launch refused"):
+    with pytest.raises(RuntimeError, match="free_static_kernel<static 15x15>: CUDA launch refused"):
         fr.free_lane_stats(state, 4, seed=1)
     assert fr.LAUNCHES == before

@@ -20,11 +20,13 @@ go into a temporary directory.
 Each case runs in a process of this file (``python
 tests/test_torch_kernel_shim.py LIBDIR CASE``) with a time limit of its own.
 A free case holds each kernel's per-lane stats and float32 returns bit for
-bit against ``fused_rollout.free_lane_stats_reference``: int32 and int16
-storage where the values fit, Philox words with a non-zero ``lane_offset``
-and caller bits, from fresh states and from states a few hundred driven
-steps into an episode (``START``: running jobs, no-op pins, work done and
-busy machines, which a fresh state has none of). A driven case (``DRIVEN``)
+bit against ``fused_rollout.free_lane_stats_reference``: the register builds
+on the state's own fields (views of a larger batch too, ``SLICED``),
+rollout.cu's on its lane buffer in int32 and int16 storage where the values
+fit, Philox words with a non-zero ``lane_offset`` and caller bits, from
+fresh states and from states a few hundred driven steps into an episode
+(``START``: running jobs, no-op pins, work done and busy machines, which a
+fresh state has none of). A driven case (``DRIVEN``)
 holds the driven kernel's new state, field by field, its rewards and its
 ends bit for bit against ``fused_rollout.rollout_driven_reference`` at T = 0,
 1 and 40 on the full and the light state, fresh and mid-episode, at every
@@ -216,23 +218,15 @@ inline void launch(int grid, int block, std::function<void()> body) {
 """
 
 # The C entry points of each library, with the arguments of the source's own.
-STATIC_ENTRY = r"""
-extern "C" int shim_free(const void* state, const void* tab, const void* lanec, const void* bits,
-                         unsigned long long seed, void* stats, void* ret, int B, int T, int lane_offset,
-                         int i16) {
-  const int grid = (B + kLanes - 1) / kLanes;
-  if (i16)
-    launch(grid, kLanes * 32, [=] {
-      free_static_kernel<int16_t>((const int16_t*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits,
-                                  seed, (long long*)stats, (float*)ret, B, Bounds::J, Bounds::M, T, lane_offset);
-    });
-  else
-    launch(grid, kLanes * 32, [=] {
-      free_static_kernel<int32_t>((const int32_t*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits,
-                                  seed, (long long*)stats, (float*)ret, B, Bounds::J, Bounds::M, T, lane_offset);
-    });
+FREE_ENTRY = r"""
+extern "C" int shim_free(JSS_FREE_PARAMS) {
+  const FreeIO io = JSS_FREE_IO;
+  launch((B + kLanes - 1) / kLanes, kLanes * 32, [=] { JSS_FREE_KERNEL(io); });
   return kLanes;
 }
+"""
+
+STATIC_ENTRY = FREE_ENTRY + r"""
 extern "C" int shim_mod_small(unsigned x, int d) { return mod_small(x, d); }
 """
 
@@ -248,23 +242,7 @@ extern "C" int shim_driven(const void* const* p, int B, int T, int with_solution
 }
 """
 
-LANE_ENTRY = r"""
-extern "C" int shim_free(const void* state, const void* tab, const void* lanec, const void* bits,
-                         unsigned long long seed, void* stats, void* ret, int B, int J, int M, int T, int lane_offset,
-                         int i16) {
-  const int grid = (B + kLanes - 1) / kLanes;
-  if (i16)
-    launch(grid, kLanes * 32, [=] {
-      free_general_kernel<int16_t>((const int16_t*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits,
-                                   seed, (long long*)stats, (float*)ret, B, J, M, T, lane_offset);
-    });
-  else
-    launch(grid, kLanes * 32, [=] {
-      free_general_kernel<int32_t>((const int32_t*)state, (const int*)tab, (const int*)lanec, (const uint32_t*)bits,
-                                   seed, (long long*)stats, (float*)ret, B, J, M, T, lane_offset);
-    });
-  return kLanes;
-}
+LANE_ENTRY = FREE_ENTRY + r"""
 extern "C" int shim_driven(const void* const* p, int B, int J, int M, int T, int with_solution) {
   const DrivenIO io{(const int*)p[0], (const int*)p[1], (const int*)p[2], (const int*)p[3], (const int*)p[4],
                     (const int*)p[5], (const int*)p[6], (const int*)p[7], (const int*)p[8], (const int*)p[9],
@@ -338,8 +316,9 @@ MIXED = {
 # case -> (instance source, B, T, static shape or None (a padded batch), the
 # runs: (build, storage type, random words)); Philox words are drawn with
 # lane_offset 5. Together the runs cover the three builds ("static",
-# "slots": general_lane.cu, "general": rollout.cu) in int32 and int16,
-# Philox and bits, and every slot class on a padded batch.
+# "slots": general_lane.cu, "general": rollout.cu, whose storage type alone
+# is int32 or int16; the register builds read the fields), Philox and bits,
+# and every slot class on a padded batch.
 I32, I16 = torch.int32, torch.int16
 CASES = {
     "ta01": (lambda: ti.get_instance("ta01"), 8, 300, (15, 15),
@@ -369,6 +348,12 @@ CASES = {
     "rand6x5-mid": (lambda: ti.random_instance(6, 5, (1, 9), seed=3), 8, 300, (6, 5), (("static", I16, "bits"),)),
     "ta01+ta11-mid": (ta01_11, 8, 300, None, (("slots", I16, "philox"), ("slots", I32, "bits"))),
     "mix100x3+2x40-mid": (MIXED["mix100x3+2x40"][0], 4, 300, None, (("slots", I16, "bits"),)),
+    # states whose fields are views of a larger batch (SLICED): a leading
+    # slice, contiguous at an offset (the form of the benchmark's half-batch
+    # fault), read where it lies; a strided one, copied first
+    "ta01-half": (lambda: ti.get_instance("ta01"), 16, 300, (15, 15),
+                  (("static", I32, "philox"), ("static", I32, "bits"), ("general", I16, "bits"))),
+    "ta01+ta11-strided": (ta01_11, 16, 300, None, (("slots", I32, "philox"), ("general", I32, "philox"))),
     # rollout.cu past 64 machines: 3 machine slots a thread (M = 70), 4 (M =
     # 100), and five job slots with three machine slots (150x70, int32 only)
     "wide4x70": (lambda: ti.random_instance(4, 70, (1, 9), seed=3), 4, 300, (4, 70),
@@ -383,7 +368,10 @@ CASES = {
 # case -> (driven steps, seed of the random legal actions) before the free
 # rollout starts: every lane mid-episode, with no-op pins in some
 START = {"ta01-mid": (150, 0), "ta41-mid": (450, 1), "rand6x5-mid": (47, 0), "ta01+ta11-mid": (150, 2),
-         "mix100x3+2x40-mid": (160, 3), "wide4x70-mid": (150, 4), "wide3x100-mid": (160, 5)}
+         "mix100x3+2x40-mid": (160, 3), "wide4x70-mid": (150, 4), "wide3x100-mid": (160, 5),
+         "ta01-half": (150, 6), "ta01+ta11-strided": (150, 7)}
+# case -> the slice of the batch its runs take, every field a view
+SLICED = {"ta01-half": slice(None, 8), "ta01+ta11-strided": slice(None, None, 3)}
 TIME_LIMIT_S = 90  # a case's process; each takes 2-8 s alone
 LANE_OFFSET = 5
 
@@ -489,26 +477,28 @@ def build(libdir: Path) -> dict:
 
 def _run_lib(lib, state, T, vdt, seed, bits, lane_offset, build):
     """One launch of the shim library of ``build`` ("static", "slots" or
-    "general": rollout.cu) on the port's kernel inputs; per-lane stats as
-    ``fused_rollout._free_kernel`` returns them."""
+    "general": rollout.cu) on the port's kernel inputs: the register builds
+    on the state's own fields (``fused_rollout._free_inputs``, no storage
+    type: ``vdt`` is rollout.cu's), rollout.cu on its lane buffer in
+    ``vdt``; per-lane stats as ``fused_rollout._free_kernel`` returns
+    them."""
     B = state.batch_size
-    buf = fr._to_lanes(state, with_solution=False, vdt=vdt)
     tab, lanec = fr._lane_inputs(state)
     stats = torch.zeros((4, B), dtype=torch.int64)
     ret = torch.zeros((B,), dtype=torch.float32)
     P, I = ctypes.c_void_p, ctypes.c_int
-    args = [buf.data_ptr(), tab.data_ptr(), lanec.data_ptr(), None if bits is None else bits.data_ptr(),
-            seed & (2**64 - 1), stats.data_ptr(), ret.data_ptr(), B]
-    i16 = int(vdt == torch.int16)
+    tail = [tab.data_ptr(), lanec.data_ptr(), None if bits is None else bits.data_ptr(), seed & (2**64 - 1),
+            stats.data_ptr(), ret.data_ptr(), B]
     if build == "general":
+        buf = fr._to_lanes(state, with_solution=False, vdt=vdt)
         geo = fr.launch_geometry(state.jobs_pad, state.machines_pad, vdt)
-        args += [state.jobs_pad, state.machines_pad, T, lane_offset, geo.lanes, geo.state_stride,
-                 geo.scratch_stride, i16]
-    elif build == "slots":
-        args += [state.jobs_pad, state.machines_pad, T, lane_offset, i16]
-    else:
-        args += [T, lane_offset, i16]
-    lib.shim_free.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P] + [I] * (len(args) - 7)
+        args = [buf.data_ptr(), *tail, state.jobs_pad, state.machines_pad, T, lane_offset, geo.lanes,
+                geo.state_stride, geo.scratch_stride, int(vdt == torch.int16)]
+        lib.shim_free.argtypes = [P, P, P, P, ctypes.c_ulonglong, P, P] + [I] * (len(args) - 7)
+    else:  # the entry point's own signature, JSS_FREE_PARAMS
+        inputs = fr._free_inputs(state)
+        args = [t.data_ptr() for t in inputs] + tail + [state.jobs_pad, state.machines_pad, T, lane_offset]
+        lib.shim_free.argtypes = fr._FREE_ARGTYPES[:-1]
     lib.shim_free.restype = I
     lib.shim_free(*args)
     return {"episodes": stats[0], "mk_sum": stats[1], "mk_min": stats[2], "viol": stats[3], "ret": ret}
@@ -649,6 +639,12 @@ def run_case(libdir: str, case: str) -> None:
     state = tv.make_batch(src(), B, device="cpu")
     if case in START:
         state = driven_start(state, *START[case])
+    if case in SLICED:
+        whole = state
+        state = state.replace(**{k: getattr(state, k)[SLICED[case]] for k in vars(state)})
+        B = state.batch_size
+        assert all(getattr(state, k)._base is getattr(whole, k) for k in vars(state))
+        assert state.time.is_contiguous() == (case == "ta01-half")
     assert fr.static_shape(state) == shape
     bits = torch.from_numpy(np.random.default_rng(11).integers(-(2**31), 2**31, size=(T, B)).astype(np.int32))
     words = {"philox": (97, None, LANE_OFFSET), "bits": (0, bits, 0)}

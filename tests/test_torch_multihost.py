@@ -177,7 +177,8 @@ def test_twin_lane_offset_draws_the_global_lanes(offset):
 def test_offset_kernel_on_card(name, vdt):
     """The free kernel on the second half of a batch with its
     ``lane_offset``: every per-lane stat equal to the twin's on that half
-    and to the whole batch's kernel run, in both instantiations."""
+    and to the whole batch's kernel run, in the static build on the
+    state's fields and in rollout.cu's build in both instantiations."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; run `pytest -m cuda tests/test_torch_*.py` on the card")
     dev = torch.device("cuda")
@@ -185,11 +186,12 @@ def test_offset_kernel_on_card(name, vdt):
     T = 700 if name == "ta41" else 300
     whole = tv.make_lanes(src, torch.arange(512), dev)
     half = tv.make_lanes(src, torch.arange(256, 512), dev)
-    k = fr._free_kernel(half, T, 9, None, vdt, lane_offset=256)
-    w = fr._free_kernel(whole, T, 9, None, vdt)
+    k = fr._free_kernel(half, T, 9, None, lane_offset=256)
+    w = fr._free_kernel(whole, T, 9, None)
+    g = fr._free_kernel(half, T, 9, None, vdt, lane_offset=256, build="rollout")
     t = fr.free_lane_stats_reference(half, T, 9, lane_offset=256)
     for key in ("episodes", "mk_sum", "mk_min", "viol", "ret"):
-        assert torch.equal(k[key], w[key][256:]), key
+        assert torch.equal(k[key], w[key][256:]) and torch.equal(g[key], k[key]), key
         if key != "ret":
             assert torch.equal(k[key], t[key]), key
     assert float((k["ret"] - t["ret"]).abs().max()) <= 1e-3 and int(k["episodes"].sum()) > 0

@@ -573,11 +573,10 @@ def test_free_kernel_matches_twin_on_card(cuda_dev, case, mode):
     src, B, T, pad = CARD_CASES[case]
     state = tv.make_batch(src(), B, device=cuda_dev, **pad)
     bits = torch.from_numpy(_bits(T, B, seed=2)).to(cuda_dev) if mode == "bits" else None
-    # every case but the ragged one (ta41, ta71) fits int16 and runs that
-    # instantiation
-    key = "rollout_free_i16" if fr.value_dtype(state) == torch.int16 else "rollout_free"
-    assert (key == "rollout_free") == (case == "ragged")
-    key = _launch_key(key, state)
+    # every case but the ragged one (ta41, ta71) fits int16; each runs a
+    # register build on its fields, which has no storage type
+    assert (fr.value_dtype(state) == torch.int32) == (case == "ragged")
+    key = _launch_key("rollout_free", state)
     before = dict(fr.LAUNCHES)
     k = fr.free_lane_stats(state, T, seed=11, bits=bits)
     assert fr.LAUNCHES[key] == before[key] + 1 and sum(fr.LAUNCHES.values()) == sum(before.values()) + 1
@@ -596,22 +595,26 @@ INT16_CARD_CASES = dict(CARD_CASES, ragged=(lambda: ti.get_instance_set(["ta01",
 @pytest.mark.parametrize("case", sorted(INT16_CARD_CASES))
 @pytest.mark.parametrize("mode", ["bits", "philox"])
 def test_int16_kernel_matches_int32_kernel_on_card(cuda_dev, case, mode):
-    """A batch whose values fit runs the int16 instantiation by default; its
-    per-lane stats equal the int32 instantiation's on the same batch and
-    the twin's."""
+    """A batch whose values fit runs rollout.cu's int16 instantiation when
+    that build is asked for (the dtype cached with its lane inputs); its
+    per-lane stats equal the int32 instantiation's on the same batch, the
+    register build's (the default) and the twin's."""
     src, B, T, pad = INT16_CARD_CASES[case]
     state = tv.make_batch(src(), B, device=cuda_dev, **pad)
     bits = torch.from_numpy(_bits(T, B, seed=3)).to(cuda_dev) if mode == "bits" else None
     assert fr.value_dtype(state) == torch.int16
     before = dict(fr.LAUNCHES)
-    k16 = fr.free_lane_stats(state, T, seed=11, bits=bits)
-    k32 = fr._free_kernel(state, T, 11, bits, torch.int32)
-    key16, key32 = _launch_key("rollout_free_i16", state), _launch_key("rollout_free", state)
-    assert fr.LAUNCHES[key16] == before[key16] + 1
-    assert fr.LAUNCHES[key32] == before[key32] + 1
+    k = fr.free_lane_stats(state, T, seed=11, bits=bits)
+    k16 = fr._free_kernel(state, T, 11, bits, build="rollout")
+    k32 = fr._free_kernel(state, T, 11, bits, torch.int32, build="rollout")
+    key = _launch_key("rollout_free", state)
+    assert fr.LAUNCHES[key] == before[key] + 1
+    assert fr.LAUNCHES["rollout_free_i16"] == before["rollout_free_i16"] + 1
+    assert fr.LAUNCHES["rollout_free"] == before["rollout_free"] + 1
     r = fr.free_lane_stats_reference(state, T, seed=11, bits=bits)
-    for k in k16:
-        assert torch.equal(k16[k], k32[k]) and torch.equal(k16[k], r[k]), k
+    for k16_ in k16:
+        assert torch.equal(k16[k16_], k32[k16_]) and torch.equal(k16[k16_], r[k16_]), k16_
+        assert torch.equal(k[k16_], r[k16_]), k16_
     assert int(k16["viol"].sum()) == 0 and int(k16["episodes"].sum()) > 0
 
 

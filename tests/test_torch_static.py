@@ -120,8 +120,8 @@ def test_static_choice_matches_jax_static_lane(jx, case):
 
 def test_static_shape_is_computed_once_per_batch(monkeypatch):
     calls = []
-    real = fr._static_shape_uncached
-    monkeypatch.setattr(fr, "_static_shape_uncached", lambda s: calls.append(1) or real(s))
+    real = fr._batch_meta_uncached
+    monkeypatch.setattr(fr, "_batch_meta_uncached", lambda s: calls.append(1) or real(s))
     state = tv.make_batch(ti.random_instance(7, 4, (1, 9), seed=9), 5, device="cpu")
     assert fr.static_shape(state) == (7, 4) and len(calls) == 1
     # a stepped state shares its static tensors: a cache hit, no host read
@@ -441,12 +441,14 @@ def test_static_free_kernel_matches_twin_and_general_on_card(cuda_dev, case, mod
     if vdt == torch.int16 and fr.value_dtype(state) != torch.int16:
         vdt = torch.int32  # ta41, ta71: their values need int32; the case runs it twice
     bits = torch.from_numpy(_bits(T, B, seed=7)).to(cuda_dev) if mode == "bits" else None
+    # ``vdt`` is rollout.cu's storage type; the register builds read the
+    # state's fields
     key = "rollout_free_i16" if vdt == torch.int16 else "rollout_free"
     before = dict(fr.LAUNCHES)
-    static = fr._free_kernel(state, T, 13, bits, vdt, lane_offset=B)
+    static = fr._free_kernel(state, T, 13, bits, lane_offset=B)
     general = fr._free_kernel(state, T, 13, bits, vdt, lane_offset=B, build="rollout")
-    slots = fr._free_kernel(state, T, 13, bits, vdt, lane_offset=B, build="slots")
-    assert _delta(before) == {key + "_static": 1, key: 1, key + "_slots": 1}
+    slots = fr._free_kernel(state, T, 13, bits, lane_offset=B, build="slots")
+    assert _delta(before) == {"rollout_free_static": 1, key: 1, "rollout_free_slots": 1}
     ref = fr.free_lane_stats_reference(state, T, 13, bits, lane_offset=B)
     for f in ref:
         assert torch.equal(static[f], ref[f]), f
@@ -468,8 +470,7 @@ def test_padded_batches_keep_the_general_kernel_on_card(cuda_dev, pad):
     before = dict(fr.LAUNCHES)
     final, raw, ends = fr.rollout_driven(state, acts, T, return_ends=True)
     lanes = fr.free_lane_stats(state, T, seed=3)
-    key = "rollout_free_i16" if fr.value_dtype(state) == torch.int16 else "rollout_free"
-    assert _delta(before) == {"rollout_driven_slots": 1, key + "_slots": 1}
+    assert _delta(before) == {"rollout_driven_slots": 1, "rollout_free_slots": 1}
     ref, ref_raw, ref_ends = fr.rollout_driven_reference(state, acts, T, return_ends=True)
     assert torch.equal(raw, ref_raw) and torch.equal(ends, ref_ends)
     for k in ts.FIELD_NAMES:

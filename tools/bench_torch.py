@@ -15,17 +15,17 @@ read back on the host (as ``bench.py`` times its runs). ``vs_baseline``
 divides it by the reference env's single-core throughput (BASELINE.md).
 
 Each config runs ``fused_rollout.rollout_free`` (on a CUDA state the free
-kernel in the storage dtype ``value_dtype`` picks and the build
-``fused_rollout.free_build`` picks: ``core/csrc/free_static.cu`` for an
-unpadded batch of its shape, as every config here is,
-``core/csrc/general_lane.cu`` for a padded or mixed one; its plain twin on a
-CPU state): a warm-up at the full step
+kernel in the build ``fused_rollout.free_build`` picks, on the state's own
+fields: ``core/csrc/free_static.cu`` for an unpadded batch of its shape, as
+every config here is, ``core/csrc/general_lane.cu`` for a padded or mixed
+one; its plain twin on a CPU state; ``value_dtype`` reports the storage
+type ``core/csrc/rollout.cu``'s build would take): a warm-up at the full step
 count (seed 0, which also builds the kernel with nvcc on first use;
 ``cold_build`` says whether it did), then ``--repeats`` runs at seeds 1, 2,
 ..., each from the same freshly reset batch, built before the clock starts.
 ``runs`` holds each repeat's integer stats (the port's int64 counters), its
 host-clock seconds and the device time of the call between two CUDA events
-(the kernel and its few staging copies; null on the CPU); ``launches``
+(the kernel and its reductions; null on the CPU); ``launches``
 counts the kernel launches of the config. Any reward-identity violation
 raises. For ``--instance ta01`` on the card, unless ``--no-extra``,
 ``extra`` holds the records of ragged ta41-ta50 at B=10240 and ta71 at
@@ -116,7 +116,7 @@ def run_config(instance_spec: str, batch: int, steps: int, repeats: int, device)
     source = inst.get_instance(names[0]) if len(names) == 1 else inst.get_instance_set(names)
     state = vector.make_batch(source, batch, device=device)
     on_card = device.type == "cuda"
-    # the kernel's storage dtype; the twin steps the engine's own int32 state
+    # rollout.cu's storage dtype for the batch; the twin steps the engine's own int32 state
     vdt = str(fused_rollout.value_dtype(state) if on_card else state.time.dtype).removeprefix("torch.")
 
     def sync():
